@@ -10,13 +10,24 @@ non-zero without printing a result.
            the power limit; TF32 stays off
   build    wipes equidock_public_tpu_torch/_build and builds both kernels
            with one nvcc call; prints ptxas' register/shared-memory lines
-  kernels  each CUDA kernel against its plain PyTorch version on the card,
-           at the serving shapes, with the stated tolerance
+  kernels  each CUDA kernel against its plain PyTorch version on the card:
+           the forwards at the serving shapes, the backwards (edge message,
+           attention dQ and dK/dV) against autograd through the plain
+           forwards at the training shapes, with the stated tolerances
   serve    the DB5 paper model (committed weights) warms up buckets 512 and
            1024, then answers 4 requests through DockingServer.serve_lines;
            R, t and CA coordinates must match the JAX package's CPU values
-           in the golden file, and every forward must launch each kernel
-           exactly 10 times (5 layers x 2 sides)
+           in the golden file, and every forward must launch each forward
+           kernel exactly 10 times (5 layers x 2 sides)
+  train    the same model trains on a batch of 10 tracked DB5 chains, each
+           cut in two (the port's featurizer and DockingDataset, the golden
+           file's seed): every parameter gets a finite gradient whose norm
+           matches the JAX package's; 3 train_steps match its loss terms,
+           gradient norms and parameter moves per step; each of the five
+           kernels launches exactly 10 times a step. Then step time after
+           warm-up, pairs/s, and a profile of one step (device busy and idle
+           share, top device ops, the Sinkhorn loop's and the SVD's share,
+           the host synchronizations of a step)
   times    each kernel's device time (CUDA-graph replays between CUDA
            events) beside its plain version, its bound and a PyTorch library
            call where one exists, and its eager per-call time; the
@@ -28,6 +39,8 @@ nvidia-smi gives them, and the result line. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import io
 import json
 import os
@@ -48,6 +61,18 @@ LAYERS, SIDES = 5, 2
 # Kernel vs plain version, both f32 FMA on the card, other summation order.
 EDGE_TOL = dict(rtol=1e-4, atol=1e-4)
 ATT_TOL = dict(rtol=1e-4, atol=1e-4)
+# Backward kernels vs autograd through the plain forwards, per gradient
+# tensor: ||kernel - plain|| <= tol ||plain||. Attention is smooth: f32
+# rounding in another order gives about 1e-6. The edge step is not: an edge
+# whose pre-activation lies within rounding of 0 takes the other branch of
+# LeakyReLU's derivative in one of the two, which moves that edge's
+# cotangents by up to 99%; at 51 200 edges with trained weights a few do.
+# Readings on an H100: 1.0e-4 and 3.0e-4 in two sound runs; 1.2e-2 (d_src)
+# for a kernel that leaves out the distance term of dgx. So 1e-3, norm-wise.
+BWD_REL_TOL = {"edge_message_bwd": 1e-3, "cross_attention_dq": 1e-5,
+               "cross_attention_dkv": 1e-5}
+TRAIN_STEPS = 3         # checked against the training golden file
+TIMED_STEPS = 10        # after 2 warm-up steps
 # Served outputs vs the JAX package on the CPU (tests/test_torch_serve.py
 # holds the port's CPU path to the same numbers): R unitless, t and CA in A.
 GOLDEN_ATOL = {"R": 1e-3, "t": 1e-2, "ca": 1e-2}
@@ -117,17 +142,19 @@ def call_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def forward_profile(forward, batch, reps: int = 3) -> dict:
-    """Device busy time of `reps` warm forwards (torch.profiler, CUPTI)
-    against their wall time, and the kernels that take the most of it."""
+def device_profile(run, reps: int, top: int = 8) -> dict:
+    """Device busy time of `reps` warm calls of `run` (torch.profiler,
+    CUPTI) against their wall time, the device ops that take the most of
+    it, and the time of the batched SVD kernels (by name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    forward(batch)["R"].cpu()
+    run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
-            forward(batch)["R"].cpu()
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     by_name: dict = {}
@@ -137,11 +164,14 @@ def forward_profile(forward, batch, reps: int = 3) -> dict:
             ms, n = by_name.get(name, (0.0, 0))
             by_name[name] = (ms + e.time_range.elapsed_us() / 1e3 / reps, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"forward_wall_ms": wall_ms, "device_busy_ms": busy,
+    svd = sum(ms for k, (ms, _) in by_name.items()
+              if any(w in k.lower() for w in ("svd", "gesvd", "jacobi")))
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": (1 - busy / wall_ms) if by_name else None,
-            "device_ops_per_forward": sum(n for _, n in by_name.values()) / reps,
-            "top_device_ms": [[k, round(ms, 4), n // reps] for k, (ms, n) in top]}
+            "device_ops_per_call": sum(n for _, n in by_name.values()) / reps,
+            "svd_device_ms": svd, "svd_device_share": svd / busy if busy else None,
+            "top_device_ms": [[k, round(ms, 4), n // reps] for k, (ms, n) in ranked]}
 
 
 def bound(nbytes: float, flops: float):
@@ -238,6 +268,313 @@ def attention_cost(q, k, v, qt, kt, out):
     return nbytes, 2 * pairs * (D + Dv) + empty * M * Dv
 
 
+# (name, module under ops/cuda, launch-counter attribute, source, TPU kernel
+# it replaces, the path whose launches the kernel table reports)
+KERNELS = (
+    ("edge_message", "edge_message", "launches", "csrc/edge_message.cu",
+     "ops/pallas/edge_message.py:70", "serve"),
+    ("edge_message_bwd", "edge_message", "bwd_launches", "csrc/edge_message_bwd.cu",
+     "ops/pallas/edge_message.py:131", "train"),
+    ("cross_attention", "cross_attention", "launches", "csrc/cross_attention.cu",
+     "ops/pallas/cross_attention.py:43", "serve"),
+    ("cross_attention_dq", "cross_attention", "dq_launches", "csrc/cross_attention_bwd.cu",
+     "ops/pallas/cross_attention.py:84", "train"),
+    ("cross_attention_dkv", "cross_attention", "dkv_launches", "csrc/cross_attention_bwd.cu",
+     "ops/pallas/cross_attention.py:104", "train"),
+)
+
+
+def kernel_counters():
+    """(module, launch-counter attribute, kernel name) of every kernel."""
+    return tuple((importlib.import_module(f"equidock_public_tpu_torch.ops.cuda.{mod}"),
+                  attr, name) for name, mod, attr, *_ in KERNELS)
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).norm()) / max(float(want.norm()), 1e-30)
+
+
+def check_grads(kernel, shape, got, want) -> dict:
+    """Norm-wise check of each gradient tensor; (max abs err, worst rel err)."""
+    errs, tol = [], BWD_REL_TOL[kernel]
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(torch.isfinite(g).all().item(), f"{kernel} {shape} [{i}]: non-finite gradient")
+        errs.append(rel_err(g, w))
+        require(errs[-1] <= tol, f"{kernel} {shape} [{i}]: relative error {errs[-1]:.3g} > {tol}")
+    return {"max_abs_err": max_err(got, want), "rel_err": max(errs)}
+
+
+def training_tags(rng, B, N):
+    """0/1 node masks of B split-chain halves (70 to 274 valid nodes)."""
+    tags = np.zeros((B, N), np.float32)
+    for b in range(B):
+        tags[b, :rng.integers(70, 275)] = 1
+    return torch.from_numpy(tags)
+
+
+def attention_bwd_cases(dev, B=10, N=512):
+    """(q, k, v, q_tag, k_tag, o, lse, dout, delta) at the training shapes:
+    bs 10, 512x512, widths 64 and 69 (layer 0)."""
+    cases = []
+    for D in (64, 69):
+        rng = np.random.default_rng(D)
+        gen = torch.Generator().manual_seed(D)
+        q, k, v, do = (torch.randn(B, N, D, generator=gen) * s for s in (0.3, 0.3, 1, 1))
+        qt, kt = training_tags(rng, B, N), training_tags(rng, B, N)
+        q, k, v, qt, kt, do = (x.to(dev).contiguous() for x in (q, k, v, qt, kt, do))
+        from equidock_public_tpu_torch.ops.cuda import cross_attention as ca
+        o, lse = ca.cross_attention_plain(q, k, v, qt, kt)
+        delta = (do * o).sum(-1).contiguous()
+        cases.append(dict(shape=f"B={B} N=M={N} D=Dv={D} (70-274 valid a side)",
+                          args=(q, k, v, qt, kt, o.contiguous(), lse.contiguous(), do),
+                          delta=delta))
+    return cases
+
+
+def edge_bwd_case(params, dev, B=10, N=512):
+    """Edge-message backward inputs at the training shape: B kNN graphs of
+    70-274 valid nodes padded to 512, trained weights of the shared layer,
+    random output cotangents."""
+    from equidock_public_tpu_torch.data.featurize import ProteinGraph
+    from equidock_public_tpu_torch.data.synth import synth_graph
+    from equidock_public_tpu_torch.graph import pad_protein
+    from equidock_public_tpu_torch.models.iegmn import edge_kernel_inputs
+
+    rng = np.random.default_rng(5)
+    sides = []
+    for _ in range(B):
+        d = synth_graph(rng, int(rng.integers(70, 275)), 10)
+        sides.append(pad_protein(ProteinGraph(
+            res_id=d["res_id"], x=d["x"], mu_r_norm=d["mu_r_norm"], nbr=d["nbr"],
+            nbr_mask=d["nbr_mask"], edge_feat=d["edge_feat"]), N))
+    T = lambda key: torch.from_numpy(np.stack([g[key] for g in sides])).to(dev).contiguous()
+    h = torch.from_numpy(rng.standard_normal((B, N, 64)).astype(np.float32)).to(dev)
+    he = T("edge_feat")
+    src, dst, kp = edge_kernel_inputs(params["original"]["rest"], T("x"), h, he)
+    ga = torch.from_numpy(rng.standard_normal((B, N, 64)).astype(np.float32)).to(dev)
+    gx = torch.from_numpy(rng.standard_normal((B, N, 3)).astype(np.float32)).to(dev)
+    return dict(shape=f"B={B} N={N} (70-274 valid) K=10 D=64 E=27",
+                args=(src, dst, he, T("nbr"), T("nbr_mask"), kp, ga, gx))
+
+
+def nbytes_of(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def edge_bwd_cost(src, dst, he, nbr, msk, kp, ga, gx):
+    """Bytes: each input once, and each output of the function (d_src, d_dst,
+    d_he, the parameter gradients) once. Operations: the recompute and the
+    walk back for each unmasked edge (masked edges have zero cotangents)."""
+    D, E = src.shape[-1] - 3, he.shape[-1]
+    params = nbytes_of(*kp.values())
+    nbytes = (nbytes_of(src, dst, he, nbr, msk, ga, gx) + params
+              + nbytes_of(src, dst, he) + params)
+    recompute = 2 * (E * D + 15 * D + 2 * D * D + D)
+    walk_back = 2 * (4 * D * D + 2 * E * D + 2 * 15 * D + 3 * D)
+    return nbytes, float(msk.sum()) * (recompute + walk_back)
+
+
+def attention_bwd_cost(part, q, k, v, qt, kt, o, lse, do):
+    """dq: per kept (query, key) pair the logit, do . v and ds k. dkv: the
+    logit, do . v, ds q and w do per kept pair, plus w do for every key of a
+    query row that keeps none (w = 1/M there; elsewhere masked pairs have
+    w = 0 in f32)."""
+    mask = (qt[:, :, None] > 0) & (qt[:, :, None] == kt[:, None, :])
+    pairs = float(mask.sum())
+    empty = float((~mask.any(-1)).sum())
+    D, Dv, M = q.shape[-1], v.shape[-1], k.shape[1]
+    ins = nbytes_of(q, k, v, qt, kt, lse, do) + lse.numel() * 4     # + delta
+    if part == "dq":
+        return ins + q.numel() * 4, 2 * pairs * (2 * D + Dv)
+    return ins + (k.numel() + v.numel()) * 4, 2 * pairs * (2 * D + 2 * Dv) + 2 * empty * M * Dv
+
+
+def backward_ms(fn_out, inputs, grad_out) -> float:
+    """Time of one backward through an autograd graph built once outside
+    (retain_graph), over back-to-back eager calls between CUDA events:
+    autograd launches a backward on its forward's stream, so it cannot be
+    captured in a CUDA graph on another."""
+    return call_ms(lambda: torch.autograd.grad(fn_out, inputs, grad_out, retain_graph=True),
+                   iters=20)
+
+
+def sdpa_bwd_ms(q, k, v, qt, kt, do):
+    """The library yardstick of rows 4 and 5: the backward of
+    scaled_dot_product_attention (scale 1, additive mask) for dq, dk and dv
+    together; (ms, None) or (None, reason)."""
+    keep = (qt[:, :, None] > 0) & (qt[:, :, None] == kt[:, None, :])
+    add_mask = torch.where(keep, 0.0, -1000.0)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    try:
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=add_mask, scale=1.0)
+        return backward_ms(o, leaves, do), None
+    except RuntimeError as e:   # a yardstick only: the port never calls SDPA
+        return None, f"no f32 masked SDPA backward here: {str(e)[:120]}"
+
+
+def timed_parts(step) -> dict:
+    """One step with the Sinkhorn solve and the Kabsch fit (both forwards)
+    timed on the host around synchronizations, and the host syncs the step
+    makes (torch's sync debug mode, by the line that made them)."""
+    import warnings
+
+    from equidock_public_tpu_torch.ops import kabsch
+    from equidock_public_tpu_torch.train import losses
+
+    parts = {"sinkhorn_ms": 0.0, "kabsch_ms": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    ot, fit = losses.pocket_ot_loss, kabsch.kabsch_from_covariance
+    losses.pocket_ot_loss = timed(ot, "sinkhorn_ms")
+    kabsch.kabsch_from_covariance = timed(fit, "kabsch_ms")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        parts["step_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        losses.pocket_ot_loss, kabsch.kabsch_from_covariance = ot, fit
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where: dict = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    parts["host_syncs_per_step"] = where
+    parts["sinkhorn_share_of_step"] = parts["sinkhorn_ms"] / parts["step_ms"]
+    return parts
+
+
+def run_train(dev) -> dict:
+    """The train phase: the golden batch, the gradient check, TRAIN_STEPS
+    counted steps against the golden file, then timing and the profile."""
+    from equidock_public_tpu_torch.data.dataset import DockingDataset, split_chain_complex
+    from equidock_public_tpu_torch.data.featurize import filter_residues
+    from equidock_public_tpu_torch.data.pdb import group_residues, read_pdb
+    from equidock_public_tpu_torch.graph import batch_digest, digests_agree
+    from equidock_public_tpu_torch.params import default_checkpoint, flatten, load_checkpoint
+    from equidock_public_tpu_torch.train.step import (create_train_state, loss_and_grads,
+                                                      train_step)
+
+    with open(os.path.join(REPO, "equidock_public_tpu_torch", "assets",
+                           "db5_train_step.golden.json")) as f:
+        golden = json.load(f)
+    tol = golden["tolerance"]
+    params, cfg = load_checkpoint(default_checkpoint(), dev)
+    for key, value in dataclasses.asdict(cfg.train).items():
+        require(golden["train"][key] == value, f"train.{key}: {value} in the weights' "
+                                                f"sidecar, {golden['train'][key]} in the golden file")
+    t0 = time.perf_counter()
+    samples = []
+    for code in golden["codes"]:
+        path = os.path.join(REPO, "artifacts", "db5_test_outputs", f"{code}_l_b_EQUIDOCK_TPU.pdb")
+        samples.append(split_chain_complex(filter_residues(group_residues(read_pdb(path))),
+                                           cfg.graph))
+    batch = next(DockingDataset(cfg, samples).batches(np.random.default_rng(golden["seed"]),
+                                                      device=dev))
+    featurize_s = time.perf_counter() - t0
+    bad = digests_agree(batch_digest(batch), golden["batch_digest"])
+    require(not bad, f"the training batch differs from the golden one in {bad}")
+    pairs = int(batch.pair_mask.sum().item())
+
+    # every leaf gets a finite gradient whose norm is the JAX package's
+    grads, _, _ = loss_and_grads(params, cfg, batch)
+    worst_leaf = 0.0
+    for key, want in golden["grad_norms_step1"].items():
+        g = grads[key]
+        require(torch.isfinite(g).all().item(), f"{key}: non-finite gradient")
+        err = abs(float(g.norm()) - want) / max(want, 1e-12)
+        worst_leaf = max(worst_leaf, err)
+        require(err <= tol["leaf_grad_norm_rtol"] or abs(float(g.norm()) - want) <= 1e-6,
+                f"{key}: gradient norm {float(g.norm()):.6g}, JAX {want:.6g}")
+
+    # the main path: TRAIN_STEPS train_steps, counts set to 0 just before
+    state = create_train_state(params, cfg, dev)
+    p0 = {k: v.clone() for k, v in flatten(state.params).items()}
+    for mod, attr, _ in kernel_counters():
+        setattr(mod, attr, 0)
+    metrics = []
+    for _ in range(TRAIN_STEPS):
+        state, m = train_step(state, batch, cfg)
+        metrics.append(m)
+    launches = {name: getattr(mod, attr) for mod, attr, name in kernel_counters()}
+    for name, n in launches.items():
+        require(n == LAYERS * SIDES * TRAIN_STEPS,
+                f"{name} launched {n} times in {TRAIN_STEPS} steps, not "
+                f"{LAYERS * SIDES} a step")
+    worst = {}
+    for i, (m, want) in enumerate(zip(metrics, golden["steps"])):
+        rtol = tol["loss_rtol_step1"] if i == 0 else tol["loss_rtol_later"]
+        for key in ("loss", "ligand_coors_loss", "receptor_coors_loss", "ot_loss",
+                    "intersection_loss", "grad_norm"):
+            got = float(m[key])
+            r = tol["grad_norm_rtol"] if key == "grad_norm" else rtol
+            require(np.isfinite(got) and abs(got - want[key]) <= r * abs(want[key])
+                    + tol["loss_atol"], f"step {i + 1} {key}: {got:.7g}, JAX {want[key]:.7g}")
+            worst[key] = max(worst.get(key, 0.0), abs(got - want[key]) / max(abs(want[key]), 1e-12))
+        require(float(m["clipped"]) == want["clipped"], f"step {i + 1}: clipped differs")
+        lc = m["ligand_coords"]
+        require(tuple(lc.shape) == tuple(batch.lig.x.shape) and torch.isfinite(lc).all().item(),
+                "ligand_coords: wrong shape or non-finite")
+    atol = tol["delta_norm_atol_lr"] * cfg.train.lr
+    worst_delta = 0.0
+    for key, v in flatten(state.params).items():
+        got, want = float((v - p0[key]).norm()), golden["delta_norms_last"][key]
+        worst_delta = max(worst_delta, abs(got - want) / max(want, 1e-12))
+        require(abs(got - want) <= tol["delta_norm_rtol"] * want + atol,
+                f"{key}: moved {got:.6g} in {TRAIN_STEPS} steps, JAX {want:.6g}")
+
+    # time: warm-up, then TIMED_STEPS steps, each ended by a synchronize
+    holder = [state]
+
+    def step():
+        holder[0], _ = train_step(holder[0], batch, cfg)
+
+    for _ in range(2):
+        step()
+    step_ms = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(step_ms)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    out = dict(codes=golden["codes"], pairs=pairs, batch=list(batch.lig.x.shape[:2])
+               + [batch.rec.x.shape[1], batch.pocket_lig.shape[1]],
+               featurize_seconds=round(featurize_s, 3),
+               launches=launches, launches_per_step={k: n / TRAIN_STEPS for k, n in launches.items()},
+               golden_worst_rel_err=dict(worst, leaf_grad_norm=worst_leaf,
+                                         delta_norm=worst_delta),
+               losses=[{k: float(m[k]) for k in ("loss", "ot_loss", "grad_norm")}
+                       for m in metrics],
+               step_ms=step_ms, step_ms_median=med, pairs_per_s=pairs / (med / 1e3),
+               peak_device_memory_gb=torch.cuda.max_memory_allocated() / 2**30,
+               parts=timed_parts(step), profile=device_profile(step, reps=2, top=10))
+    emit("train", **out)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Main
 # --------------------------------------------------------------------------- #
@@ -295,10 +632,26 @@ def main() -> int:
         c["err"] = check_close("cross_attention " + c["shape"], got, want, ATT_TOL)
         c["out"] = got
         att_err = max(att_err, c["err"])
+    eb_case, ab_cases = edge_bwd_case(params, dev), attention_bwd_cases(dev)
+    got = em.edge_message_bwd(*eb_case["args"], slope=slope)
+    want = em.edge_message_bwd_plain(*eb_case["args"], slope=slope)
+    torch.cuda.synchronize()
+    flat = lambda r: [*r[:3], *(r[3][n] for n in em.PARAM_NAMES)]
+    eb_case["check"] = check_grads("edge_message_bwd", eb_case["shape"], flat(got), flat(want))
+    for c in ab_cases:
+        got = ca.cross_attention_bwd(*c["args"])
+        want = ca.cross_attention_bwd_plain(*c["args"][:5], c["args"][7])
+        torch.cuda.synchronize()
+        c["check_dq"] = check_grads("cross_attention_dq", c["shape"], got[:1], want[:1])
+        c["check_dkv"] = check_grads("cross_attention_dkv", c["shape"], got[1:], want[1:])
     emit("kernels",
          edge_message=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in e_cases],
          cross_attention=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in a_cases],
-         tolerance={"edge_message": EDGE_TOL, "cross_attention": ATT_TOL})
+         edge_message_bwd=[{"shape": eb_case["shape"], **eb_case["check"]}],
+         cross_attention_dq=[{"shape": c["shape"], **c["check_dq"]} for c in ab_cases],
+         cross_attention_dkv=[{"shape": c["shape"], **c["check_dkv"]} for c in ab_cases],
+         tolerance={"edge_message": EDGE_TOL, "cross_attention": ATT_TOL,
+                    "backward_relative_norm": BWD_REL_TOL})
 
     # -- serve: the main path ------------------------------------------------
     with open(os.path.join(REPO, "equidock_public_tpu_torch", "assets",
@@ -327,10 +680,12 @@ def main() -> int:
                              "output": os.path.join(out_dir, f"req{i}.pdb")})
                  for i, g in enumerate(golden)]
         buf = io.StringIO()
-        em.launches = 0
-        ca.launches = 0
+        for mod, attr, _ in kernel_counters():
+            setattr(mod, attr, 0)
         served = server.serve_lines(lines, buf)
-        edge_launches, att_launches = em.launches, ca.launches
+        serve_launches = {name: getattr(mod, attr) for mod, attr, name in kernel_counters()}
+        edge_launches = serve_launches["edge_message"]
+        att_launches = serve_launches["cross_attention"]
         responses = [json.loads(x) for x in buf.getvalue().splitlines()]
         require(served == len(golden) == len(responses) == len(outputs),
                 f"served {served} of {len(golden)} requests")
@@ -353,9 +708,12 @@ def main() -> int:
     require(att_launches == per_fwd * served,
             f"cross_attention launched {att_launches} times for {served} forwards")
     emit("serve", warmed=n_warm, warmup_seconds=round(warm_s, 3), requests=served,
-         launches={"edge_message": edge_launches, "cross_attention": att_launches},
+         launches=serve_launches,
          golden_max_abs_err=worst, golden_atol=GOLDEN_ATOL,
          buckets=[[r["num_lig_res"], r["num_rec_res"]] for r in responses])
+
+    # -- train: the main path of slice 2 ----------------------------------------
+    train = run_train(dev)
 
     # -- times -----------------------------------------------------------------
     rows = []
@@ -382,6 +740,31 @@ def main() -> int:
                          bound_ms=b_ms, bound_by=b_by,
                          library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                              q, k, v, attn_mask=add_mask, scale=1.0))))
+    a = eb_case["args"]
+    nbytes, flops = edge_bwd_cost(*a)
+    b_ms, b_by = bound(nbytes, flops)
+    kern = lambda: em.edge_message_bwd_kernel(*a, slope=slope)
+    leaves = [x.detach().requires_grad_(True) for x in (*a[:3], *a[5].values())]
+    plain_out = em.edge_message_plain(*leaves[:3], a[3], a[4],
+                                      dict(zip(em.PARAM_NAMES, leaves[3:])), slope)
+    rows.append(dict(kernel="edge_message_bwd", shape=eb_case["shape"], ms=device_ms(kern),
+                     call_ms=call_ms(kern), plain_ms=backward_ms(plain_out, leaves, a[6:]),
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    for c in ab_cases:
+        q, k, v, qt, kt, o, lse, do = c["args"]
+        args = (q, k, v, qt, kt, lse, do, c["delta"])
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        plain_o, _ = ca.cross_attention_plain(*leaves, qt, kt)
+        plain = backward_ms(plain_o, leaves, do)
+        lib_ms, lib_why = sdpa_bwd_ms(q, k, v, qt, kt, do)
+        for part, fn in (("dq", ca.cross_attention_dq), ("dkv", ca.cross_attention_dkv)):
+            nbytes, flops = attention_bwd_cost(part, q, k, v, qt, kt, o, lse, do)
+            b_ms, b_by = bound(nbytes, flops)
+            kern = lambda fn=fn: fn(*args)
+            rows.append(dict(kernel=f"cross_attention_{part}", shape=c["shape"],
+                             ms=device_ms(kern), call_ms=call_ms(kern), plain_ms=plain,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             library_note=lib_why))
     from equidock_public_tpu_torch.cli.serve import warmup_batch
 
     profile_batch = warmup_batch(server.cfg, 512, 1024, dev)
@@ -389,37 +772,45 @@ def main() -> int:
     emit("times", card=smi, kernels=rows, request_ms=latency,
          request_ms_median=statistics.median(latency), forward_ms=forward_ms,
          forward_ms_median=statistics.median(forward_ms),
-         forward_profile_512x1024=forward_profile(inner, profile_batch),
+         forward_profile_512x1024=device_profile(lambda: inner(profile_batch)["R"].cpu(),
+                                                 reps=3),
          timing="ms, plain_ms, library_ms: device time per call from CUDA-graph "
-                "replays; call_ms: eager back-to-back calls, host overhead included",
+                "replays; call_ms: eager back-to-back calls, host overhead included; "
+                "backward rows: plain_ms and library_ms are the whole backward "
+                "(dq, dk and dv together for attention) through an autograd graph "
+                "built once, timed over back-to-back eager calls between CUDA events",
          library_call="torch.nn.functional.scaled_dot_product_attention, scale 1, "
-                      "additive mask (0 kept, -1000 masked)",
+                      "additive mask (0 kept, -1000 masked); for rows 4 and 5 its "
+                      "backward",
          wall_seconds=round(time.perf_counter() - wall0, 1))
 
     # -- kernel table, card, result -----------------------------------------
     def row(name, case_shape):
         return next(r for r in rows if r["kernel"] == name and r["shape"] == case_shape)
 
-    e_main = row("edge_message", e_cases[1]["shape"])
-    a_main = row("cross_attention", a_cases[1]["shape"])
-    table = [
-        dict(name="edge_message", route="cuda",
-             source="equidock_public_tpu_torch/csrc/edge_message.cu",
-             replaces="equidock_public_tpu/ops/pallas/edge_message.py:70",
-             launches=edge_launches, max_abs_err=edge_err, ms=e_main["ms"],
-             plain_ms=e_main["plain_ms"], bound_ms=e_main["bound_ms"],
-             bound_by=e_main["bound_by"], library_ms=None, shape=e_main["shape"]),
-        dict(name="cross_attention", route="cuda",
-             source="equidock_public_tpu_torch/csrc/cross_attention.cu",
-             replaces="equidock_public_tpu/ops/pallas/cross_attention.py:43",
-             launches=att_launches, max_abs_err=att_err, ms=a_main["ms"],
-             plain_ms=a_main["plain_ms"], bound_ms=a_main["bound_ms"],
-             bound_by=a_main["bound_by"], library_ms=a_main["library_ms"],
-             shape=a_main["shape"]),
-    ]
+    main = {"edge_message": (row("edge_message", e_cases[1]["shape"]), edge_err),
+            "cross_attention": (row("cross_attention", a_cases[1]["shape"]), att_err),
+            "edge_message_bwd": (row("edge_message_bwd", eb_case["shape"]),
+                                 eb_case["check"]["max_abs_err"])}
+    for part in ("dq", "dkv"):
+        main[f"cross_attention_{part}"] = (
+            row(f"cross_attention_{part}", ab_cases[0]["shape"]),
+            max(c[f"check_{part}"]["max_abs_err"] for c in ab_cases))
+    table = []
+    for name, _, _, source, replaces, path in KERNELS:
+        r, err = main[name]
+        by_path = {"serve": serve_launches[name], "train": train["launches"][name]}
+        table.append(dict(name=name, route="cuda",
+                          source=f"equidock_public_tpu_torch/{source}",
+                          replaces=f"equidock_public_tpu/{replaces}",
+                          launches=by_path[path], launches_by_path=by_path,
+                          max_abs_err=err, ms=r["ms"], plain_ms=r["plain_ms"],
+                          bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                          library_ms=r["library_ms"], shape=r["shape"]))
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),
           flush=True)
     return 0

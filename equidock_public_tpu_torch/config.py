@@ -1,7 +1,7 @@
-"""Typed configuration: the port's own copy of the model, graph and data
-settings of `equidock_public_tpu/config.py`, plus the `*.config.json` sidecar
-loader. Field names and defaults are the JAX package's, so a sidecar written
-by either package loads here unchanged.
+"""Typed configuration: the port's own copy of the model, graph, training
+and data settings of `equidock_public_tpu/config.py`, plus the
+`*.config.json` sidecar loader. Field names and defaults are the JAX
+package's, so a sidecar written by either package loads here unchanged.
 """
 
 from __future__ import annotations
@@ -69,11 +69,37 @@ class GraphConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The optimizer, loss and step settings a training step reads
+    (`equidock_public_tpu/config.py::TrainConfig`, same defaults). The
+    epoch-loop settings (patience, epochs, metering, checkpointing) are not
+    read yet."""
+
+    lr: float = 2e-4
+    w_decay: float = 1e-4
+    scheduler: str = "warmup"        # 'warmup' | 'cyclic' | 'ROP'
+    warmup: float = 1.0
+    clip: float = 100.0
+    bs: int = 10
+    pocket_ot_loss_weight: float = 1.0
+    intersection_loss_weight: float = 10.0
+    intersection_sigma: float = 25.0
+    intersection_surface_ct: float = 10.0
+    ot_solver: str = "sinkhorn"      # 'sinkhorn' | 'exact' (a host LP: not ported)
+    sinkhorn_epsilon: float = 0.01
+    sinkhorn_iters: int = 200
+    use_fused_intersection: bool = False
+    freeze_original: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The data settings that serving reads: the padding buckets."""
+    """The data settings serving and the training batches read."""
 
     node_buckets: Tuple[int, ...] = (64, 128, 192, 256, 384, 512, 768, 1024, 1536)
     pocket_buckets: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
+    swap_train: bool = True          # 50% ligand/receptor swap of training samples
+    pack: bool = False               # packed batches (not ported)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +107,7 @@ class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     graph: GraphConfig = dataclasses.field(default_factory=GraphConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 def bucket_for(n: int, buckets: Tuple[int, ...]) -> int:
@@ -106,11 +133,12 @@ def _pick(cls, d: dict, strict: bool):
 
 def config_from_dict(d: dict) -> Config:
     """Build a Config from a sidecar dict. Model and graph keys must all be
-    known; the data section keeps only the buckets, and the training and
-    parallel sections are not read."""
+    known; the data and train sections keep the fields above (the rest are
+    loop and corpus settings), and the parallel section is not read."""
     return Config(model=_pick(ModelConfig, d.get("model", {}), strict=True),
                   graph=_pick(GraphConfig, d.get("graph", {}), strict=True),
-                  data=_pick(DataConfig, d.get("data", {}), strict=False))
+                  data=_pick(DataConfig, d.get("data", {}), strict=False),
+                  train=_pick(TrainConfig, d.get("train", {}), strict=False))
 
 
 def load_config(path: str) -> Config:

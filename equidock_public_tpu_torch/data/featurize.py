@@ -1,17 +1,19 @@
-"""Host-side featurization for serving: residue filtering, local frames, the
-kNN residue graph and its RBF + orientation edge features, emitted as
+"""Host-side featurization: residue filtering, local frames, the kNN
+residue graph and its RBF + orientation edge features, emitted as
 fixed-degree neighbor tables `nbr (N, K)`, `nbr_mask (N, K)` and
-`edge_feat (N, K, 27)`.
+`edge_feat (N, K, 27)`; for training, the binding pocket and the random
+pose of a sample.
 
 The port's own copy of the numpy path of `equidock_public_tpu/data/featurize.py`
-(`build_protein_graph` and its helpers). Edge convention: edge k of node i
-has source j = nbr[i, k] and destination i, so x_rel = x_j - x_i.
+(`build_protein_graph` and its helpers, `extract_pocket`,
+`uniform_rotation_translation`). Edge convention: edge k of node i has
+source j = nbr[i, k] and destination i, so x_rel = x_j - x_i.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -58,6 +60,33 @@ def alpha_carbon_array(residues: Sequence[GroupedResidue]) -> np.ndarray:
     if len(locs) <= 1:
         locs.append(np.zeros(3, dtype=np.float32))
     return np.stack(locs, axis=0)
+
+
+def extract_pocket(lig_ca: np.ndarray, rec_ca: np.ndarray, pos_cutoff: float = 8.0
+                   ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Pocket pairs: (ligand CA, receptor CA) closer than `pos_cutoff`; the
+    pocket cloud is the pair midpoints. Returns (midpoints, ligand indices,
+    receptor indices), or None for <= 3 pairs (the complex is dropped)."""
+    d = np.linalg.norm(lig_ca[:, None, :] - rec_ca[None, :, :], axis=-1)
+    ai, aj = np.where(d < pos_cutoff)
+    if ai.size <= 3:
+        return None
+    midpoints = 0.5 * (lig_ca[ai] + rec_ca[aj])
+    return midpoints.astype(np.float32), ai, aj
+
+
+def uniform_rotation_translation(rng: np.random.Generator, translation_interval: float
+                                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """A uniform random rotation (3, 3) and a translation (1, 3) in a
+    random direction with length ~ U(0, interval), drawn from `rng` in the
+    JAX package's order, so one seed gives both packages the same pose."""
+    from scipy.spatial.transform import Rotation
+
+    rot = Rotation.random(random_state=rng).as_matrix()
+    t = rng.standard_normal((1, 3))
+    t = t / np.sqrt(np.sum(t * t))
+    t = t * rng.uniform(0.0, translation_interval)
+    return rot.astype(np.float32), t.astype(np.float32)
 
 
 def local_frames(residues: Sequence[GroupedResidue]):

@@ -130,3 +130,45 @@ def collate(
         pocket_rec=stack_pad(pockets_rec, P),
         pocket_mask=to(pocket_mask),
         pair_mask=to(pair_mask))
+
+
+def batch_digest(batch: PairBatch) -> dict:
+    """A fingerprint of a batch that two featurizers which agree to f32
+    rounding give alike: per field its shape, for integer and 0/1 fields a
+    sha256 of the values, for float fields the sum and the sum of absolute
+    values in float64 (compared with a relative tolerance)."""
+    import hashlib
+
+    def one(t: torch.Tensor) -> dict:
+        a = t.detach().cpu().numpy()
+        d = {"shape": list(a.shape)}
+        if a.dtype.kind in "iub" or np.isin(a, (0.0, 1.0)).all():
+            d["sha256"] = hashlib.sha256(np.ascontiguousarray(a.astype(np.int64))).hexdigest()
+        else:
+            d["sum"] = float(a.astype(np.float64).sum())
+            d["abs_sum"] = float(np.abs(a.astype(np.float64)).sum())
+        return d
+
+    out = {}
+    for name in ("lig", "rec"):
+        side = getattr(batch, name)
+        for f in dataclasses.fields(side):
+            out[f"{name}.{f.name}"] = one(getattr(side, f.name))
+    for f in ("gt_lig", "pocket_lig", "pocket_rec", "pocket_mask", "pair_mask"):
+        out[f] = one(getattr(batch, f))
+    return out
+
+
+def digests_agree(got: dict, want: dict, rtol: float = 1e-5) -> list:
+    """The fields where two `batch_digest`s differ (empty when they agree)."""
+    bad = []
+    for key in sorted(set(got) | set(want)):
+        g, w = got.get(key), want.get(key)
+        if g is None or w is None or g["shape"] != w["shape"] or set(g) != set(w):
+            bad.append(key)
+        elif "sha256" in w:
+            if g["sha256"] != w["sha256"]:
+                bad.append(key)
+        elif any(abs(g[k] - w[k]) > rtol * max(abs(w[k]), 1.0) for k in ("sum", "abs_sum")):
+            bad.append(key)
+    return bad

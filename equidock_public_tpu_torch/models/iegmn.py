@@ -1,6 +1,9 @@
-"""IEGMN docking model, inference forward: the port of
+"""IEGMN docking model, forward: the port of
 `equidock_public_tpu/models/iegmn.py` (`iegmn_layer_forward`, `iegmn_forward`,
-`keypoint_head`, `docking_forward`) for unpacked batches.
+`keypoint_head`, `docking_forward`) for unpacked batches. Dropout is off,
+so the training and inference forwards are one function; it is
+differentiable end to end (the kernels' autograd Functions carry the
+gradient on CUDA tensors).
 
 The edge step and the cross-attention always go through
 `ops/cuda/edge_message.py` and `ops/cuda/cross_attention.py`: the JAX
@@ -29,9 +32,10 @@ from ..ops.segment import masked_mean_over_nodes
 from .layers import Params, embedding, graph_norm, layer_norm, linear, nonlin
 
 
-def check_supported(cfg: ModelConfig) -> None:
+def check_supported(cfg: ModelConfig, training: bool = False) -> None:
     """Raise for a config outside what the port's kernels compute (the JAX
-    package's `fused_edge_eligible` at inference, f32, no BatchNorm)."""
+    package's `fused_edge_eligible` at inference, f32, no BatchNorm); with
+    `training`, also for what the training step does not cover yet."""
     problems = []
     if cfg.nonlin != "lkyrelu":
         problems.append(f"nonlin={cfg.nonlin!r} (the edge kernel is LeakyReLU)")
@@ -43,6 +47,13 @@ def check_supported(cfg: ModelConfig) -> None:
         problems.append(f"final_h_layer_norm={cfg.final_h_layer_norm!r}")
     if cfg.dtype != "float32" or cfg.param_dtype != "float32":
         problems.append(f"dtype={cfg.dtype!r}/{cfg.param_dtype!r}")
+    if training:
+        if cfg.dropout > 0:
+            problems.append(f"dropout={cfg.dropout} (training runs dropout 0)")
+        if cfg.fine_tune:
+            problems.append("fine_tune (two-stage training)")
+        if cfg.remat:
+            problems.append("remat")
     if problems:
         raise NotImplementedError("config not covered by the port's kernels: "
                                   + ", ".join(problems))

@@ -1,6 +1,6 @@
 """Build, load and call the port's CUDA kernels.
 
-Both `csrc/*.cu` files go through ONE plain `nvcc` call into one shared
+All `csrc/*.cu` files go through ONE plain `nvcc` call into one shared
 library with an `extern "C"` interface, loaded with `ctypes`. The sources
 include no PyTorch headers, so the build takes seconds and needs neither
 `ninja` nor `torch.utils.cpp_extension`. The library lands in
@@ -29,7 +29,8 @@ import torch
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("edge_message.cu", "cross_attention.cu")
+SOURCES = ("edge_message.cu", "edge_message_bwd.cu", "cross_attention.cu",
+           "cross_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libequidock_kernels.so"

@@ -1,12 +1,18 @@
-"""Fused IEGMN edge step (forward): CUDA kernel `csrc/edge_message.cu` and
-its plain PyTorch version.
+"""Fused IEGMN edge step, forward and backward: CUDA kernels
+`csrc/edge_message.cu` and `csrc/edge_message_bwd.cu`, their plain PyTorch
+versions, and the `torch.autograd.Function` that joins them.
 
-Replaces `_kernel` of `equidock_public_tpu/ops/pallas/edge_message.py`. For
+Replaces `_kernel` and `_bwd_kernel` of
+`equidock_public_tpu/ops/pallas/edge_message.py`. For
 one protein side it computes, per destination node, the edge messages from
 its K in-edges (RBFs of |x_rel|^2, the split first edge layer, LeakyReLU,
 LayerNorm, lin2), the coors head's coefficient per edge, and the masked
-means over K: `aggr` (B, N, D) and `x_upd` (B, N, 3). See the kernel's
-source for its design and bound.
+means over K: `aggr` (B, N, D) and `x_upd` (B, N, 3). The backward
+recomputes the forward from the saved inputs and gives every cotangent;
+outside the kernel, `index_add_` scatters the per-edge cotangents onto the
+src rows and a sum reduces the per-block parameter partials, as the JAX
+package's `_fused_bwd_call` does. See the kernels' sources for their design
+and bound.
 
 Inputs (the JAX package's fused-kernel layout):
     src (B, Nsrc, 3+D)  [x | h @ W_a] rows the neighbor table indexes
@@ -31,16 +37,23 @@ from ._build import check_launch, check_tensor, load_library
 
 RBF_SIGMAS = tuple(1.5 ** x for x in range(15))
 N_RBF = len(RBF_SIGMAS)
-KERNEL_WIDTH = 64   # the D the kernel is built for: the paper models' hidden width
+KERNEL_WIDTH = 64   # the D the kernels are built for: the paper models' hidden width
+MAX_EDGE_FEATS = 32  # largest E the backward kernel takes (the models use 27)
+BWD_GROUPS = 4       # destination nodes per block of the backward kernel
+BWD_MAX_BLOCKS = 264  # two blocks per SM of an H100 (132 SMs)
 
-# Launches of the CUDA kernel in this process (plain-version calls excluded).
-launches = 0
+# Launches of each CUDA kernel in this process (plain-version calls excluded).
+launches = 0        # forward
+bwd_launches = 0    # backward
 
 
 def param_shapes(D: int, E: int) -> Dict[str, Tuple[int, ...]]:
     return {"Wc": (E, D), "Wd": (N_RBF, D), "ln_g": (D,), "ln_b": (D,),
             "W2": (D, D), "b2": (D,), "W1c": (D, D), "b1c": (D,),
             "W2c": (D, 1), "b2c": (1,)}
+
+
+PARAM_NAMES = ("Wc", "Wd", "ln_g", "ln_b", "W2", "b2", "W1c", "b1c", "W2c", "b2c")
 
 
 def edge_message_plain(src, dst, he, nbr, msk, params, slope: float = 0.01,
@@ -74,30 +87,43 @@ def edge_message_plain(src, dst, he, nbr, msk, params, slope: float = 0.01,
     return aggr, xupd
 
 
+def edge_message_bwd_plain(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
+                           slope: float = 0.01, use_ln: bool = True,
+                           use_dist: bool = True):
+    """Plain backward: (d_src, d_dst, d_he, d_params) by autograd through
+    `edge_message_plain`; nbr and msk get no gradient, as in the kernel."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True)
+                  for x in (src, dst, he, *(params[n] for n in PARAM_NAMES))]
+        out = edge_message_plain(*leaves[:3], nbr, msk, dict(zip(PARAM_NAMES, leaves[3:])),
+                                 slope, use_ln, use_dist)
+        grads = torch.autograd.grad(out, leaves, (g_aggr, g_xupd), allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+    return grads[0], grads[1], grads[2], dict(zip(PARAM_NAMES, grads[3:]))
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = load_library().equidock_edge_message_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _kernel_fns():
+    lib = load_library()
+    fwd, bwd = lib.equidock_edge_message_fwd, lib.equidock_edge_message_bwd
+    fwd.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    bwd.argtypes = ([ctypes.c_void_p] * 32 + [ctypes.c_int] * 6
+                    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
 
 
-def edge_message_aggregate(src, dst, he, nbr, msk, params, slope: float = 0.01,
-                           use_ln: bool = True, use_dist: bool = True):
-    """(aggr (B, N, D), x_upd (B, N, 3)). CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
-    if src.device.type == "cpu":
-        return edge_message_plain(src, dst, he, nbr, msk, params, slope,
-                                  use_ln, use_dist)
+def _check_inputs(src, dst, he, nbr, msk, params):
+    """(B, Nsrc, N, K, D, E) after checking the operands the kernels take."""
     if src.device.type != "cuda":
         raise ValueError(f"edge_message: unsupported device {src.device}")
     B, N, K = nbr.shape
     Nsrc, C = src.shape[1], src.shape[2]
     D, E = C - 3, he.shape[-1]
-    if D != KERNEL_WIDTH or K > D:
-        raise ValueError(f"edge_message kernel: D={D} must be {KERNEL_WIDTH} "
-                         f"and K={K} <= D")
+    if D != KERNEL_WIDTH or K > D or E > MAX_EDGE_FEATS:
+        raise ValueError(f"edge_message kernel: D={D} must be {KERNEL_WIDTH}, "
+                         f"K={K} <= D and E={E} <= {MAX_EDGE_FEATS}")
     dev, f32 = src.device, torch.float32
     check_tensor(src, "src", (B, Nsrc, 3 + D), f32, dev)
     check_tensor(dst, "dst", (B, N, 3 + D), f32, dev)
@@ -106,19 +132,126 @@ def edge_message_aggregate(src, dst, he, nbr, msk, params, slope: float = 0.01,
     check_tensor(msk, "msk", (B, N, K), f32, dev)
     for name, shape in param_shapes(D, E).items():
         check_tensor(params[name], name, shape, f32, dev)
-    aggr = torch.empty((B, N, D), dtype=f32, device=dev)
-    xupd = torch.empty((B, N, 3), dtype=f32, device=dev)
-    p = params
+    return B, Nsrc, N, K, D, E
+
+
+def _param_ptrs(params):
+    return [params[n].data_ptr() for n in PARAM_NAMES]
+
+
+def _launch_fwd(src, dst, he, nbr, msk, params, slope, use_ln, use_dist):
+    B, Nsrc, N, K, D, E = _check_inputs(src, dst, he, nbr, msk, params)
+    dev = src.device
+    aggr = torch.empty((B, N, D), dtype=torch.float32, device=dev)
+    xupd = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _kernel_fn()(
+        err = _kernel_fns()[0](
             src.data_ptr(), dst.data_ptr(), he.data_ptr(), nbr.data_ptr(),
-            msk.data_ptr(), p["Wc"].data_ptr(), p["Wd"].data_ptr(),
-            p["ln_g"].data_ptr(), p["ln_b"].data_ptr(), p["W2"].data_ptr(),
-            p["b2"].data_ptr(), p["W1c"].data_ptr(), p["b1c"].data_ptr(),
-            p["W2c"].data_ptr(), p["b2c"].data_ptr(), aggr.data_ptr(),
-            xupd.data_ptr(), B, Nsrc, N, K, D, E, float(slope), int(use_ln),
-            int(use_dist), torch.cuda.current_stream(dev).cuda_stream)
+            msk.data_ptr(), *_param_ptrs(params), aggr.data_ptr(), xupd.data_ptr(),
+            B, Nsrc, N, K, D, E, float(slope), int(use_ln), int(use_dist),
+            torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "edge_message")
     global launches
     launches += 1
     return aggr, xupd
+
+
+def bwd_blocks(B: int, N: int) -> int:
+    """Grid size of the backward kernel: one block per BWD_GROUPS nodes, at
+    most BWD_MAX_BLOCKS (each block writes one set of partials)."""
+    return min(-(-B * N // BWD_GROUPS), BWD_MAX_BLOCKS)
+
+
+def assemble_bwd(nbr, Nsrc: int, dgx, dgh, dhe, ddx, ddh, partials: Dict[str, torch.Tensor]):
+    """The backward kernel's outputs -> (d_src, d_dst, d_he, d_params): the
+    per-edge cotangents [dgx | dgh] scatter onto their src rows with
+    `index_add_` (the transpose of the gather), and the per-block parameter
+    partials (blocks, *shape) are summed, as the JAX package does outside its
+    kernel. On the card `index_add_` adds with atomics in no fixed order, so
+    d_src is not bit-reproducible from run to run; the parameter gradients
+    and the other cotangents are."""
+    B, N, K = nbr.shape
+    C = 3 + dgh.shape[-1]
+    rows = (nbr.long() + Nsrc * torch.arange(B, device=nbr.device)[:, None, None]).reshape(-1)
+    d_src = torch.zeros((B * Nsrc, C), dtype=dgh.dtype, device=dgh.device)
+    d_src.index_add_(0, rows, torch.cat([dgx, dgh], dim=-1).reshape(B * N * K, C))
+    shapes = param_shapes(C - 3, dhe.shape[-1])
+    d_params = {n: partials[n].sum(dim=0).reshape(shapes[n]) for n in PARAM_NAMES}
+    return (d_src.reshape(B, Nsrc, C), torch.cat([ddx, ddh], dim=-1),
+            dhe.reshape(B, N, K, dhe.shape[-1]), d_params)
+
+
+def edge_message_bwd_kernel(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
+                            slope: float = 0.01, use_ln: bool = True, use_dist: bool = True):
+    """Launch the backward kernel on CUDA operands; its raw outputs
+    (dgx, dgh, dhe, ddx, ddh, per-block partials by parameter name)."""
+    B, Nsrc, N, K, D, E = _check_inputs(src, dst, he, nbr, msk, params)
+    dev, f32 = src.device, torch.float32
+    check_tensor(g_aggr, "g_aggr", (B, N, D), f32, dev)
+    check_tensor(g_xupd, "g_xupd", (B, N, 3), f32, dev)
+    blocks = bwd_blocks(B, N)
+    new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
+    dgx, dgh, dhe = new(B, N * K, 3), new(B, N * K, D), new(B, N * K, E)
+    ddx, ddh = new(B, N, 3), new(B, N, D)
+    partials = {n: new(blocks, *s) for n, s in param_shapes(D, E).items()}
+    partials["W2c"] = new(blocks, D)
+    partials["b2c"] = new(blocks)
+    with torch.cuda.device(dev):
+        err = _kernel_fns()[1](
+            src.data_ptr(), dst.data_ptr(), he.data_ptr(), nbr.data_ptr(),
+            msk.data_ptr(), *_param_ptrs(params), g_aggr.data_ptr(), g_xupd.data_ptr(),
+            dgx.data_ptr(), dgh.data_ptr(), dhe.data_ptr(), ddx.data_ptr(), ddh.data_ptr(),
+            *_param_ptrs(partials), B, Nsrc, N, K, D, E, float(slope), int(use_ln),
+            int(use_dist), blocks, torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "edge_message bwd")
+    global bwd_launches
+    bwd_launches += 1
+    return dgx, dgh, dhe, ddx, ddh, partials
+
+
+def edge_message_bwd(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
+                     slope: float = 0.01, use_ln: bool = True, use_dist: bool = True):
+    """(d_src, d_dst, d_he, d_params) of the forward for the cotangents
+    g_aggr (B, N, D) and g_xupd (B, N, 3). CPU tensors take the plain
+    version; CUDA tensors launch the backward kernel or raise."""
+    if src.device.type == "cpu":
+        return edge_message_bwd_plain(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
+                                      slope, use_ln, use_dist)
+    out = edge_message_bwd_kernel(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
+                                  slope, use_ln, use_dist)
+    return assemble_bwd(nbr, src.shape[1], *out)
+
+
+class _EdgeMessage(torch.autograd.Function):
+    """Forward kernel; backward through the backward kernel, which recomputes
+    the forward from the saved inputs (nothing per edge is kept)."""
+
+    @staticmethod
+    def forward(ctx, src, dst, he, nbr, msk, slope, use_ln, use_dist, *pvals):
+        params = dict(zip(PARAM_NAMES, pvals))
+        ctx.save_for_backward(src, dst, he, nbr, msk, *pvals)
+        ctx.options = (slope, use_ln, use_dist)
+        return _launch_fwd(src, dst, he, nbr, msk, params, slope, use_ln, use_dist)
+
+    @staticmethod
+    def backward(ctx, g_aggr, g_xupd):
+        src, dst, he, nbr, msk, *pvals = ctx.saved_tensors
+        d_src, d_dst, d_he, dp = edge_message_bwd(
+            src, dst, he, nbr, msk, dict(zip(PARAM_NAMES, pvals)), g_aggr.contiguous(),
+            g_xupd.contiguous(), *ctx.options)
+        return (d_src, d_dst, d_he, None, None, None, None, None,
+                *(dp[n] for n in PARAM_NAMES))
+
+
+def edge_message_aggregate(src, dst, he, nbr, msk, params, slope: float = 0.01,
+                           use_ln: bool = True, use_dist: bool = True):
+    """(aggr (B, N, D), x_upd (B, N, 3)), differentiable in src, dst, he and
+    the params. CPU tensors take the plain version; CUDA tensors launch the
+    kernels or raise."""
+    if src.device.type == "cpu":
+        return edge_message_plain(src, dst, he, nbr, msk, params, slope,
+                                  use_ln, use_dist)
+    if src.device.type != "cuda":
+        raise ValueError(f"edge_message: unsupported device {src.device}")
+    return _EdgeMessage.apply(src, dst, he, nbr, msk, float(slope), bool(use_ln),
+                              bool(use_dist), *(params[n] for n in PARAM_NAMES))

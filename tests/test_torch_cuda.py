@@ -6,7 +6,14 @@ card's machine, where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: both sides f32 FMA in different orders, rtol/atol 1e-4; the
-model, five products deep, atol 1e-3."""
+model, five products deep, atol 1e-3. Gradients (the backward kernels
+against autograd through the plain versions) are held norm-wise,
+||kernel - plain|| <= 1e-4 ||plain|| per tensor: an edge whose
+pre-activation lies within rounding of 0 takes the other branch of
+LeakyReLU's derivative in one of the two (the kernel and cuBLAS sum in
+other orders), which moves that one edge's cotangents by up to 99%, a
+single-entry change that an elementwise bound would report as a fault.
+Model gradients on the card against the CPU path: norm-wise 1e-3."""
 
 import numpy as np
 import pytest
@@ -136,3 +143,126 @@ def test_attention_kernel_rejects_widths_past_96(cuda):
     t = torch.ones(1, 4, device=cuda)
     with pytest.raises(ValueError, match="D=128"):
         ca.cross_attention_fwd(q, q, q, t, t)
+
+
+def _assert_grads_close(got, want, names, rel=1e-4):
+    for g, w, name in zip(got, want, names):
+        assert torch.isfinite(g).all(), name
+        err = float((g - w).norm()) / max(float(w.norm()), 1e-12)
+        assert err <= rel, f"{name}: relative error {err:.3g} > {rel}"
+
+
+@pytest.mark.parametrize("N", [512, 200])
+@pytest.mark.parametrize("use_ln,use_dist", [(True, True), (False, True), (True, False)])
+def test_edge_bwd_kernel_matches_plain(cuda, N, use_ln, use_dist):
+    """N=200 is not a multiple of the block's 4 nodes times the grid."""
+    src, dst, he, nbr, msk, prm = _edge_inputs(np.random.default_rng(N), cuda, B=2, N=N,
+                                               n_valid=min(N, 431))
+    gen = torch.Generator().manual_seed(N)
+    ga = torch.randn(2, N, 64, generator=gen).to(cuda)
+    gx = torch.randn(2, N, 3, generator=gen).to(cuda)
+    args = (src, dst, he, nbr, msk, prm, ga, gx)
+    before = em.bwd_launches
+    got = em.edge_message_bwd(*args, use_ln=use_ln, use_dist=use_dist)
+    assert em.bwd_launches == before + 1
+    want = em.edge_message_bwd_plain(*args, use_ln=use_ln, use_dist=use_dist)
+    torch.cuda.synchronize()
+    names = ["d_src", "d_dst", "d_he"] + list(em.PARAM_NAMES)
+    _assert_grads_close([*got[:3], *(got[3][n] for n in em.PARAM_NAMES)],
+                        [*want[:3], *(want[3][n] for n in em.PARAM_NAMES)], names)
+
+
+@pytest.mark.parametrize("N,M,D,Dv,tags", [
+    (172, 548, 64, 64, False), (512, 512, 69, 69, False), (33, 70, 96, 3, False),
+    (9, 40, 16, 16, False), (172, 548, 64, 64, True)])
+def test_attention_bwd_kernels_match_plain(cuda, N, M, D, Dv, tags):
+    gen = torch.Generator().manual_seed(N + M)
+    q, k = torch.randn(2, N, D, generator=gen) * 0.3, torch.randn(2, M, D, generator=gen) * 0.3
+    v = torch.randn(2, M, Dv, generator=gen)
+    do = torch.randn(2, N, Dv, generator=gen)
+    qt, kt = torch.ones(2, N), torch.ones(2, M)
+    qt[:, N // 3:] = 0
+    kt[0, M // 2:] = 0
+    kt[1] = 0
+    if tags:
+        qt *= torch.randint(1, 4, (2, N), generator=gen)
+        kt *= torch.randint(1, 4, (2, M), generator=gen)
+    q, k, v, qt, kt, do = (x.to(cuda) for x in (q, k, v, qt, kt, do))
+    o, lse = ca.cross_attention_plain(q, k, v, qt, kt)
+    b_dq, b_dkv = ca.dq_launches, ca.dkv_launches
+    got = ca.cross_attention_bwd(q, k, v, qt, kt, o, lse, do)
+    assert (ca.dq_launches, ca.dkv_launches) == (b_dq + 1, b_dkv + 1)
+    want = ca.cross_attention_bwd_plain(q, k, v, qt, kt, do)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, ["dq", "dk", "dv"])
+
+
+def test_model_gradients_on_the_card_match_the_cpu_path(cuda):
+    """Autograd through both kernels' Functions reaches every parameter."""
+    from equidock_public_tpu_torch.params import flatten, unflatten
+
+    cfg = ModelConfig(residue_emb_dim=16, iegmn_lay_hid_dim=64, iegmn_n_lays=3,
+                      shared_layers=True, num_att_heads=8)
+    grads = {}
+    for dev in (cuda, "cpu"):
+        flat = {k: v.requires_grad_(True) for k, v in flatten(init_params(cfg, 0, dev)).items()}
+        batch = _batch(np.random.default_rng(1), dev)
+        out = docking_forward(unflatten(flat), cfg, batch)
+        w = torch.linspace(-1, 1, out["ligand_coords"].numel()).reshape(
+            out["ligand_coords"].shape).to(dev)
+        (out["ligand_coords"] * w).sum().backward()
+        grads[str(dev)] = {k: v.grad for k, v in flat.items()}
+    for key, want in grads["cpu"].items():
+        assert grads[str(cuda)][key] is not None, key
+    keys = sorted(grads["cpu"])
+    _assert_grads_close([grads[str(cuda)][k].cpu() for k in keys],
+                        [grads["cpu"][k] for k in keys], keys, rel=1e-3)
+
+
+def test_train_step_on_the_card_gives_every_leaf_a_finite_gradient(cuda):
+    """A training step through all five kernels: no parameter is left with
+    no gradient (a backward that stopped at a kernel would leave it None),
+    every gradient is finite, and each kernel runs once per layer and side."""
+    import dataclasses
+
+    from equidock_public_tpu_torch.config import Config, TrainConfig
+    from equidock_public_tpu_torch.params import flatten
+    from equidock_public_tpu_torch.train.step import (create_train_state, eval_step,
+                                                      loss_and_grads, train_step)
+
+    cfg = Config(model=ModelConfig(residue_emb_dim=16, iegmn_lay_hid_dim=64, iegmn_n_lays=3,
+                                   shared_layers=True, num_att_heads=8),
+                 train=TrainConfig(sinkhorn_iters=20))
+    batch = _batch(np.random.default_rng(2), cuda)
+    batch = dataclasses.replace(batch, gt_lig=batch.lig.x + 1.0)
+    state = create_train_state(init_params(cfg.model, 0, cuda), cfg, cuda)
+    counts = lambda: (em.launches, em.bwd_launches, ca.launches, ca.dq_launches,
+                      ca.dkv_launches)
+    before = counts()
+    grads, _, _ = loss_and_grads(state.params, cfg, batch)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (6, 6, 6, 6, 6)
+    assert set(grads) == set(flatten(state.params))
+    for key, g in grads.items():
+        assert g is not None and torch.isfinite(g).all(), key
+    new, metrics = train_step(state, batch, cfg)
+    assert new.step == 1 and torch.isfinite(metrics["loss"])
+    for key, v in flatten(new.params).items():
+        assert torch.isfinite(v).all(), key
+    evaluated = eval_step(new.params, batch, cfg)
+    assert torch.isfinite(evaluated["loss"]) and evaluated["ligand_coords"].is_cuda
+
+
+def test_backward_kernels_reject_what_they_do_not_take(cuda):
+    src, dst, he, nbr, msk, prm = _edge_inputs(np.random.default_rng(0), cuda, N=16, n_valid=16)
+    ga, gx = torch.zeros(1, 16, 64, device=cuda), torch.zeros(1, 16, 3, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        em.edge_message_bwd(src, dst, he, nbr.long(), msk, prm, ga, gx)
+    with pytest.raises(ValueError, match="g_aggr"):
+        em.edge_message_bwd(src, dst, he, nbr, msk, prm, ga[:, :8].contiguous(), gx)
+    q = torch.zeros(1, 4, 16, device=cuda)
+    tag = torch.ones(1, 4, device=cuda)
+    with pytest.raises(ValueError, match="dout"):
+        ca.cross_attention_bwd(q, q, q, tag, tag, q, tag, q.double())
+    wide = torch.zeros(1, 4, 128, device=cuda)
+    with pytest.raises(ValueError, match="D=128"):
+        ca.cross_attention_bwd(wide, wide, wide, tag, tag, wide, tag, wide)

@@ -2,7 +2,8 @@
 nor `chip_smoke.py` may import JAX, flax, optax, orbax or anything of the
 JAX package `equidock_public_tpu`, because the machine with the card has
 none of them. Checked statically (ast) and by running the port's serving
-path in a process where those modules cannot be imported."""
+path and one training step in a process where those modules cannot be
+imported."""
 
 import ast
 import os
@@ -111,6 +112,55 @@ def _run_smoke(cwd):
     env["CUDA_VISIBLE_DEVICES"] = ""
     return subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True,
                           text=True, timeout=300, cwd=cwd, env=env)
+
+
+TRAINING_MODULES = ("train/__init__.py", "train/losses.py", "train/optim.py",
+                    "train/step.py", "data/dataset.py", "ops/sinkhorn.py",
+                    "ops/intersection.py")
+
+BLOCKED_TRAIN = r'''
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint",
+             "equidock_public_tpu"):
+    sys.modules[name] = None
+import os
+import numpy as np
+from equidock_public_tpu_torch.config import Config, ModelConfig, TrainConfig
+from equidock_public_tpu_torch.data.dataset import DockingDataset, split_chain_complex
+from equidock_public_tpu_torch.data.featurize import filter_residues
+from equidock_public_tpu_torch.data.pdb import group_residues, read_pdb
+from equidock_public_tpu_torch.params import init_params
+from equidock_public_tpu_torch.train.step import create_train_state, train_step
+cfg = Config(model=ModelConfig(residue_emb_dim=8, iegmn_lay_hid_dim=8, iegmn_n_lays=2,
+                               num_att_heads=4), train=TrainConfig(sinkhorn_iters=10, bs=2))
+pdb = os.path.join(REPO, "artifacts", "db5_test_outputs", "{}_l_b_EQUIDOCK_TPU.pdb")
+samples = [split_chain_complex(filter_residues(group_residues(read_pdb(pdb.format(c)))),
+                               cfg.graph) for c in ("2SNI", "1QA9")]
+batch = next(DockingDataset(cfg, samples).batches(np.random.default_rng(0), device="cpu"))
+state, m = train_step(create_train_state(init_params(cfg.model), cfg, "cpu"), batch, cfg)
+assert np.isfinite(float(m["loss"])) and state.step == 1
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "equidock_public_tpu")]
+assert not loaded, loaded
+print("TRAINED")
+'''
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_are_under_the_guard(module):
+    path = os.path.join(PKG, module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{module} imports {bad}"
+
+
+def test_a_training_step_runs_with_jax_and_the_jax_package_unimportable():
+    code = f"REPO = {REPO!r}\n" + BLOCKED_TRAIN
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "TRAINED" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

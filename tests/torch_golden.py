@@ -1,6 +1,8 @@
-"""The JAX package's CPU outputs for the served smoke requests, the
-reference that `equidock_public_tpu_torch/assets/db5_model_best.golden.json`
-records. Shared by the serving tests and the command that writes the file:
+"""The JAX package's CPU outputs that the port is held to:
+`equidock_public_tpu_torch/assets/db5_model_best.golden.json` (the served
+smoke requests) and `db5_train_step.golden.json` (three training steps of
+the DB5 paper model from its trained weights on a batch of ten split
+chains). Shared by the tests and the command that writes the files:
 
     JAX_PLATFORMS=cpu python -m tests.torch_golden
 """
@@ -57,6 +59,130 @@ def jax_outputs(pairs=PAIRS):
     return out
 
 
+TRAIN_GOLDEN = os.path.join(ASSETS, "db5_train_step.golden.json")
+TRAIN_SEED = 0          # numpy seed of the batch (shuffle, swap, random pose)
+TRAIN_STEPS = 3
+TRAIN_CHAINS = 10
+MAX_POCKET = 1024       # the largest pocket bucket of the DB5 config
+# The port against these values (f32 on both sides, other summation orders;
+# the Sinkhorn fixed point and the SVD amplify rounding over the steps). A
+# leaf's ||params - params0|| may also differ by an element that Adam moved
+# the other way (its gradient within rounding of 0): at most 2 lr a step,
+# 2 sqrt(3) lr < 3.5 lr over three steps.
+TRAIN_TOL = {"loss_rtol_step1": 1e-4, "loss_rtol_later": 1e-3, "loss_atol": 1e-4,
+             "grad_norm_rtol": 1e-3, "leaf_grad_norm_rtol": 1e-3,
+             "delta_norm_rtol": 1e-3, "delta_norm_atol_lr": 3.5}
+METRIC_KEYS = ("loss", "ligand_coors_loss", "receptor_coors_loss", "ot_loss",
+               "intersection_loss", "grad_norm", "clipped")
+
+
+def chains_by_size():
+    """(code, residue count) of the tracked DB5 chains, largest first."""
+    from equidock_public_tpu_torch.data.featurize import filter_residues
+    from equidock_public_tpu_torch.data.pdb import group_residues, read_pdb
+
+    out = []
+    for name in sorted(os.listdir(os.path.join(REPO, PDB_DIR))):
+        code = name[:4]
+        out.append((code, len(filter_residues(group_residues(read_pdb(
+            os.path.join(REPO, pdb_path(code))))))))
+    return sorted(out, key=lambda cn: (-cn[1], cn[0]))
+
+
+def jax_split_chain(code, gc):
+    """The JAX package's bound complex from one tracked chain cut at residue
+    n // 2 (ligand: the first half), or None as `_process_one` drops it; the
+    port's `data/dataset.py::split_chain_complex` with JAX's featurizer."""
+    from equidock_public_tpu.data.dataset import ComplexSample
+    from equidock_public_tpu.data.featurize import (alpha_carbon_array,
+                                                    build_protein_graph,
+                                                    extract_pocket, filter_residues)
+    from equidock_public_tpu.data.pdb import group_residues, read_pdb
+
+    res = filter_residues(group_residues(read_pdb(os.path.join(REPO, pdb_path(code)))))
+    lig_res, rec_res = res[:len(res) // 2], res[len(res) // 2:]
+    lig_ca, rec_ca = alpha_carbon_array(lig_res), alpha_carbon_array(rec_res)
+    pocket = extract_pocket(lig_ca, rec_ca, gc.pocket_cutoff)
+    if pocket is None or pocket[0].shape[0] > MAX_POCKET:
+        return None
+    return ComplexSample(
+        lig=build_protein_graph(lig_res, gc.graph_cutoff, gc.graph_max_neighbor),
+        rec=build_protein_graph(rec_res, gc.graph_cutoff, gc.graph_max_neighbor),
+        gt_lig=lig_ca, gt_rec=rec_ca, pocket=pocket[0])
+
+
+def jax_train_batch(cfg):
+    """(codes, JAX PairBatch): the TRAIN_CHAINS largest chains that give a
+    pocket of at most MAX_POCKET pairs, through the JAX package's
+    DockingDataset (train split: swap on) under TRAIN_SEED."""
+    import tempfile
+
+    from equidock_public_tpu.data.dataset import DockingDataset, _graph_to_npz
+
+    codes, samples = [], []
+    for code, _ in chains_by_size():
+        s = jax_split_chain(code, cfg.graph)
+        if s is not None:
+            codes.append(code)
+            samples.append(s)
+        if len(codes) == TRAIN_CHAINS:
+            break
+    out = {"codes": np.array(codes)}
+    for i, s in enumerate(samples):
+        _graph_to_npz(f"c{i}/lig/", s.lig, out)
+        _graph_to_npz(f"c{i}/rec/", s.rec, out)
+        out[f"c{i}/gt_lig"], out[f"c{i}/gt_rec"] = s.gt_lig, s.gt_rec
+        out[f"c{i}/pocket"] = s.pocket
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "train.npz")
+        np.savez(path, **out)
+        ds = DockingDataset(cfg, "train", cache_path=path)
+        batch = next(ds.batches(np.random.default_rng(TRAIN_SEED),
+                                batch_size=cfg.train.bs))
+    return codes, batch
+
+
+def jax_train_golden():
+    """The JAX package's three training steps (XLA path) from the trained
+    weights: per step the metrics, the per-leaf gradient norms of step 1 and
+    the per-leaf norms of params - params0 after the last step."""
+    import dataclasses
+
+    import jax
+
+    from equidock_public_tpu.train.checkpoint import load_checkpoint
+    from equidock_public_tpu.train.step import create_train_state, loss_fn, train_step
+    from equidock_public_tpu_torch.graph import batch_digest
+    from equidock_public_tpu_torch.params import flatten
+
+    from .torch_utils import port_batch
+
+    payload, cfg, _ = load_checkpoint(CHECKPOINT)
+    tree0 = jax.tree.map(np.asarray, payload["params"])   # train_step donates its state
+    codes, batch = jax_train_batch(cfg)
+    grads = jax.grad(lambda p: loss_fn(p, cfg, batch, None, True)[0])(tree0)
+    state = create_train_state(jax.tree.map(jax.numpy.array, tree0), cfg)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        state, m = train_step(state, batch, jax.random.PRNGKey(i), cfg, 1.0)
+        steps.append({k: float(m[k]) for k in METRIC_KEYS})
+    norm = lambda a: float(np.linalg.norm(np.asarray(a, np.float64)))
+    p0 = flatten(tree0)
+    p3 = flatten(jax.tree.map(np.asarray, state.params))
+    return {
+        "source": "equidock_public_tpu on the CPU (XLA path), artifacts/db5_model_best",
+        "codes": codes, "split": "each chain cut at residue n // 2; ligand = first half",
+        "seed": TRAIN_SEED, "lr_scale": 1.0,
+        "train": dataclasses.asdict(cfg.train),
+        "batch_digest": batch_digest(port_batch(batch)),
+        "tolerance": TRAIN_TOL,
+        "steps": steps,
+        "grad_norms_step1": {k: norm(v) for k, v in
+                             flatten(jax.tree.map(np.asarray, grads)).items()},
+        "delta_norms_last": {k: norm(p3[k] - p0[k]) for k in p0},
+    }
+
+
 def orbax_params_numpy():
     """The checkpoint's params pytree as nested dicts of numpy arrays."""
     import jax
@@ -82,10 +208,15 @@ if __name__ == "__main__":
         cfg = load_config(CHECKPOINT + ".config.json")
         json.dump({"model": dataclasses.asdict(cfg.model),
                    "graph": dataclasses.asdict(cfg.graph),
-                   "data": dataclasses.asdict(cfg.data)}, f)
+                   "data": dataclasses.asdict(cfg.data),
+                   "train": dataclasses.asdict(cfg.train)}, f)
     tree, _ = orbax_params_numpy()
     save_params(os.path.join(ASSETS, "db5_model_best.pt.xz"),
                 params_from_numpy(tree, cfg.model))
+    requests = jax_outputs()
     with open(GOLDEN, "w") as f:
         json.dump({"source": "equidock_public_tpu on the CPU, artifacts/db5_model_best",
-                   "requests": jax_outputs()}, f, indent=1)
+                   "requests": requests}, f, indent=1)
+    train_golden = jax_train_golden()
+    with open(TRAIN_GOLDEN, "w") as f:
+        json.dump(train_golden, f, indent=1)
