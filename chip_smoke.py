@@ -8,12 +8,17 @@ Each phase prints one JSON line; any failure raises and the script exits
 non-zero without printing a result.
   device   the card (exit 1 when there is none), torch and CUDA versions,
            the power limit; TF32 stays off
-  build    wipes equidock_public_tpu_torch/_build and builds both kernels
-           with one nvcc call; prints ptxas' register/shared-memory lines
+  build    wipes equidock_public_tpu_torch/_build and builds the five
+           sources with one nvcc call; prints ptxas' register/shared-memory
+           lines
   kernels  each CUDA kernel against its plain PyTorch version on the card:
            the forwards at the serving shapes, the backwards (edge message,
            attention dQ and dK/dV) against autograd through the plain
-           forwards at the training shapes, with the stated tolerances
+           forwards at the training shapes, the edge kernels also at D = 16,
+           the soft-min field sums and their backward at the training, a
+           ragged and the largest bucket's shapes, with the stated
+           tolerances; and two launches of each backward on the same inputs
+           give the same bits
   serve    the DB5 paper model (committed weights) warms up buckets 512 and
            1024, then answers 4 requests through DockingServer.serve_lines;
            R, t and CA coordinates must match the JAX package's CPU values
@@ -27,7 +32,21 @@ non-zero without printing a result.
            kernels launches exactly 10 times a step. Then step time after
            warm-up, pairs/s, and a profile of one step (device busy and idle
            share, top device ops, the Sinkhorn loop's and the SVD's share,
-           the host synchronizations of a step)
+           the host synchronizations of a step). One more step with
+           `use_fused_intersection` (the soft-min field kernels) from the
+           same state matches the unfused one; so do a forward and a step of
+           a random 16-wide model (the db5_model_small config) on the
+           kernels against the plain versions on the card
+  epoch    (a) `fit`, 2 epochs, from the committed weights with the fused
+           intersection loss, on caches of the tracked chains cut in two
+           that the port's featurizer writes: per-epoch loss terms, RMSD
+           medians, the best epoch and the test numbers against the JAX
+           package's (assets/db5_fit.golden.json), and every kernel's
+           launches; (b) the training CLI for 2 epochs of a random full-width
+           model on a synthetic DB5-sized split (152 / 25 / 25 complexes,
+           sizes drawn from the tracked chains): epoch seconds, pairs/s,
+           step median, val-epoch and checkpoint seconds, launches per step,
+           and the device idle share of one profiled epoch
   times    each kernel's device time (CUDA-graph replays between CUDA
            events) beside its plain version, its bound and a PyTorch library
            call where one exists, and its eager per-call time; the
@@ -39,6 +58,7 @@ nvidia-smi gives them, and the result line. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import io
@@ -70,7 +90,14 @@ ATT_TOL = dict(rtol=1e-4, atol=1e-4)
 # Readings on an H100: 1.0e-4 and 3.0e-4 in two sound runs; 1.2e-2 (d_src)
 # for a kernel that leaves out the distance term of dgx. So 1e-3, norm-wise.
 BWD_REL_TOL = {"edge_message_bwd": 1e-3, "cross_attention_dq": 1e-5,
-               "cross_attention_dkv": 1e-5}
+               "cross_attention_dkv": 1e-5, "softmin_field_bwd": 1e-5}
+# Soft-min field sums, kernel (direct x - a, sequential sums per tile) vs
+# plain (cuBLAS-free elementwise, pairwise sums): f32 rounding only.
+SOFTMIN_TOL = dict(rtol=1e-5, atol=1e-4)
+SIGMA = 25.0            # the DB5 model's intersection_sigma
+# The fused-intersection step against the unfused one on the card: loss
+# terms and gradient norms, relative.
+FUSED_RTOL = 1e-4
 TRAIN_STEPS = 3         # checked against the training golden file
 TIMED_STEPS = 10        # after 2 warm-up steps
 # Served outputs vs the JAX package on the CPU (tests/test_torch_serve.py
@@ -281,13 +308,53 @@ KERNELS = (
      "ops/pallas/cross_attention.py:84", "train"),
     ("cross_attention_dkv", "cross_attention", "dkv_launches", "csrc/cross_attention_bwd.cu",
      "ops/pallas/cross_attention.py:104", "train"),
+    ("softmin_field", "softmin_field", "launches", "csrc/softmin_field.cu",
+     "ops/pallas/softmin_field.py:26", "epoch"),
+    ("softmin_field_bwd", "softmin_field", "bwd_launches", "csrc/softmin_field.cu",
+     "ops/pallas/softmin_field.py:38", "epoch"),
 )
+# The edge backward's second kernel (d_src in a fixed order, csrc/
+# edge_message_bwd.cu), launched once with each backward: counted apart and
+# required to match row 2's launches on every path.
+SCATTER = ("edge_message", "scatter_launches")
+# Launches a training step makes of each kernel (5 layers x 2 sides; the
+# soft-min field kernels once a direction) and a forward without gradient.
+PER_STEP = {"edge_message": 10, "edge_message_bwd": 10, "cross_attention": 10,
+            "cross_attention_dq": 10, "cross_attention_dkv": 10}
+PER_STEP_FUSED = dict(PER_STEP, softmin_field=2, softmin_field_bwd=2)
+PER_EVAL_FUSED = {"edge_message": 10, "cross_attention": 10, "softmin_field": 2}
 
 
 def kernel_counters():
-    """(module, launch-counter attribute, kernel name) of every kernel."""
-    return tuple((importlib.import_module(f"equidock_public_tpu_torch.ops.cuda.{mod}"),
+    """(module, launch-counter attribute, kernel name) of every kernel, and
+    of the edge backward's scatter."""
+    mods = tuple((importlib.import_module(f"equidock_public_tpu_torch.ops.cuda.{mod}"),
                   attr, name) for name, mod, attr, *_ in KERNELS)
+    return mods + ((importlib.import_module("equidock_public_tpu_torch.ops.cuda."
+                                            + SCATTER[0]), SCATTER[1], "edge_message_scatter"),)
+
+
+def reset_counts() -> None:
+    for mod, attr, _ in kernel_counters():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for mod, attr, name in kernel_counters()}
+
+
+def expect_counts(what: str, counts: dict, steps: int, evals: int, fused: bool) -> None:
+    """Each kernel launched exactly as `steps` training steps and `evals`
+    forwards without gradient make it, and the scatter once per backward."""
+    per_step = PER_STEP_FUSED if fused else PER_STEP
+    per_eval = PER_EVAL_FUSED if fused else {"edge_message": 10, "cross_attention": 10}
+    for name, *_ in KERNELS:
+        want = per_step.get(name, 0) * steps + per_eval.get(name, 0) * evals
+        require(counts[name] == want, f"{what}: {name} launched {counts[name]} times, "
+                                      f"expected {want} ({steps} steps, {evals} forwards)")
+    require(counts["edge_message_scatter"] == counts["edge_message_bwd"],
+            f"{what}: the edge backward's scatter launched {counts['edge_message_scatter']} "
+            f"times for {counts['edge_message_bwd']} backwards")
 
 
 def rel_err(got, want) -> float:
@@ -412,6 +479,148 @@ def sdpa_bwd_ms(q, k, v, qt, kt, do):
         return None, f"no f32 masked SDPA backward here: {str(e)[:120]}"
 
 
+def edge16_case(dev, B=10, N=512):
+    """Edge-message inputs at D = 16 (the small DB5 models' width): B kNN
+    graphs of 70-274 valid nodes padded to N, random parameters of
+    param_shapes(16, 27), random output cotangents."""
+    from equidock_public_tpu_torch.data.synth import synth_graph
+    from equidock_public_tpu_torch.graph import pad_protein
+    from equidock_public_tpu_torch.data.featurize import ProteinGraph
+    from equidock_public_tpu_torch.ops.cuda import edge_message as em
+
+    rng = np.random.default_rng(16)
+    sides = []
+    for _ in range(B):
+        d = synth_graph(rng, int(rng.integers(70, 275)), 10)
+        sides.append(pad_protein(ProteinGraph(
+            res_id=d["res_id"], x=d["x"], mu_r_norm=d["mu_r_norm"], nbr=d["nbr"],
+            nbr_mask=d["nbr_mask"], edge_feat=d["edge_feat"]), N))
+    T = lambda key: torch.from_numpy(np.stack([g[key] for g in sides])).to(dev).contiguous()
+    R = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    x = T("x")
+    src = torch.cat([x, R(B, N, 16)], dim=-1).contiguous()
+    dst = torch.cat([x, R(B, N, 16)], dim=-1).contiguous()
+    kp = {k: R(*shape) * 0.3 for k, shape in em.param_shapes(16, 27).items()}
+    return dict(shape=f"B={B} N={N} (70-274 valid) K=10 D=16 E=27",
+                args=(src, dst, T("edge_feat"), T("nbr"), T("nbr_mask"), kp),
+                grads=(R(B, N, 16), R(B, N, 3)))
+
+
+def softmin_cases(dev):
+    """(x, a, a_mask) and a cotangent c of S: the training shape (bs 10,
+    512 x 512, masks of split-chain halves), a ragged one (70 x 130, not a
+    multiple of the block) and the largest node bucket (3072 x 3072)."""
+    rng = np.random.default_rng(6)
+    cases = []
+    for B, M, N in ((10, 512, 512), (2, 70, 130), (2, 3072, 3072)):
+        x = rng.standard_normal((B, M, 3)).astype(np.float32) * 15
+        a = rng.standard_normal((B, N, 3)).astype(np.float32) * 15 + 5
+        if M == 512:
+            qm, am = training_tags(rng, B, M), training_tags(rng, B, N)
+        else:
+            qm, am = torch.ones(B, M), torch.ones(B, N)
+            qm[:, int(0.8 * M):] = 0
+            am[:, int(0.9 * N):] = 0
+        c = torch.from_numpy(rng.standard_normal((B, M)).astype(np.float32)) * qm
+        T = lambda v: (v if isinstance(v, torch.Tensor) else torch.from_numpy(v)).to(dev)
+        valid = "split-chain halves" if M == 512 else "80% / 90% valid"
+        cases.append(dict(shape=f"B={B} M={M} N={N} ({valid})",
+                          args=(T(x).contiguous(), T(a).contiguous(), T(am).contiguous()),
+                          c=T(c).contiguous()))
+    return cases
+
+
+def softmin_cost(x, a, am, c=None):
+    """Bytes: inputs once, outputs once. Operations per (query, valid key)
+    pair: forward 12 (3 differences, the squared norm, the scale, the
+    exponential, the masked add); backward, for pairs whose query has a
+    non-zero cotangent, 17 in each of its two passes (the recompute and
+    three multiply-adds)."""
+    keys = am.sum(dim=1)
+    if c is None:
+        pairs = float((x.shape[1] * keys).sum())
+        return nbytes_of(x, a, am) + x.shape[0] * x.shape[1] * 4, 12 * pairs
+    pairs = float(((c != 0).sum(dim=1).to(keys.dtype) * keys).sum())
+    return nbytes_of(x, a, am, c) + nbytes_of(x, a), 2 * 17 * pairs
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The model's and the loss's kernel wrappers swapped for their plain
+    PyTorch versions, autograd through them, on CUDA tensors: the yardstick
+    a whole forward and step on the kernels are held to. No kernel launches
+    inside."""
+    from equidock_public_tpu_torch.models import iegmn
+    from equidock_public_tpu_torch.ops import softmin_field as sf
+    from equidock_public_tpu_torch.ops.cuda import cross_attention as ca
+    from equidock_public_tpu_torch.ops.cuda import edge_message as em
+
+    saved = (iegmn.edge_message_aggregate, ca.cross_attention_fwd, sf.softmin_field_sums)
+    iegmn.edge_message_aggregate = em.edge_message_plain
+    ca.cross_attention_fwd = ca.cross_attention_plain
+    sf.softmin_field_sums = sf.softmin_field_sums_plain
+    try:
+        yield
+    finally:
+        iegmn.edge_message_aggregate, ca.cross_attention_fwd, sf.softmin_field_sums = saved
+
+
+def small_model_check(dev, batch, tol) -> dict:
+    """A random 16-wide model of the db5_model_small config (2 unshared
+    layers, 8 heads): a forward and a train step on the kernels against the
+    same calls on the plain versions, on the card, at the training gate's
+    tolerances (loss terms 1e-4, gradient norms 1e-3, parameter moves
+    1e-3 + 3.5 lr)."""
+    from equidock_public_tpu_torch.config import load_config
+    from equidock_public_tpu_torch.params import flatten, init_params
+    from equidock_public_tpu_torch.train.step import (create_train_state, eval_step,
+                                                      loss_and_grads, train_step)
+
+    cfg = load_config(os.path.join(REPO, "artifacts", "db5_model_small.config.json"))
+    require(cfg.model.iegmn_lay_hid_dim == 16, "db5_model_small is not 16 wide")
+    params = init_params(cfg.model, 0, dev)
+    runs = {}
+    for name, ctx in (("kernels", contextlib.nullcontext()), ("plain", plain_versions())):
+        reset_counts()
+        with ctx:
+            ev = eval_step(params, batch, cfg)
+            grads, _, _ = loss_and_grads(params, cfg, batch)
+            state, m = train_step(create_train_state(params, cfg, dev), batch, cfg)
+        runs[name] = dict(ev=ev, grads=grads, m=m, state=state, counts=read_counts())
+    k, p = runs["kernels"], runs["plain"]
+    require(sum(p["counts"].values()) == 0, f"the plain run launched kernels: {p['counts']}")
+    layers_sides = cfg.model.iegmn_n_lays * SIDES
+    require(k["counts"]["edge_message"] == 3 * layers_sides
+            and k["counts"]["edge_message_bwd"] == 2 * layers_sides,
+            f"16-wide model: kernel launches {k['counts']}")
+    err = {}
+    loss_keys = ("loss", "ligand_coors_loss", "ot_loss", "intersection_loss")
+    for what, rtol in (("ev", tol["loss_rtol_step1"]), ("m", tol["loss_rtol_step1"])):
+        for key in loss_keys + (("grad_norm",) if what == "m" else ()):
+            r = tol["grad_norm_rtol"] if key == "grad_norm" else rtol
+            got, want = float(k[what][key]), float(p[what][key])
+            e = abs(got - want) / max(abs(want), 1e-12)
+            err[f"{what}.{key}"] = e
+            require(e <= r or abs(got - want) <= tol["loss_atol"],
+                    f"16-wide model {what} {key}: kernels {got:.7g}, plain {want:.7g}")
+    worst = 0.0
+    for key, g in k["grads"].items():
+        got, want = float(g.norm()), float(p["grads"][key].norm())
+        e = abs(got - want) / max(want, 1e-12)
+        worst = max(worst, e)
+        require(e <= tol["leaf_grad_norm_rtol"] or abs(got - want) <= 1e-6,
+                f"16-wide model {key}: gradient norm {got:.6g}, plain {want:.6g}")
+    p0 = flatten(params)
+    atol = tol["delta_norm_atol_lr"] * cfg.train.lr
+    for key, v in flatten(k["state"].params).items():
+        got = float((v - p0[key]).norm())
+        want = float((flatten(p["state"].params)[key] - p0[key]).norm())
+        require(abs(got - want) <= tol["delta_norm_rtol"] * want + atol,
+                f"16-wide model {key}: moved {got:.6g}, plain {want:.6g}")
+    return {"config": "artifacts/db5_model_small.config.json (random weights, seed 0)",
+            "launches": k["counts"], "rel_err": dict(err, leaf_grad_norm=worst)}
+
+
 def timed_parts(step) -> dict:
     """One step with the Sinkhorn solve and the Kabsch fit (both forwards)
     timed on the host around synchronizations, and the host syncs the step
@@ -508,17 +717,13 @@ def run_train(dev) -> dict:
     # the main path: TRAIN_STEPS train_steps, counts set to 0 just before
     state = create_train_state(params, cfg, dev)
     p0 = {k: v.clone() for k, v in flatten(state.params).items()}
-    for mod, attr, _ in kernel_counters():
-        setattr(mod, attr, 0)
+    reset_counts()
     metrics = []
     for _ in range(TRAIN_STEPS):
         state, m = train_step(state, batch, cfg)
         metrics.append(m)
-    launches = {name: getattr(mod, attr) for mod, attr, name in kernel_counters()}
-    for name, n in launches.items():
-        require(n == LAYERS * SIDES * TRAIN_STEPS,
-                f"{name} launched {n} times in {TRAIN_STEPS} steps, not "
-                f"{LAYERS * SIDES} a step")
+    launches = read_counts()
+    expect_counts("train", launches, TRAIN_STEPS, 0, fused=False)
     worst = {}
     for i, (m, want) in enumerate(zip(metrics, golden["steps"])):
         rtol = tol["loss_rtol_step1"] if i == 0 else tol["loss_rtol_later"]
@@ -540,6 +745,26 @@ def run_train(dev) -> dict:
         worst_delta = max(worst_delta, abs(got - want) / max(want, 1e-12))
         require(abs(got - want) <= tol["delta_norm_rtol"] * want + atol,
                 f"{key}: moved {got:.6g} in {TRAIN_STEPS} steps, JAX {want:.6g}")
+
+    # the same first step with the soft-min field kernels: as the unfused one
+    fcfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                              use_fused_intersection=True))
+    reset_counts()
+    fgrads, fmetrics, _ = loss_and_grads(params, fcfg, batch)
+    fused_launches = read_counts()
+    expect_counts("train fused", fused_launches, 1, 0, fused=True)
+    fused_err = {}
+    for key in ("loss", "ligand_coors_loss", "ot_loss", "intersection_loss"):
+        got, want = float(fmetrics[key]), float(metrics[0][key])
+        fused_err[key] = abs(got - want) / max(abs(want), 1e-12)
+        require(fused_err[key] <= FUSED_RTOL, f"fused step {key}: {got:.7g}, unfused {want:.7g}")
+    for key, g in fgrads.items():
+        got, want = float(g.norm()), float(grads[key].norm())
+        err = abs(got - want) / max(want, 1e-12)
+        fused_err["leaf_grad_norm"] = max(fused_err.get("leaf_grad_norm", 0.0), err)
+        require(err <= FUSED_RTOL or abs(got - want) <= 1e-6,
+                f"fused step {key}: gradient norm {got:.7g}, unfused {want:.7g}")
+    small = small_model_check(dev, batch, tol)
 
     # time: warm-up, then TIMED_STEPS steps, each ended by a synchronize
     holder = [state]
@@ -564,6 +789,9 @@ def run_train(dev) -> dict:
                + [batch.rec.x.shape[1], batch.pocket_lig.shape[1]],
                featurize_seconds=round(featurize_s, 3),
                launches=launches, launches_per_step={k: n / TRAIN_STEPS for k, n in launches.items()},
+               fused_step={"launches": fused_launches, "rel_err_vs_unfused": fused_err,
+                           "rtol": FUSED_RTOL},
+               small_model=small,
                golden_worst_rel_err=dict(worst, leaf_grad_norm=worst_leaf,
                                          delta_norm=worst_delta),
                losses=[{k: float(m[k]) for k in ("loss", "ot_loss", "grad_norm")}
@@ -573,6 +801,187 @@ def run_train(dev) -> dict:
                parts=timed_parts(step), profile=device_profile(step, reps=2, top=10))
     emit("train", **out)
     return out
+
+
+def split_chain_samples(codes, gc):
+    """The port's bound complexes of tracked chains cut in two."""
+    from equidock_public_tpu_torch.data.dataset import split_chain_complex
+    from equidock_public_tpu_torch.data.featurize import filter_residues
+    from equidock_public_tpu_torch.data.pdb import group_residues, read_pdb
+
+    return [split_chain_complex(filter_residues(group_residues(read_pdb(os.path.join(
+        REPO, "artifacts", "db5_test_outputs", f"{code}_l_b_EQUIDOCK_TPU.pdb")))), gc)
+        for code in codes]
+
+
+def run_epoch_golden(dev, root) -> dict:
+    """Epoch phase (a): `fit`, 2 epochs from the committed weights with the
+    fused intersection loss, on caches of the tracked chains cut in two that
+    the port writes, against assets/db5_fit.golden.json."""
+    from equidock_public_tpu_torch.data.dataset import write_cache
+    from equidock_public_tpu_torch.params import default_checkpoint, load_checkpoint
+    from equidock_public_tpu_torch.train.loop import fit
+    from equidock_public_tpu_torch.train.step import create_train_state
+
+    with open(os.path.join(REPO, "equidock_public_tpu_torch", "assets",
+                           "db5_fit.golden.json")) as f:
+        golden = json.load(f)
+    tol = golden["tolerance"]
+    params, cfg = load_checkpoint(default_checkpoint(), dev)
+    cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, use_fused_intersection=True, random_seed=0,
+                                       bs=10, val_repeats=1),
+        data=dataclasses.replace(cfg.data, cache_dir=os.path.join(root, "cache")),
+        checkpoint_dir=os.path.join(root, "ckpt"), log_dir=os.path.join(root, "logs"))
+    train = dataclasses.asdict(cfg.train)
+    require(train == {k: golden["train_config"][k] for k in train},
+            "the epoch config differs from the golden file's")
+    t0 = time.perf_counter()
+    for split, codes in golden["partition"].items():
+        write_cache(os.path.join(cfg.cache_path(), f"{split}.npz"), codes,
+                    split_chain_samples(codes, cfg.graph))
+    cache_s = time.perf_counter() - t0
+    history = []
+    reset_counts()
+    t0 = time.perf_counter()
+    fit(cfg, create_train_state(params, cfg, dev), max_epochs=golden["epochs"],
+        log=lambda *a: None, device=dev, history=history)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counts()
+    bs, parts = cfg.train.bs, golden["partition"]
+    steps = sum(h["train"]["num_batches"] for h in history[:-1])
+    evals = (golden["epochs"] * -(-len(parts["val"]) // bs) + -(-len(parts["test"]) // bs))
+    expect_counts("epoch", counts, steps, evals, fused=True)
+    got = [dict(train=h["train"], val=h["val"]) for h in history[:-1]]
+    got.append(dict(test=history[-1]["test"]))
+    want = golden["history"] + [dict(test=golden["test"])]
+    worst = {"loss_rel": 0.0, "median_abs": 0.0}
+    for i, (g, w) in enumerate(zip(got, want)):
+        for part in w:
+            for key, value in w[part].items():
+                v = g[part][key]
+                require(v is not None and np.isfinite(v), f"epoch {i} {part} {key}: {v}")
+                if key.endswith("median"):
+                    worst["median_abs"] = max(worst["median_abs"], abs(v - value))
+                    require(abs(v - value) <= tol["median_atol"],
+                            f"epoch {i} {part} {key}: {v:.5f}, JAX {value:.5f}")
+                else:
+                    e = abs(v - value) / max(abs(value), 1e-12)
+                    worst["loss_rel"] = max(worst["loss_rel"], e)
+                    require(e <= tol["loss_rtol"] or (key == "num_clips" and v == value),
+                            f"epoch {i} {part} {key}: {v:.7g}, JAX {value:.7g}")
+    require(history[-1]["best_epoch"] == golden["best_epoch"],
+            f"best epoch {history[-1]['best_epoch']}, JAX {golden['best_epoch']}")
+    return dict(partition={k: len(v) for k, v in parts.items()}, steps=steps,
+                forwards_without_gradient=evals, launches=counts,
+                best_epoch=history[-1]["best_epoch"], golden_worst=worst, golden_tolerance=tol,
+                cache_seconds=cache_s, fit_seconds=fit_s,
+                epochs=[{k: h[k] for k in ("train_seconds", "val_seconds",
+                                           "checkpoint_seconds")} for h in history[:-1]])
+
+
+def db5_sized_sizes(n: int, seed: int = 7):
+    """(n_lig, n_rec) pairs drawn independently, with replacement, from the
+    residue counts of the tracked DB5 chains."""
+    from equidock_public_tpu_torch.data.featurize import filter_residues
+    from equidock_public_tpu_torch.data.pdb import group_residues, read_pdb
+
+    pdb_dir = os.path.join(REPO, "artifacts", "db5_test_outputs")
+    base = sorted(len(filter_residues(group_residues(read_pdb(os.path.join(pdb_dir, f)))))
+                  for f in os.listdir(pdb_dir) if f.endswith(".pdb"))
+    idx = np.random.default_rng(seed).integers(0, len(base), (n, 2))
+    return [(base[i], base[j]) for i, j in idx]
+
+
+def run_epoch_db5_sized(dev, root) -> dict:
+    """Epoch phase (b): the training CLI (`cli/train.py::main`), 2 epochs of
+    a random full-width DB5 paper model (shared layers, 5 layers, 64 wide,
+    50 heads) with the fused intersection loss, on a synthetic split of
+    the cv_fold0 counts (152 / 25 / 25); each step timed between
+    synchronizations; then one more epoch under the profiler."""
+    from equidock_public_tpu_torch.cli import train as cli
+    from equidock_public_tpu_torch.data.dataset import DockingDataset
+    from equidock_public_tpu_torch.data.synth import write_synth_split
+    from equidock_public_tpu_torch.train import loop
+    from equidock_public_tpu_torch.train.checkpoint import load_checkpoint
+
+    counts_by_split = {"train": 152, "val": 25, "test": 25}
+    sizes = db5_sized_sizes(sum(counts_by_split.values()))
+    argv = ["-shared_layers", "-iegmn_n_lays", "5", "-iegmn_lay_hid_dim", "64",
+            "-residue_emb_dim", "64", "-num_att_heads", "50", "-w_decay", "1e-3",
+            "-node_buckets", "512,1024,2048,3072", "-pocket_buckets", "256,512,1024",
+            "-use_fused_intersection", "-random_seed", "0", "-max_epochs", "2",
+            "-cache_dir", os.path.join(root, "cache"),
+            "-checkpoint_dir", os.path.join(root, "ckpt"), "-device", "cuda"]
+    cfg = cli.config_from_args(cli._parser().parse_args(argv))
+    t0 = time.perf_counter()
+    start = 0
+    for i, (split, n) in enumerate(counts_by_split.items()):
+        write_synth_split(os.path.join(cfg.cache_path(), f"{split}.npz"),
+                          sizes[start:start + n], seed=i, k=cfg.graph.graph_max_neighbor)
+        start += n
+    cache_s = time.perf_counter() - t0
+    step_ms = []
+    plain_step = loop.train_step
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain_step(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    cwd, out = os.getcwd(), io.StringIO()
+    loop.train_step = timed_step
+    os.chdir(root)                      # the CLI's text log: ./stdouterr
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            require(cli.main(argv) == 0, "the training CLI failed")
+            run_s = time.perf_counter() - t0
+    finally:
+        loop.train_step = plain_step
+        os.chdir(cwd)
+    counts = read_counts()
+    with open(os.path.join(root, cfg.log_dir, cfg.banner() + ".scalars.jsonl")) as f:
+        epochs = [json.loads(line) for line in f]
+    require(len(epochs) == 2, f"{len(epochs)} epochs in the scalars file")
+    steps = sum(e["train"]["num_batches"] for e in epochs)
+    bs = cfg.train.bs
+    evals = 2 * -(-counts_by_split["val"] // bs) + -(-counts_by_split["test"] // bs)
+    expect_counts("epoch db5-sized", counts, steps, evals, fused=True)
+    for e in epochs:
+        require(all(e["train"][k] is not None and np.isfinite(e["train"][k])
+                    for k in ("loss", "ot_loss", "intersection_loss")),
+                f"non-finite training loss in {e['train']}")
+    # one more epoch of the best state under the profiler
+    state, _, _ = load_checkpoint(os.path.join(root, cfg.checkpoint_dir, cfg.banner(),
+                                               "db5_model_best"), dev)
+    ds = DockingDataset.from_cache(cfg, "train")
+    holder, rng = [state], np.random.default_rng(1)
+
+    def one_epoch():
+        holder[0], _ = loop.run_train_epoch(holder[0], ds, cfg, rng, 2, log=lambda *a: None)
+        torch.cuda.synchronize()
+
+    prof = device_profile(one_epoch, reps=1, top=8)
+    steady = epochs[-1]
+    return dict(split=counts_by_split, size_source="residue counts of the 25 tracked DB5 "
+                "chains, drawn with replacement (seed 7)", cache_seconds=cache_s,
+                cli_seconds=run_s, steps=steps, forwards_without_gradient=evals,
+                launches=counts, launches_per_step={k: counts[k] / steps for k in counts},
+                epochs=[{k: e[k] for k in ("train_seconds", "val_seconds", "checkpoint_seconds")}
+                        | {"loss": e["train"]["loss"], "num_batches": e["train"]["num_batches"]}
+                        for e in epochs],
+                epoch_seconds=steady["train_seconds"] + steady["val_seconds"],
+                pairs_per_s=counts_by_split["train"] / steady["train_seconds"],
+                step_ms_median=statistics.median(step_ms),
+                step_ms_median_epoch1=statistics.median(step_ms[len(step_ms) // 2:]),
+                timing="each step between synchronizations; epoch 1 is the steady one",
+                profile_one_epoch=dict(prof, steps=-(-counts_by_split["train"] // bs)))
 
 
 # --------------------------------------------------------------------------- #
@@ -591,7 +1000,9 @@ def main() -> int:
     from equidock_public_tpu_torch.device import resolve_device
     from equidock_public_tpu_torch.ops.cuda import _build
     from equidock_public_tpu_torch.ops.cuda import cross_attention as ca
+    from equidock_public_tpu_torch.ops import softmin_field as sf
     from equidock_public_tpu_torch.ops.cuda import edge_message as em
+    from equidock_public_tpu_torch.ops.cuda import softmin_field as ksf
     from equidock_public_tpu_torch.params import default_checkpoint, load_checkpoint
 
     # -- device -------------------------------------------------------------
@@ -638,20 +1049,63 @@ def main() -> int:
     torch.cuda.synchronize()
     flat = lambda r: [*r[:3], *(r[3][n] for n in em.PARAM_NAMES)]
     eb_case["check"] = check_grads("edge_message_bwd", eb_case["shape"], flat(got), flat(want))
+    # the d_src scatter against its plain version (index_add_), and two
+    # launches of the backward on the same inputs give the same bits
+    raw = em.edge_message_bwd_kernel(*eb_case["args"], slope=slope)
+    nbr, nsrc = eb_case["args"][3], eb_case["args"][0].shape[1]
+    scatter_err = check_close("edge_message scatter", [em.scatter_src(nbr, nsrc, *raw[:2])],
+                              [em.scatter_src_plain(nbr, nsrc, *raw[:2])], EDGE_TOL)
+    again = em.edge_message_bwd(*eb_case["args"], slope=slope)
+    require(all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))),
+            "edge_message_bwd: two launches on the same inputs differ")
+    # C1: the edge kernels at D = 16
+    e16 = edge16_case(dev)
+    got16 = em.edge_message_aggregate(*e16["args"], slope=slope)
+    want16 = em.edge_message_plain(*e16["args"], slope=slope)
+    torch.cuda.synchronize()
+    e16["err"] = check_close("edge_message " + e16["shape"], got16, want16, EDGE_TOL)
+    got16 = em.edge_message_bwd(*e16["args"], *e16["grads"], slope=slope)
+    want16 = em.edge_message_bwd_plain(*e16["args"], *e16["grads"], slope=slope)
+    torch.cuda.synchronize()
+    e16["check"] = check_grads("edge_message_bwd", e16["shape"], flat(got16), flat(want16))
+    again = em.edge_message_bwd(*e16["args"], *e16["grads"], slope=slope)
+    require(all(torch.equal(a, b) for a, b in zip(flat(got16), flat(again))),
+            "edge_message_bwd D=16: two launches on the same inputs differ")
     for c in ab_cases:
         got = ca.cross_attention_bwd(*c["args"])
         want = ca.cross_attention_bwd_plain(*c["args"][:5], c["args"][7])
         torch.cuda.synchronize()
         c["check_dq"] = check_grads("cross_attention_dq", c["shape"], got[:1], want[:1])
         c["check_dkv"] = check_grads("cross_attention_dkv", c["shape"], got[1:], want[1:])
+    # rows 6 and 7: the soft-min field sums and their backward
+    s_cases = softmin_cases(dev)
+    for c in s_cases:
+        x, a, am = c["args"]
+        got = ksf.softmin_field_fwd(x, a, am, SIGMA)
+        want = sf.softmin_field_sums_plain(x, a, am, SIGMA)
+        torch.cuda.synchronize()
+        c["err"] = check_close("softmin_field " + c["shape"], [got], [want], SOFTMIN_TOL)
+        got = ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA)
+        want = sf.softmin_field_bwd_plain(x, a, am, c["c"], SIGMA)
+        torch.cuda.synchronize()
+        c["check"] = check_grads("softmin_field_bwd", c["shape"], got, want)
+        again = ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA)
+        require(all(torch.equal(g, h) for g, h in zip(got, again)),
+                f"softmin_field_bwd {c['shape']}: two launches on the same inputs differ")
     emit("kernels",
-         edge_message=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in e_cases],
+         edge_message=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in e_cases + [e16]],
          cross_attention=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in a_cases],
-         edge_message_bwd=[{"shape": eb_case["shape"], **eb_case["check"]}],
+         edge_message_bwd=[{"shape": eb_case["shape"], **eb_case["check"],
+                            "scatter_max_abs_err": scatter_err},
+                           {"shape": e16["shape"], **e16["check"]}],
          cross_attention_dq=[{"shape": c["shape"], **c["check_dq"]} for c in ab_cases],
          cross_attention_dkv=[{"shape": c["shape"], **c["check_dkv"]} for c in ab_cases],
+         softmin_field=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in s_cases],
+         softmin_field_bwd=[{"shape": c["shape"], **c["check"]} for c in s_cases],
+         bit_equal_backwards=["edge_message_bwd D=64", "edge_message_bwd D=16",
+                              "softmin_field_bwd (3 shapes)"],
          tolerance={"edge_message": EDGE_TOL, "cross_attention": ATT_TOL,
-                    "backward_relative_norm": BWD_REL_TOL})
+                    "softmin_field": SOFTMIN_TOL, "backward_relative_norm": BWD_REL_TOL})
 
     # -- serve: the main path ------------------------------------------------
     with open(os.path.join(REPO, "equidock_public_tpu_torch", "assets",
@@ -680,10 +1134,9 @@ def main() -> int:
                              "output": os.path.join(out_dir, f"req{i}.pdb")})
                  for i, g in enumerate(golden)]
         buf = io.StringIO()
-        for mod, attr, _ in kernel_counters():
-            setattr(mod, attr, 0)
+        reset_counts()
         served = server.serve_lines(lines, buf)
-        serve_launches = {name: getattr(mod, attr) for mod, attr, name in kernel_counters()}
+        serve_launches = read_counts()
         edge_launches = serve_launches["edge_message"]
         att_launches = serve_launches["cross_attention"]
         responses = [json.loads(x) for x in buf.getvalue().splitlines()]
@@ -715,9 +1168,19 @@ def main() -> int:
     # -- train: the main path of slice 2 ----------------------------------------
     train = run_train(dev)
 
+    # -- epoch: the main path of slice 3 ----------------------------------------
+    root = tempfile.mkdtemp(prefix="equidock_epoch_")
+    try:
+        epoch_golden = run_epoch_golden(dev, os.path.join(root, "golden"))
+        epoch_db5 = run_epoch_db5_sized(dev, os.path.join(root, "db5_sized"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("epoch", golden_fit=epoch_golden, db5_sized=epoch_db5)
+
     # -- times -----------------------------------------------------------------
     rows = []
-    for c in e_cases:
+    e16["out"] = em.edge_message_aggregate(*e16["args"], slope=slope)
+    for c in e_cases + [e16]:
         a = c["args"]
         nbytes, flops = edge_cost(*a, c["out"])
         b_ms, b_by = bound(nbytes, flops)
@@ -740,16 +1203,21 @@ def main() -> int:
                          bound_ms=b_ms, bound_by=b_by,
                          library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                              q, k, v, attn_mask=add_mask, scale=1.0))))
-    a = eb_case["args"]
-    nbytes, flops = edge_bwd_cost(*a)
-    b_ms, b_by = bound(nbytes, flops)
-    kern = lambda: em.edge_message_bwd_kernel(*a, slope=slope)
-    leaves = [x.detach().requires_grad_(True) for x in (*a[:3], *a[5].values())]
-    plain_out = em.edge_message_plain(*leaves[:3], a[3], a[4],
-                                      dict(zip(em.PARAM_NAMES, leaves[3:])), slope)
-    rows.append(dict(kernel="edge_message_bwd", shape=eb_case["shape"], ms=device_ms(kern),
-                     call_ms=call_ms(kern), plain_ms=backward_ms(plain_out, leaves, a[6:]),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    for c in (eb_case, e16):
+        a = c["args"] + c.get("grads", ())
+        nbytes, flops = edge_bwd_cost(*a)
+        b_ms, b_by = bound(nbytes, flops)
+        # the whole backward as the path runs it: kernel, inverse-neighbour
+        # sort, d_src scatter kernel, sum of the partials
+        kern = lambda a=a: em.edge_message_bwd(*a, slope=slope)
+        leaves = [x.detach().requires_grad_(True) for x in (*a[:3], *a[5].values())]
+        plain_out = em.edge_message_plain(*leaves[:3], a[3], a[4],
+                                          dict(zip(em.PARAM_NAMES, leaves[3:])), slope)
+        rows.append(dict(kernel="edge_message_bwd", shape=c["shape"], ms=device_ms(kern),
+                         kernel_only_ms=device_ms(
+                             lambda a=a: em.edge_message_bwd_kernel(*a, slope=slope)),
+                         call_ms=call_ms(kern), plain_ms=backward_ms(plain_out, leaves, a[6:]),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     for c in ab_cases:
         q, k, v, qt, kt, o, lse, do = c["args"]
         args = (q, k, v, qt, kt, lse, do, c["delta"])
@@ -765,6 +1233,24 @@ def main() -> int:
                              ms=device_ms(kern), call_ms=call_ms(kern), plain_ms=plain,
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                              library_note=lib_why))
+    no_library = ("none: no single PyTorch call computes the soft-min field sums "
+                  "(torch.cdist gives only the distances)")
+    for c in s_cases:
+        x, a, am = c["args"]
+        for name in ("softmin_field", "softmin_field_bwd"):
+            bwd = name.endswith("bwd")
+            nbytes, flops = softmin_cost(x, a, am, c["c"] if bwd else None)
+            b_ms, b_by = bound(nbytes, flops)
+            if bwd:
+                kern = lambda: ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA)
+                plain = lambda: sf.softmin_field_bwd_plain(x, a, am, c["c"], SIGMA)
+            else:
+                kern = lambda: ksf.softmin_field_fwd(x, a, am, SIGMA)
+                plain = lambda: sf.softmin_field_sums_plain(x, a, am, SIGMA)
+            rows.append(dict(kernel=name, shape=c["shape"], ms=device_ms(kern),
+                             call_ms=call_ms(kern), plain_ms=device_ms(plain, reps=5),
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             library_note=no_library))
     from equidock_public_tpu_torch.cli.serve import warmup_batch
 
     profile_batch = warmup_batch(server.cfg, 512, 1024, dev)
@@ -791,7 +1277,11 @@ def main() -> int:
     main = {"edge_message": (row("edge_message", e_cases[1]["shape"]), edge_err),
             "cross_attention": (row("cross_attention", a_cases[1]["shape"]), att_err),
             "edge_message_bwd": (row("edge_message_bwd", eb_case["shape"]),
-                                 eb_case["check"]["max_abs_err"])}
+                                 eb_case["check"]["max_abs_err"]),
+            "softmin_field": (row("softmin_field", s_cases[0]["shape"]),
+                              max(c["err"] for c in s_cases)),
+            "softmin_field_bwd": (row("softmin_field_bwd", s_cases[0]["shape"]),
+                                  max(c["check"]["max_abs_err"] for c in s_cases))}
     for part in ("dq", "dkv"):
         main[f"cross_attention_{part}"] = (
             row(f"cross_attention_{part}", ab_cases[0]["shape"]),
@@ -799,7 +1289,9 @@ def main() -> int:
     table = []
     for name, _, _, source, replaces, path in KERNELS:
         r, err = main[name]
-        by_path = {"serve": serve_launches[name], "train": train["launches"][name]}
+        by_path = {"serve": serve_launches[name], "train": train["launches"][name],
+                   "epoch": epoch_golden["launches"][name],
+                   "epoch_db5_sized": epoch_db5["launches"][name]}
         table.append(dict(name=name, route="cuda",
                           source=f"equidock_public_tpu_torch/{source}",
                           replaces=f"equidock_public_tpu/{replaces}",

@@ -2,11 +2,15 @@
 and data settings of `equidock_public_tpu/config.py`, plus the
 `*.config.json` sidecar loader. Field names and defaults are the JAX
 package's, so a sidecar written by either package loads here unchanged.
+Settings of paths the port does not take (packing, device-resident epochs,
+distillation, auto buckets) are kept so that a config that sets them is
+refused by name instead of trained without them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 from typing import Tuple
 
@@ -70,36 +74,49 @@ class GraphConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The optimizer, loss and step settings a training step reads
-    (`equidock_public_tpu/config.py::TrainConfig`, same defaults). The
-    epoch-loop settings (patience, epochs, metering, checkpointing) are not
-    read yet."""
+    """Optimizer, loss, step and epoch-loop settings
+    (`equidock_public_tpu/config.py::TrainConfig`, same defaults)."""
 
     lr: float = 2e-4
     w_decay: float = 1e-4
     scheduler: str = "warmup"        # 'warmup' | 'cyclic' | 'ROP'
     warmup: float = 1.0
+    patience: int = 50               # epochs without a 2% better val metric
+    num_epochs: int = 10000
     clip: float = 100.0
     bs: int = 10
     pocket_ot_loss_weight: float = 1.0
     intersection_loss_weight: float = 10.0
     intersection_sigma: float = 25.0
     intersection_surface_ct: float = 10.0
+    random_seed: int = 8
     ot_solver: str = "sinkhorn"      # 'sinkhorn' | 'exact' (a host LP: not ported)
     sinkhorn_epsilon: float = 0.01
     sinkhorn_iters: int = 200
-    use_fused_intersection: bool = False
-    freeze_original: bool = False
+    train_rmsd_fraction: float = 0.1  # train batches whose RMSD is metered
+    use_fused_intersection: bool = False  # the soft-min field kernels
+    save_every_epochs: int = 0       # periodic checkpoint (0: only the best)
+    val_repeats: int = 1             # val epochs averaged per epoch (fresh poses)
+    freeze_original: bool = False    # fine-tuning (not ported)
+    select_metric: str = "crmsd"     # 'crmsd' | 'irmsd' | 'sum' | 'bar'
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The data settings serving and the training batches read."""
+    """Corpus, cache and batching settings."""
 
+    data: str = "db5"                # 'db5' | 'dips'
+    data_fraction: float = 1.0       # leading share of the train split kept
+    split: int = 0
+    cache_dir: str = "./cache"
     node_buckets: Tuple[int, ...] = (64, 128, 192, 256, 384, 512, 768, 1024, 1536)
     pocket_buckets: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
+    auto_buckets_max: int = 0        # not ported
+    auto_pocket_max: int = 0         # not ported
     swap_train: bool = True          # 50% ligand/receptor swap of training samples
     pack: bool = False               # packed batches (not ported)
+    device_resident: bool = False    # not ported
+    distill_dir: str = ""            # pose distillation (not ported)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +125,37 @@ class Config:
     graph: GraphConfig = dataclasses.field(default_factory=GraphConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    checkpoint_dir: str = "./checkpts"
+    log_dir: str = "./stdouterr"
+
+    def banner(self) -> str:
+        """The run's name: the JAX package's `Config.banner`, which names the
+        checkpoint directory and the log files."""
+        m, t = self.model, self.train
+        parts = [
+            ("drp", m.dropout), ("Wdec", t.w_decay), ("ITS_lw", t.intersection_loss_weight),
+            ("Hdim", m.iegmn_lay_hid_dim), ("Nlay", m.iegmn_n_lays),
+            ("shrdLay", m.shared_layers), ("SURFfs", m.use_mean_node_features),
+            ("ln", m.layer_norm), ("lnX", m.layer_norm_coors), ("Hnrm", m.final_h_layer_norm),
+            ("NattH", m.num_att_heads), ("skH", m.skip_weight_h),
+            ("xConnI", m.x_connection_init), ("LkySl", m.leakyrelu_neg_slope),
+            ("pokOTw", t.pocket_ot_loss_weight),
+        ]
+        if m.fine_tune:
+            parts.append(("FT", True))
+        tostr = lambda v: ("T" if v else "F") if isinstance(v, bool) else str(v)
+        name = "EQUIDOCK_TPU__" + "#".join(f"{k}_{tostr(v)}" for k, v in parts)
+        if len(name) > 200:
+            name = name[:160] + hashlib.sha1(name.encode()).hexdigest()[:12]
+        return name
+
+    def cache_path(self) -> str:
+        """The split caches' directory, as the JAX package derives it:
+        `<cache_dir>/<data>_<graph settings>/cv_<split>/{train,val,test}.npz`."""
+        g = self.graph
+        return (f"{self.data.cache_dir}/{self.data.data}_{g.graph_nodes}"
+                f"_maxneighbor_{g.graph_max_neighbor}_cutoff_{g.graph_cutoff}"
+                f"_pocketCut_{g.pocket_cutoff}/cv_{self.data.split}")
 
 
 def bucket_for(n: int, buckets: Tuple[int, ...]) -> int:
@@ -132,13 +180,21 @@ def _pick(cls, d: dict, strict: bool):
 
 
 def config_from_dict(d: dict) -> Config:
-    """Build a Config from a sidecar dict. Model and graph keys must all be
-    known; the data and train sections keep the fields above (the rest are
-    loop and corpus settings), and the parallel section is not read."""
+    """Build a Config from a sidecar dict: the port's (whole config, or the
+    model / graph / data / train sections of its older weight files) or the
+    JAX package's. Model and graph keys must all be known; the data and
+    train sections keep the fields above (the others are host settings such
+    as the raw-data paths), missing fields take their defaults, and the
+    parallel section is not read (a mesh of more than one device raises)."""
+    par = d.get("parallel", {})
+    if par.get("dp", 1) * par.get("gp", 1) > 1:
+        raise NotImplementedError(f"parallel dp={par.get('dp', 1)} gp={par.get('gp', 1)}: "
+                                  "mesh training is not ported")
+    top = {k: d[k] for k in ("checkpoint_dir", "log_dir") if k in d}
     return Config(model=_pick(ModelConfig, d.get("model", {}), strict=True),
                   graph=_pick(GraphConfig, d.get("graph", {}), strict=True),
                   data=_pick(DataConfig, d.get("data", {}), strict=False),
-                  train=_pick(TrainConfig, d.get("train", {}), strict=False))
+                  train=_pick(TrainConfig, d.get("train", {}), strict=False), **top)
 
 
 def load_config(path: str) -> Config:

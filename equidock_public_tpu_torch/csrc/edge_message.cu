@@ -15,14 +15,16 @@
 // (N, D) products stay outside, as in the JAX package.
 //
 // Design. One group of D threads (one thread per output channel) handles one
-// destination node; a block holds kGroups groups and walks the nodes with a
-// grid-stride loop. The weights (Wc, Wd, W2, W1c, W2c, LN and bias vectors,
-// about 45 KB at D=64, E=27) are staged once per block in dynamic shared
-// memory. Unlike the TPU, where Mosaic could not gather across vector
+// destination node; a block holds 256 / D groups (4 at D = 64, 16 at D = 16)
+// and walks the nodes with a grid-stride loop. The weights (Wc, Wd, W2, W1c,
+// W2c, LN and bias vectors, about 45 KB at D=64, E=27) are staged once per
+// block in dynamic shared memory. Unlike the TPU, where Mosaic could not gather across vector
 // registers, the kernel reads src[nbr] rows itself: no (B, N*K, 3+D)
 // gathered tensor reaches device memory. The K edges of a node run in
 // sequence; LayerNorm's mean and variance and the coors head's dot product
-// are block reductions over the group (warp shuffles, then shared memory).
+// are reductions over the group: warp shuffles, then shared memory when a
+// group spans several warps (D = 64); at D = 16 a group is half a warp and
+// the shuffles run 16 lanes wide, so the two groups of a warp never mix.
 // Every product is plain f32 FMA: no TF32, which rounded routed values to
 // 6e-3 on the TPU's matrix unit.
 //
@@ -39,7 +41,7 @@
 
 namespace {
 
-constexpr int kGroups = 4;       // destination nodes in flight per block
+constexpr int kThreads = 256;    // threads per block: 256 / D groups of D
 constexpr int kNumRbf = 15;
 constexpr int kMaxBlocks = 2048;
 
@@ -53,24 +55,36 @@ __device__ __forceinline__ float leaky(float x, float slope) {
   return x >= 0.f ? x : x * slope;
 }
 
+// Sum over aligned runs of `width` lanes (a power of two up to 32).
+template <int width>
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = width / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o, width);
   return v;
 }
 
-// Sum of v over the D threads of group g. `red` holds kGroups * D/32 floats.
-// Every thread of the block must call it (it contains a barrier).
+// Warps per group, at least 1: the reduction buffers hold kThreads/D of these
+// per buffer.
+__host__ __device__ constexpr int group_warps(int D) { return D >= 32 ? D / 32 : 1; }
+
+// Sum of v over the D threads of group g. At D >= 32 through `red`
+// (256/D * D/32 floats) and a barrier, so every thread of the block must
+// call it; at D < 32 the group lies inside one warp and shuffles suffice.
 template <int D>
 __device__ __forceinline__ float group_sum(float v, float* red, int g, int c) {
-  constexpr int W = D / 32;
-  v = warp_sum(v);
-  if ((c & 31) == 0) red[g * W + (c >> 5)] = v;
-  __syncthreads();
-  float t = 0.f;
+  if constexpr (D < 32) {
+    return warp_sum<D>(v);
+  } else {
+    constexpr int W = D / 32;
+    v = warp_sum<32>(v);
+    if ((c & 31) == 0) red[g * W + (c >> 5)] = v;
+    __syncthreads();
+    float t = 0.f;
 #pragma unroll
-  for (int w = 0; w < W; ++w) t += red[g * W + w];
-  return t;
+    for (int w = 0; w < W; ++w) t += red[g * W + w];
+    return t;
+  }
 }
 
 // Floats of shared memory: weights, three reduction buffers, and per group
@@ -80,12 +94,13 @@ __host__ __device__ inline int group_floats(int D, int K, int E) {
 }
 
 __host__ __device__ inline int smem_floats(int D, int K, int E) {
-  return E * D + kNumRbf * D + 2 * D * D + 5 * D + 3 * kGroups * (D / 32) +
-         kGroups * group_floats(D, K, E);
+  const int groups = kThreads / D;
+  return E * D + kNumRbf * D + 2 * D * D + 5 * D + 3 * groups * group_warps(D) +
+         groups * group_floats(D, K, E);
 }
 
 template <int D>
-__global__ void __launch_bounds__(D * kGroups)
+__global__ void __launch_bounds__(kThreads)
 edge_message_fwd_kernel(const float* __restrict__ src,
                         const float* __restrict__ dst,
                         const float* __restrict__ he,
@@ -105,6 +120,8 @@ edge_message_fwd_kernel(const float* __restrict__ src,
                         float* __restrict__ xupd,
                         int B, int Nsrc, int N, int K, int E,
                         float slope, int use_ln, int use_dist) {
+  constexpr int kGroups = kThreads / D;   // destination nodes in flight per block
+  constexpr int kRed = kGroups * group_warps(D);
   extern __shared__ float smem[];
   float* sWc = smem;
   float* sWd = sWc + E * D;
@@ -115,11 +132,11 @@ edge_message_fwd_kernel(const float* __restrict__ src,
   float* sLnb = sLng + D;
   float* sB2 = sLnb + D;
   float* sB1c = sB2 + D;
-  float* sRed = sB1c + D;                       // [3][kGroups][D/32]
-  float* sGroups = sRed + 3 * kGroups * (D / 32);
+  float* sRed = sB1c + D;                       // [3][kRed]
+  float* sGroups = sRed + 3 * kRed;
 
   const int tid = threadIdx.x;
-  const int nthreads = D * kGroups;
+  const int nthreads = kThreads;
   for (int i = tid; i < E * D; i += nthreads) sWc[i] = Wc[i];
   for (int i = tid; i < kNumRbf * D; i += nthreads) sWd[i] = Wd[i];
   for (int i = tid; i < D * D; i += nthreads) {
@@ -145,8 +162,8 @@ edge_message_fwd_kernel(const float* __restrict__ src,
   float* gMsk = gXrel + K * 3;
   int* gNbr = reinterpret_cast<int*>(gMsk + K);
   float* red_mean = sRed;
-  float* red_var = sRed + kGroups * (D / 32);
-  float* red_coef = sRed + 2 * kGroups * (D / 32);
+  float* red_var = sRed + kRed;
+  float* red_coef = sRed + 2 * kRed;
 
   const int total = B * N;
   const int stride = gridDim.x * kGroups;
@@ -245,9 +262,10 @@ cudaError_t launch(const float* src, const float* dst, const float* he,
     if (err != cudaSuccess) return err;
     configured = smem;
   }
+  constexpr int kGroups = kThreads / D;
   int blocks = (B * N + kGroups - 1) / kGroups;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  edge_message_fwd_kernel<D><<<blocks, D * kGroups, smem, stream>>>(
+  edge_message_fwd_kernel<D><<<blocks, kThreads, smem, stream>>>(
       src, dst, he, nbr, msk, Wc, Wd, ln_g, ln_b, W2, b2, W1c, b1c, W2c, b2c,
       aggr, xupd, B, Nsrc, N, K, E, slope, use_ln, use_dist);
   return cudaGetLastError();
@@ -260,8 +278,9 @@ extern "C" {
 // All pointers are device pointers to contiguous f32 (nbr: int32) arrays:
 // src (B, Nsrc, 3+D), dst (B, N, 3+D), he (B, N, K, E), nbr/msk (B, N, K),
 // Wc (E, D), Wd (15, D), ln_g/ln_b/b2/b1c (D), W2/W1c (D, D), W2c (D, 1),
-// b2c (1); outputs aggr (B, N, D), xupd (B, N, 3). D must be 64 (the paper
-// models' width) and K <= D. Returns the cudaError_t of the launch.
+// b2c (1); outputs aggr (B, N, D), xupd (B, N, 3). D is 64 (the paper
+// models' width) or 16 (the small models'), and K <= D. Returns the
+// cudaError_t of the launch.
 int equidock_edge_message_fwd(const void* src, const void* dst, const void* he,
                               const void* nbr, const void* msk, const void* Wc,
                               const void* Wd, const void* ln_g, const void* ln_b,
@@ -279,8 +298,9 @@ int equidock_edge_message_fwd(const void* src, const void* dst, const void* he,
       (const float*)b1c, (const float*)W2c, (const float*)b2c,              \
       (float*)aggr, (float*)xupd, B, Nsrc, N, K, E, slope, use_ln, use_dist, \
       (cudaStream_t)stream
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  return (int)launch<64>(EDGE_ARGS);
+  if (D == 64) return (int)launch<64>(EDGE_ARGS);
+  if (D == 16) return (int)launch<16>(EDGE_ARGS);
+  return (int)cudaErrorInvalidValue;
 #undef EDGE_ARGS
 }
 

@@ -13,31 +13,37 @@
 //                                                    + 2 x_rel g_d2,
 //   g_d2   = sum_s (Wd g_pre)_s rbf_s (-1 / 1.5^s).
 // Outputs: per edge dgx (B, N*K, 3) = g_x_rel and dgh (B, N*K, D) = g_pre
-// (the cotangents of the gathered src rows; the caller scatters them onto
-// src with index_add_), dhe (B, N*K, E) = Wc g_pre; per node ddx (B, N, 3)
+// (the cotangents of the gathered src rows; `equidock_edge_scatter_src`
+// below sums them onto src), dhe (B, N*K, E) = Wc g_pre; per node ddx (B, N, 3)
 // = -sum_k g_x_rel and ddh (B, N, D) = sum_k g_pre; and per block partial
 // sums of the ten parameter gradients (Wc, Wd, ln_g, ln_b, W2, b2, W1c,
 // b1c, W2c, b2c), which the caller sums over blocks. Nothing per edge is
 // kept from the forward.
 //
 // Design. The forward's mapping: a group of D threads (one per channel)
-// owns a destination node, kGroups groups per block walk the nodes with a
-// grid-stride loop, and the K edges of a node run in sequence, the groups in
-// lockstep. Weights sit in dynamic shared memory with rows padded to D + 1
+// owns a destination node, kGroups = 256 / D groups per block (4 at D = 64,
+// 16 at D = 16) walk the nodes with a grid-stride loop, and the K edges of a
+// node run in sequence, the groups in lockstep. Group reductions are as in
+// the forward: 16-lane shuffles at D = 16, where a group is half a warp. Weights sit in dynamic shared memory with rows padded to D + 1
 // floats, so both W x (thread c reads column c) and W^T y (thread c reads
 // row c) are free of bank conflicts. The weight gradients are the design
 // question: dW2 and dW1c are D x D sums of outer products over all edges.
 // Each block keeps ONE copy of every parameter gradient in registers,
-// spread over its kGroups * D threads (thread t owns entries t, t + 256,
-// ...: 16 of dW2, 16 of dW1c, up to 8 of dWc and 4 of dWd at D = 64), and
-// after each edge step adds the rank-kGroups update of all its groups'
-// edges: every entry has one owner, so there are no atomics and the sums
-// run in a fixed order. Vector gradients (ln_g, ln_b, b2, b1c, W2c, b2c)
-// are summed per group and merged through shared memory at the end. Each
-// block writes its partials once; the caller sums them (deterministic, no
-// global atomics), as the JAX package sums its per-block partials. The
-// caller's scatter of dgx | dgh onto the src rows is an atomic index_add_,
-// so d_src alone is not bit-reproducible from run to run.
+// spread over its 256 threads: thread (g, c) owns column c of the rows
+// g, g + kGroups, g + 2 kGroups, ... of each gradient matrix (at D = 64:
+// 16 rows of dW2 and of dW1c, up to 8 of dWc, 4 of dWd; at D = 16: 1 row
+// of dW2 and of dW1c, up to 2 of dWc, 1 of dWd), and after each edge step
+// adds the rank-kGroups update of all its groups' edges: every entry has
+// one owner, so there are no atomics and the sums run in a fixed order.
+// Vector gradients (ln_g, ln_b, b2, b1c, W2c, b2c) are summed per group and
+// merged through shared memory at the end. Each block writes its partials
+// once; the caller sums them (deterministic, no global atomics), as the JAX
+// package sums its per-block partials. d_src, the transpose of the gather,
+// is the second kernel of this file: one thread per (src row, channel)
+// walks that row's in-edges in ascending edge order, through the inverse
+// neighbour list (a stable sort of the flat neighbour rows) the caller
+// builds, so it too has one owner per entry and a fixed summation order.
+// Every output is bit-reproducible from run to run.
 // Masked edges and idle group slots carry zero cotangents, so they add
 // nothing. All plain f32 FMA, no TF32.
 //
@@ -54,7 +60,7 @@
 
 namespace {
 
-constexpr int kGroups = 4;       // destination nodes in flight per block
+constexpr int kThreads = 256;    // threads per block: 256 / D groups of D
 constexpr int kNumRbf = 15;
 constexpr int kMaxE = 32;        // edge-feature width the dWc ownership covers
 
@@ -68,24 +74,35 @@ __device__ __forceinline__ float leaky(float x, float slope) {
   return x >= 0.f ? x : x * slope;
 }
 
+// Sum over aligned runs of `width` lanes (a power of two up to 32).
+template <int width>
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = width / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o, width);
   return v;
 }
 
-// Sum of v over the D threads of group g. `red` holds kGroups * D/32 floats.
-// Every thread of the block must call it (it contains a barrier).
+// Warps per group, at least 1.
+__host__ __device__ constexpr int group_warps(int D) { return D >= 32 ? D / 32 : 1; }
+
+// Sum of v over the D threads of group g. At D >= 32 through `red`
+// (256/D * D/32 floats) and a barrier, so every thread of the block must
+// call it; at D < 32 the group lies inside one warp and shuffles suffice.
 template <int D>
 __device__ __forceinline__ float group_sum(float v, float* red, int g, int c) {
-  constexpr int W = D / 32;
-  v = warp_sum(v);
-  if ((c & 31) == 0) red[g * W + (c >> 5)] = v;
-  __syncthreads();
-  float t = 0.f;
+  if constexpr (D < 32) {
+    return warp_sum<D>(v);
+  } else {
+    constexpr int W = D / 32;
+    v = warp_sum<32>(v);
+    if ((c & 31) == 0) red[g * W + (c >> 5)] = v;
+    __syncthreads();
+    float t = 0.f;
 #pragma unroll
-  for (int w = 0; w < W; ++w) t += red[g * W + w];
-  return t;
+    for (int w = 0; w < W; ++w) t += red[g * W + w];
+    return t;
+  }
 }
 
 // Per group: act, msg, g_c1p, g_msg, g_pre [D]; g_rbf [16]; he [K*E];
@@ -98,12 +115,13 @@ __host__ __device__ inline int group_floats(int D, int K, int E) {
 
 // Weights with padded rows, five reduction buffers, the groups.
 __host__ __device__ inline int smem_floats(int D, int K, int E) {
-  return (E + kNumRbf + 2 * D) * (D + 1) + 5 * D + 5 * kGroups * (D / 32) +
-         kGroups * group_floats(D, K, E);
+  const int groups = kThreads / D;
+  return (E + kNumRbf + 2 * D) * (D + 1) + 5 * D + 5 * groups * group_warps(D) +
+         groups * group_floats(D, K, E);
 }
 
 template <int D>
-__global__ void __launch_bounds__(D * kGroups)
+__global__ void __launch_bounds__(kThreads)
 edge_message_bwd_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                         const float* __restrict__ he, const int32_t* __restrict__ nbr,
                         const float* __restrict__ msk, const float* __restrict__ Wc,
@@ -122,8 +140,10 @@ edge_message_bwd_kernel(const float* __restrict__ src, const float* __restrict__
                         float* __restrict__ pW2c, float* __restrict__ pB2c, int B,
                         int Nsrc, int N, int K, int E, float slope, int use_ln,
                         int use_dist) {
+  constexpr int kGroups = kThreads / D;        // destination nodes in flight per block
+  constexpr int kRed = kGroups * group_warps(D);
   constexpr int P = D + 1;                     // padded row stride of the weights
-  constexpr int T = D * kGroups;               // threads per block
+  constexpr int T = kThreads;
   constexpr int kRowsD = D / kGroups;          // rows of a D x D gradient per thread
   constexpr int kRowsE = kMaxE / kGroups;
   constexpr int kRowsS = (kNumRbf + kGroups - 1) / kGroups;
@@ -137,8 +157,8 @@ edge_message_bwd_kernel(const float* __restrict__ src, const float* __restrict__
   float* sLnb = sLng + D;
   float* sB2 = sLnb + D;
   float* sB1c = sB2 + D;
-  float* sRed = sB1c + D;                      // [5][kGroups][D/32]
-  float* sGroups = sRed + 5 * kGroups * (D / 32);
+  float* sRed = sB1c + D;                      // [5][kRed]
+  float* sGroups = sRed + 5 * kRed;
 
   const int tid = threadIdx.x;
   for (int i = tid; i < E * D; i += T) sWc[(i / D) * P + i % D] = Wc[i];
@@ -170,12 +190,11 @@ edge_message_bwd_kernel(const float* __restrict__ src, const float* __restrict__
   float* gXrel = gRbf + K * kNumRbf;
   float* gMsk = gXrel + K * 3;
   int* gNbr = reinterpret_cast<int*>(gMsk + K);
-  const int W = D / 32;
   float* red_mean = sRed;
-  float* red_var = sRed + kGroups * W;
-  float* red_coef = sRed + 2 * kGroups * W;
-  float* red_m1 = sRed + 3 * kGroups * W;
-  float* red_m2 = sRed + 4 * kGroups * W;
+  float* red_var = sRed + kRed;
+  float* red_coef = sRed + 2 * kRed;
+  float* red_m1 = sRed + 3 * kRed;
+  float* red_m2 = sRed + 4 * kRed;
   // group g2's buffer at offset `off` (0: act, 1: msg, ...) of its block
   auto grp = [&](int g2, int off) { return sGroups + g2 * gf + off * D; };
 
@@ -351,19 +370,21 @@ edge_message_bwd_kernel(const float* __restrict__ src, const float* __restrict__
           aWd[r] += s;
         }
       }
-      // dhe = Wc g_pre (threads c < E); the rbf term of g_d2 (threads
-      // 32 <= c < 32 + 15, the group's second warp)
-      if (c < E) {
-        float s = 0.f;
+      // dhe = Wc g_pre (items q < E) and the rbf terms of g_d2 (items
+      // E <= q < E + 15), item q on thread q mod D of the group
+      for (int q = c; q < E + kNumRbf; q += D) {
+        if (q < E) {
+          float s = 0.f;
 #pragma unroll 8
-        for (int o = 0; o < D; ++o) s = fmaf(gGpre[o], sWc[c * P + o], s);
-        if (valid) dhe[edge * E + c] = s;
-      } else if (c >= 32 && c < 32 + kNumRbf) {
-        const int s_ = c - 32;
-        float s = 0.f;
+          for (int o = 0; o < D; ++o) s = fmaf(gGpre[o], sWc[q * P + o], s);
+          if (valid) dhe[edge * E + q] = s;
+        } else {
+          const int s_ = q - E;
+          float s = 0.f;
 #pragma unroll 8
-        for (int o = 0; o < D; ++o) s = fmaf(gGpre[o], sWd[s_ * P + o], s);
-        gGrbf[s_] = s * gRbf[k * kNumRbf + s_] * (-1.f / kRbfSigma[s_]);
+          for (int o = 0; o < D; ++o) s = fmaf(gGpre[o], sWd[s_ * P + o], s);
+          gGrbf[s_] = s * gRbf[k * kNumRbf + s_] * (-1.f / kRbfSigma[s_]);
+        }
       }
       __syncthreads();
       if (c < 3) {
@@ -446,11 +467,33 @@ cudaError_t launch(const float* src, const float* dst, const float* he, const in
     if (err != cudaSuccess) return err;
     configured = smem;
   }
-  edge_message_bwd_kernel<D><<<blocks, D * kGroups, smem, stream>>>(
+  edge_message_bwd_kernel<D><<<blocks, kThreads, smem, stream>>>(
       src, dst, he, nbr, msk, Wc, Wd, ln_g, ln_b, W2, b2, W1c, b1c, W2c, b2c, g_aggr,
       g_xupd, dgx, dgh, dhe, ddx, ddh, pWc, pWd, pLng, pLnb, pW2, pB2, pW1c, pB1c, pW2c,
       pB2c, B, Nsrc, N, K, E, slope, use_ln, use_dist);
   return cudaGetLastError();
+}
+
+// d_src (rows, 3 + D): entry (r, ch) sums the cotangents [dgx | dgh] of the
+// in-edges of src row r, which are order[offsets[r] .. offsets[r + 1]) in
+// ascending edge order. One thread per entry; consecutive threads take
+// consecutive channels of a row, so the dgh reads of an edge coalesce.
+__global__ void edge_scatter_src_kernel(const int32_t* __restrict__ order,
+                                        const int32_t* __restrict__ offsets,
+                                        const float* __restrict__ dgx,
+                                        const float* __restrict__ dgh,
+                                        float* __restrict__ d_src, int rows, int D) {
+  const int C = 3 + D;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)rows * C) return;
+  const int r = (int)(i / C), ch = (int)(i % C);
+  float s = 0.f;
+  const int end = offsets[r + 1];
+  for (int e = offsets[r]; e < end; ++e) {
+    const size_t edge = (size_t)order[e];
+    s += ch < 3 ? dgx[edge * 3 + ch] : dgh[edge * D + (ch - 3)];
+  }
+  d_src[i] = s;
 }
 
 }  // namespace
@@ -462,8 +505,9 @@ extern "C" {
 // Outputs: dgx (B, N*K, 3), dgh (B, N*K, D), dhe (B, N*K, E), ddx (B, N, 3),
 // ddh (B, N, D), and per block (`blocks` of them, the grid size) the
 // partials pWc (blocks, E, D), pWd (blocks, 15, D), pLng/pLnb/pB2/pB1c/pW2c
-// (blocks, D), pW2/pW1c (blocks, D, D), pB2c (blocks). D must be 64,
-// K <= D, E <= 32. Returns the cudaError_t of the launch.
+// (blocks, D), pW2/pW1c (blocks, D, D), pB2c (blocks). D is 64 or 16,
+// K <= D, E <= 32, and `blocks` is the caller's grid size: at most
+// ceil(B * N / (256 / D)). Returns the cudaError_t of the launch.
 int equidock_edge_message_bwd(const void* src, const void* dst, const void* he,
                               const void* nbr, const void* msk, const void* Wc,
                               const void* Wd, const void* ln_g, const void* ln_b,
@@ -477,16 +521,36 @@ int equidock_edge_message_bwd(const void* src, const void* dst, const void* he,
                               int blocks, void* stream) {
   if (B <= 0 || N <= 0 || K <= 0 || K > D || E <= 0 || E > kMaxE || blocks <= 0)
     return (int)cudaErrorInvalidValue;
-  if (D != 64) return (int)cudaErrorInvalidValue;
-  return (int)launch<64>(
-      (const float*)src, (const float*)dst, (const float*)he, (const int32_t*)nbr,
-      (const float*)msk, (const float*)Wc, (const float*)Wd, (const float*)ln_g,
-      (const float*)ln_b, (const float*)W2, (const float*)b2, (const float*)W1c,
-      (const float*)b1c, (const float*)W2c, (const float*)b2c, (const float*)g_aggr,
-      (const float*)g_xupd, (float*)dgx, (float*)dgh, (float*)dhe, (float*)ddx,
-      (float*)ddh, (float*)pWc, (float*)pWd, (float*)pLng, (float*)pLnb, (float*)pW2,
-      (float*)pB2, (float*)pW1c, (float*)pB1c, (float*)pW2c, (float*)pB2c, B, Nsrc, N, K,
-      E, slope, use_ln, use_dist, blocks, (cudaStream_t)stream);
+#define BWD_ARGS                                                                        \
+  (const float*)src, (const float*)dst, (const float*)he, (const int32_t*)nbr,          \
+      (const float*)msk, (const float*)Wc, (const float*)Wd, (const float*)ln_g,        \
+      (const float*)ln_b, (const float*)W2, (const float*)b2, (const float*)W1c,        \
+      (const float*)b1c, (const float*)W2c, (const float*)b2c, (const float*)g_aggr,    \
+      (const float*)g_xupd, (float*)dgx, (float*)dgh, (float*)dhe, (float*)ddx,         \
+      (float*)ddh, (float*)pWc, (float*)pWd, (float*)pLng, (float*)pLnb, (float*)pW2,   \
+      (float*)pB2, (float*)pW1c, (float*)pB1c, (float*)pW2c, (float*)pB2c, B, Nsrc, N, \
+      K, E, slope, use_ln, use_dist, blocks, (cudaStream_t)stream
+  if (D == 64) return (int)launch<64>(BWD_ARGS);
+  if (D == 16) return (int)launch<16>(BWD_ARGS);
+  return (int)cudaErrorInvalidValue;
+#undef BWD_ARGS
+}
+
+// Device pointers: order (E_total) int32, the flat edge indices (b, i, k)
+// sorted stably by their src row b * Nsrc + nbr[b, i, k]; offsets (rows + 1)
+// int32, where row r's edges start in `order`; dgx (E_total, 3) and dgh
+// (E_total, D) from equidock_edge_message_bwd. Writes d_src (rows, 3 + D),
+// rows = B * Nsrc. Returns the cudaError_t of the launch.
+int equidock_edge_scatter_src(const void* order, const void* offsets, const void* dgx,
+                              const void* dgh, void* d_src, int rows, int D, void* stream) {
+  if (rows <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)rows * (3 + D);
+  const int threads = 256;
+  const size_t blocks = (n + threads - 1) / threads;
+  edge_scatter_src_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)order, (const int32_t*)offsets, (const float*)dgx, (const float*)dgh,
+      (float*)d_src, rows, D);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

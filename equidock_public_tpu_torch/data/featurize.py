@@ -210,3 +210,20 @@ def build_protein_graph(residues: Sequence[GroupedResidue],
     return ProteinGraph(res_id=res_id, x=ca.astype(np.float32),
                         mu_r_norm=mean_norm, nbr=nbr, nbr_mask=nbr_mask,
                         edge_feat=edge_feat.astype(np.float32))
+
+
+def rigid_transform_kabsch(A: np.ndarray, B: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Closed-form rigid alignment (R, t) of A onto B, both (3, N):
+    minimises ||R A + t - B|| (the JAX package's `rigid_transform_kabsch`;
+    numpy on the host, used by the RMSD meter)."""
+    if A.shape[0] != 3 or B.shape[0] != 3:
+        raise ValueError(f"expected (3, N) point sets, got {A.shape} and {B.shape}")
+    centroid_a = A.mean(axis=1, keepdims=True)
+    centroid_b = B.mean(axis=1, keepdims=True)
+    H = (A - centroid_a) @ (B - centroid_b).T
+    U, _, Vt = np.linalg.svd(H)
+    R = Vt.T @ U.T
+    if np.linalg.det(R) < 0:
+        R = (Vt.T @ np.diag([1.0, 1.0, -1.0])) @ U.T
+    t = -R @ centroid_a + centroid_b
+    return R, t

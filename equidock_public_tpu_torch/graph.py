@@ -81,8 +81,10 @@ def collate(
     pocket_buckets: Tuple[int, ...],
     device: torch.device,
     batch_size: Optional[int] = None,
+    pin_memory: bool = False,
 ) -> PairBatch:
-    """Collate complexes into one padded PairBatch on `device`.
+    """Collate complexes into one padded PairBatch on `device` (with
+    `pin_memory`, on the CPU in page-locked memory instead).
 
     `lig_new_x` is the ligand's input coordinates; `gt_lig` the bound target.
     Slots past len(ligs) repeat the last complex with every mask zeroed."""
@@ -95,7 +97,8 @@ def collate(
     P = bucket_for(max(p.shape[0] for p in pockets_lig), pocket_buckets)
 
     def to(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.pin_memory() if pin_memory else t.to(device)
 
     def stack_side(graphs, n_max, coords_override) -> ProteinBatch:
         cols: List[dict] = []
@@ -130,6 +133,17 @@ def collate(
         pocket_rec=stack_pad(pockets_rec, P),
         pocket_mask=to(pocket_mask),
         pair_mask=to(pair_mask))
+
+
+def batch_to(batch: PairBatch, device, non_blocking: bool = False) -> PairBatch:
+    """Every tensor of the batch on `device` (asynchronous from pinned memory
+    with `non_blocking`)."""
+    move = lambda t: t.to(device, non_blocking=non_blocking)
+    side = lambda pb: ProteinBatch(**{f.name: move(getattr(pb, f.name))
+                                      for f in dataclasses.fields(pb)})
+    return PairBatch(lig=side(batch.lig), rec=side(batch.rec),
+                     **{f.name: move(getattr(batch, f.name)) for f in dataclasses.fields(batch)
+                        if f.name not in ("lig", "rec")})
 
 
 def batch_digest(batch: PairBatch) -> dict:

@@ -8,10 +8,11 @@ one protein side it computes, per destination node, the edge messages from
 its K in-edges (RBFs of |x_rel|^2, the split first edge layer, LeakyReLU,
 LayerNorm, lin2), the coors head's coefficient per edge, and the masked
 means over K: `aggr` (B, N, D) and `x_upd` (B, N, 3). The backward
-recomputes the forward from the saved inputs and gives every cotangent;
-outside the kernel, `index_add_` scatters the per-edge cotangents onto the
-src rows and a sum reduces the per-block parameter partials, as the JAX
-package's `_fused_bwd_call` does. See the kernels' sources for their design
+recomputes the forward from the saved inputs and gives every cotangent; a
+second kernel sums the per-edge cotangents onto the src rows in a fixed
+order (the transpose of the gather), and a sum reduces the per-block
+parameter partials, as the JAX package's `_fused_bwd_call` does. Both are
+bit-reproducible from run to run. See the kernels' sources for their design
 and bound.
 
 Inputs (the JAX package's fused-kernel layout):
@@ -37,14 +38,17 @@ from ._build import check_launch, check_tensor, load_library
 
 RBF_SIGMAS = tuple(1.5 ** x for x in range(15))
 N_RBF = len(RBF_SIGMAS)
-KERNEL_WIDTH = 64   # the D the kernels are built for: the paper models' hidden width
+# The D the kernels are built for: the paper models' hidden width and the
+# small DB5 models'
+KERNEL_WIDTHS = (16, 64)
 MAX_EDGE_FEATS = 32  # largest E the backward kernel takes (the models use 27)
-BWD_GROUPS = 4       # destination nodes per block of the backward kernel
+BLOCK_THREADS = 256  # threads per block of both kernels: 256 / D nodes at a time
 BWD_MAX_BLOCKS = 264  # two blocks per SM of an H100 (132 SMs)
 
 # Launches of each CUDA kernel in this process (plain-version calls excluded).
-launches = 0        # forward
-bwd_launches = 0    # backward
+launches = 0          # forward
+bwd_launches = 0      # backward
+scatter_launches = 0  # the backward's d_src sum, one per backward
 
 
 def param_shapes(D: int, E: int) -> Dict[str, Tuple[int, ...]]:
@@ -106,12 +110,14 @@ def edge_message_bwd_plain(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
 def _kernel_fns():
     lib = load_library()
     fwd, bwd = lib.equidock_edge_message_fwd, lib.equidock_edge_message_bwd
+    scatter = lib.equidock_edge_scatter_src
     fwd.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     bwd.argtypes = ([ctypes.c_void_p] * 32 + [ctypes.c_int] * 6
                     + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    scatter.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fwd.restype = bwd.restype = scatter.restype = ctypes.c_int
+    return fwd, bwd, scatter
 
 
 def _check_inputs(src, dst, he, nbr, msk, params):
@@ -121,8 +127,8 @@ def _check_inputs(src, dst, he, nbr, msk, params):
     B, N, K = nbr.shape
     Nsrc, C = src.shape[1], src.shape[2]
     D, E = C - 3, he.shape[-1]
-    if D != KERNEL_WIDTH or K > D or E > MAX_EDGE_FEATS:
-        raise ValueError(f"edge_message kernel: D={D} must be {KERNEL_WIDTH}, "
+    if D not in KERNEL_WIDTHS or K > D or E > MAX_EDGE_FEATS:
+        raise ValueError(f"edge_message kernel: D={D} must be one of {KERNEL_WIDTHS}, "
                          f"K={K} <= D and E={E} <= {MAX_EDGE_FEATS}")
     dev, f32 = src.device, torch.float32
     check_tensor(src, "src", (B, Nsrc, 3 + D), f32, dev)
@@ -156,28 +162,67 @@ def _launch_fwd(src, dst, he, nbr, msk, params, slope, use_ln, use_dist):
     return aggr, xupd
 
 
-def bwd_blocks(B: int, N: int) -> int:
-    """Grid size of the backward kernel: one block per BWD_GROUPS nodes, at
+def bwd_blocks(B: int, N: int, D: int = 64) -> int:
+    """Grid size of the backward kernel: one block per 256 / D nodes, at
     most BWD_MAX_BLOCKS (each block writes one set of partials)."""
-    return min(-(-B * N // BWD_GROUPS), BWD_MAX_BLOCKS)
+    return min(-(-B * N // (BLOCK_THREADS // D)), BWD_MAX_BLOCKS)
 
 
-def assemble_bwd(nbr, Nsrc: int, dgx, dgh, dhe, ddx, ddh, partials: Dict[str, torch.Tensor]):
-    """The backward kernel's outputs -> (d_src, d_dst, d_he, d_params): the
-    per-edge cotangents [dgx | dgh] scatter onto their src rows with
-    `index_add_` (the transpose of the gather), and the per-block parameter
-    partials (blocks, *shape) are summed, as the JAX package does outside its
-    kernel. On the card `index_add_` adds with atomics in no fixed order, so
-    d_src is not bit-reproducible from run to run; the parameter gradients
-    and the other cotangents are."""
+def inverse_neighbors(nbr, Nsrc: int):
+    """(order, offsets), int32: the flat edge indices (b, i, k) sorted
+    stably by their src row b * Nsrc + nbr[b, i, k], and where each of the
+    B * Nsrc rows starts in `order` (offsets[-1] = B * N * K). A stable sort
+    and a binary search: both deterministic, no atomics."""
+    B = nbr.shape[0]
+    rows = (nbr.long() + Nsrc * torch.arange(B, device=nbr.device)[:, None, None]).reshape(-1)
+    sorted_rows, order = torch.sort(rows, stable=True)
+    offsets = torch.searchsorted(sorted_rows, torch.arange(B * Nsrc + 1, device=nbr.device))
+    return order.to(torch.int32), offsets.to(torch.int32)
+
+
+def scatter_src_plain(nbr, Nsrc: int, dgx, dgh):
+    """Plain version of the scatter kernel: `index_add_`, the transpose of
+    the gather (sequential on the CPU; on the card it adds with atomics in
+    no fixed order)."""
     B, N, K = nbr.shape
     C = 3 + dgh.shape[-1]
     rows = (nbr.long() + Nsrc * torch.arange(B, device=nbr.device)[:, None, None]).reshape(-1)
     d_src = torch.zeros((B * Nsrc, C), dtype=dgh.dtype, device=dgh.device)
     d_src.index_add_(0, rows, torch.cat([dgx, dgh], dim=-1).reshape(B * N * K, C))
-    shapes = param_shapes(C - 3, dhe.shape[-1])
+    return d_src.reshape(B, Nsrc, C)
+
+
+def scatter_src(nbr, Nsrc: int, dgx, dgh):
+    """d_src (B, Nsrc, 3 + D): the per-edge cotangents [dgx | dgh] summed
+    onto their src rows. CUDA tensors launch the scatter kernel, which sums
+    each row's edges in ascending edge order, so the sums are the same from
+    run to run; CPU tensors take the plain version."""
+    if dgh.device.type == "cpu":
+        return scatter_src_plain(nbr, Nsrc, dgx, dgh)
+    B, D = nbr.shape[0], dgh.shape[-1]
+    order, offsets = inverse_neighbors(nbr, Nsrc)
+    d_src = torch.empty((B, Nsrc, 3 + D), dtype=torch.float32, device=dgh.device)
+    with torch.cuda.device(dgh.device):
+        err = _kernel_fns()[2](order.data_ptr(), offsets.data_ptr(), dgx.data_ptr(),
+                               dgh.data_ptr(), d_src.data_ptr(), B * Nsrc, D,
+                               torch.cuda.current_stream(dgh.device).cuda_stream)
+    check_launch(err, "edge_message bwd scatter")
+    global scatter_launches
+    scatter_launches += 1
+    return d_src
+
+
+def assemble_bwd(nbr, Nsrc: int, dgx, dgh, dhe, ddx, ddh, partials: Dict[str, torch.Tensor]):
+    """The backward kernel's outputs -> (d_src, d_dst, d_he, d_params): the
+    per-edge cotangents [dgx | dgh] go onto their src rows through
+    `scatter_src` (the transpose of the gather), and the per-block parameter
+    partials (blocks, *shape) are summed, as the JAX package does outside its
+    kernel. Every sum runs in a fixed order, so all of it is bit-reproducible
+    from run to run."""
+    B, N, K = nbr.shape
+    shapes = param_shapes(dgh.shape[-1], dhe.shape[-1])
     d_params = {n: partials[n].sum(dim=0).reshape(shapes[n]) for n in PARAM_NAMES}
-    return (d_src.reshape(B, Nsrc, C), torch.cat([ddx, ddh], dim=-1),
+    return (scatter_src(nbr, Nsrc, dgx, dgh), torch.cat([ddx, ddh], dim=-1),
             dhe.reshape(B, N, K, dhe.shape[-1]), d_params)
 
 
@@ -189,7 +234,7 @@ def edge_message_bwd_kernel(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
     dev, f32 = src.device, torch.float32
     check_tensor(g_aggr, "g_aggr", (B, N, D), f32, dev)
     check_tensor(g_xupd, "g_xupd", (B, N, 3), f32, dev)
-    blocks = bwd_blocks(B, N)
+    blocks = bwd_blocks(B, N, D)
     new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     dgx, dgh, dhe = new(B, N * K, 3), new(B, N * K, D), new(B, N * K, E)
     ddx, ddh = new(B, N, 3), new(B, N, D)

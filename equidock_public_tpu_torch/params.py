@@ -175,3 +175,25 @@ def default_checkpoint() -> str:
     return os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "assets", "db5_model_best.pt.xz")
 
+
+
+def train_state_from_numpy(params: Mapping, opt_state, step, cfg: ModelConfig,
+                           device="cpu"):
+    """A JAX `TrainState`'s leaves as numpy (params pytree, optax chain
+    state, step) -> the port's `train.step.TrainState` on `device`. The
+    chain's Adam state is the element with `mu` and `nu` (optax's
+    ScaleByAdamState); its `count` must equal `step`, since the port's
+    optimizer derives both the bias correction and the schedule from the
+    step."""
+    from .train.step import TrainState
+
+    adam = [s for s in opt_state if hasattr(s, "mu") and hasattr(s, "nu")]
+    if len(adam) != 1:
+        raise ValueError(f"expected one Adam state in the optimizer state, found {len(adam)}")
+    adam = adam[0]
+    if int(np.asarray(adam.count)) != int(np.asarray(step)):
+        raise ValueError(f"Adam count {int(np.asarray(adam.count))} != step "
+                         f"{int(np.asarray(step))}")
+    moments = [flatten(params_from_numpy(m, cfg, device)) for m in (adam.mu, adam.nu)]
+    return TrainState(params=params_from_numpy(params, cfg, device), mu=moments[0],
+                      nu=moments[1], step=int(np.asarray(step)))

@@ -12,6 +12,7 @@ from ..config import TrainConfig
 from ..graph import PairBatch
 from ..ops.intersection import body_intersection_loss
 from ..ops.sinkhorn import pocket_ot_loss, sq_dist_mat
+from ..ops.softmin_field import body_intersection_loss_fused
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -24,12 +25,10 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> 
 def total_loss(outputs: Dict[str, torch.Tensor], batch: PairBatch,
                tc: TrainConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Scalar training loss and its terms, averaged over the valid complexes:
-    coordinate MSE + w_ot * Sinkhorn pocket OT + w_int * body intersection."""
+    coordinate MSE + w_ot * Sinkhorn pocket OT + w_int * body intersection
+    (through the soft-min field sums when `tc.use_fused_intersection`)."""
     if tc.ot_solver != "sinkhorn":
         raise NotImplementedError(f"ot_solver={tc.ot_solver!r}: only 'sinkhorn' is ported")
-    if tc.use_fused_intersection:
-        raise NotImplementedError("use_fused_intersection: the soft-min field kernels "
-                                  "are not ported yet")
     lig_pred = outputs["ligand_coords"]
     pm = batch.pair_mask
     denom = torch.clamp(pm.sum(), min=1.0)
@@ -39,7 +38,11 @@ def total_loss(outputs: Dict[str, torch.Tensor], batch: PairBatch,
             + sq_dist_mat(batch.pocket_rec, outputs["keypts_rec"]))
     ot = pocket_ot_loss(cost, batch.pocket_mask, epsilon=tc.sinkhorn_epsilon,
                         iters=tc.sinkhorn_iters)
-    intersection = body_intersection_loss(
+    # the same function either way; the fused one runs the soft-min field
+    # kernels on the card instead of the (B, N_l, N_r) distance tensor
+    intersection_fn = (body_intersection_loss_fused if tc.use_fused_intersection
+                       else body_intersection_loss)
+    intersection = intersection_fn(
         lig_pred, batch.lig.node_mask, batch.rec.x, batch.rec.node_mask,
         tc.intersection_sigma, tc.intersection_surface_ct)
 

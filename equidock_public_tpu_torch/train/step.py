@@ -3,7 +3,8 @@
 `eval_step` of `equidock_public_tpu/train/step.py` for unpacked batches.
 
 A step runs the forward (both forward kernels on CUDA tensors), the loss
-(coordinate MSE + Sinkhorn pocket OT + body intersection), the backward
+(coordinate MSE + Sinkhorn pocket OT + body intersection, the last through
+the soft-min field kernels with `use_fused_intersection`), the backward
 through torch autograd and the backward kernels, then the optimizer of
 `optim.py`. It raises if any parameter gets no gradient: on the card a
 backward that stopped at a kernel would otherwise leave parameters
@@ -43,8 +44,6 @@ def check_train_supported(cfg: Config) -> None:
     check_supported(cfg.model, training=True)
     problems = []
     tc = cfg.train
-    if tc.use_fused_intersection:
-        problems.append("use_fused_intersection (the soft-min field kernels)")
     if tc.ot_solver != "sinkhorn":
         problems.append(f"ot_solver={tc.ot_solver!r} (a host LP)")
     if tc.freeze_original:

@@ -13,7 +13,10 @@ pre-activation lies within rounding of 0 takes the other branch of
 LeakyReLU's derivative in one of the two (the kernel and cuBLAS sum in
 other orders), which moves that one edge's cotangents by up to 99%, a
 single-entry change that an elementwise bound would report as a fault.
-Model gradients on the card against the CPU path: norm-wise 1e-3."""
+Model gradients on the card against the CPU path: norm-wise 1e-3. The
+soft-min field kernels (smooth): S at rtol 1e-5 / atol 1e-4, dx and dA
+norm-wise 1e-5; the fused-intersection step against the unfused one at
+rtol 1e-4. Every backward gives the same bits on two launches."""
 
 import numpy as np
 import pytest
@@ -266,3 +269,96 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
     wide = torch.zeros(1, 4, 128, device=cuda)
     with pytest.raises(ValueError, match="D=128"):
         ca.cross_attention_bwd(wide, wide, wide, tag, tag, wide, tag, wide)
+
+
+@pytest.mark.parametrize("N", [512, 200])
+def test_edge_kernels_at_width_16_match_plain(cuda, N):
+    """D = 16, the small DB5 models' width: 16 groups of half a warp a block."""
+    src, dst, he, nbr, msk, prm = _edge_inputs(np.random.default_rng(N), cuda, B=2, N=N,
+                                               D=16, n_valid=min(N, 431))
+    got = em.edge_message_aggregate(src, dst, he, nbr, msk, prm)
+    want = em.edge_message_plain(src, dst, he, nbr, msk, prm)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    gen = torch.Generator().manual_seed(N)
+    ga = torch.randn(2, N, 16, generator=gen).to(cuda)
+    gx = torch.randn(2, N, 3, generator=gen).to(cuda)
+    args = (src, dst, he, nbr, msk, prm, ga, gx)
+    got = em.edge_message_bwd(*args)
+    want = em.edge_message_bwd_plain(*args)
+    torch.cuda.synchronize()
+    names = ["d_src", "d_dst", "d_he"] + list(em.PARAM_NAMES)
+    _assert_grads_close([*got[:3], *(got[3][n] for n in em.PARAM_NAMES)],
+                        [*want[:3], *(want[3][n] for n in em.PARAM_NAMES)], names)
+
+
+@pytest.mark.parametrize("D", [64, 16])
+def test_edge_bwd_is_bit_reproducible(cuda, D):
+    """Two launches on the same inputs give the same bits, d_src included
+    (its sum runs over each row's edges in a fixed order, no atomics)."""
+    src, dst, he, nbr, msk, prm = _edge_inputs(np.random.default_rng(3), cuda, B=3, N=512, D=D)
+    gen = torch.Generator().manual_seed(3)
+    ga, gx = torch.randn(3, 512, D, generator=gen).to(cuda), torch.randn(3, 512, 3, generator=gen).to(cuda)
+    s0 = em.scatter_launches
+    runs = [em.edge_message_bwd(src, dst, he, nbr, msk, prm, ga, gx) for _ in range(2)]
+    assert em.scatter_launches == s0 + 2
+    flat = lambda r: [*r[:3], *(r[3][n] for n in em.PARAM_NAMES)]
+    for a, b in zip(flat(runs[0]), flat(runs[1])):
+        assert torch.equal(a, b)
+
+
+def _softmin_inputs(rng, dev, B, M, N):
+    x = torch.from_numpy((rng.standard_normal((B, M, 3)) * 12).astype(np.float32))
+    a = torch.from_numpy((rng.standard_normal((B, N, 3)) * 12 + 3).astype(np.float32))
+    am = torch.from_numpy((rng.uniform(size=(B, N)) > 0.3).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((B, M)).astype(np.float32))
+    c[:, M // 2:] = 0                  # padded query rows carry no cotangent
+    return [t.to(dev) for t in (x, a, am, c)]
+
+
+@pytest.mark.parametrize("B,M,N", [(2, 70, 130), (10, 512, 512), (1, 3072, 3072)])
+def test_softmin_field_kernels_match_plain(cuda, B, M, N):
+    from equidock_public_tpu_torch.ops import softmin_field as sf
+    from equidock_public_tpu_torch.ops.cuda import softmin_field as ksf
+
+    x, a, am, c = _softmin_inputs(np.random.default_rng(M + N), cuda, B, M, N)
+    f0, b0 = ksf.launches, ksf.bwd_launches
+    got = ksf.softmin_field_fwd(x, a, am, 25.0)
+    dx, da = ksf.softmin_field_bwd(x, a, am, c, 25.0)
+    assert (ksf.launches, ksf.bwd_launches) == (f0 + 1, b0 + 1)
+    want = sf.softmin_field_sums_plain(x, a, am, 25.0)
+    wdx, wda = sf.softmin_field_bwd_plain(x, a, am, c, 25.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    _assert_grads_close([dx, da], [wdx, wda], ["dx", "dA"], rel=1e-5)
+    again = ksf.softmin_field_bwd(x, a, am, c, 25.0)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], da)
+
+
+def test_fused_intersection_step_matches_the_unfused_one(cuda):
+    """`use_fused_intersection` on the card: the soft-min field kernels run
+    twice forward and twice backward a step, and the loss terms and the
+    gradient norm equal the unfused step's."""
+    import dataclasses
+
+    from equidock_public_tpu_torch.config import Config, TrainConfig
+    from equidock_public_tpu_torch.ops.cuda import softmin_field as ksf
+    from equidock_public_tpu_torch.train.step import create_train_state, train_step
+
+    cfg = Config(model=ModelConfig(residue_emb_dim=16, iegmn_lay_hid_dim=64, iegmn_n_lays=3,
+                                   shared_layers=True, num_att_heads=8),
+                 train=TrainConfig(sinkhorn_iters=20))
+    batch = _batch(np.random.default_rng(2), cuda)
+    batch = dataclasses.replace(batch, gt_lig=batch.lig.x + 1.0)
+    out = {}
+    for fused in (False, True):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                use_fused_intersection=fused))
+        state = create_train_state(init_params(cfg.model, 0, cuda), c, cuda)
+        f0, b0 = ksf.launches, ksf.bwd_launches
+        _, m = train_step(state, batch, c)
+        out[fused] = m
+        assert (ksf.launches - f0, ksf.bwd_launches - b0) == ((2, 2) if fused else (0, 0))
+    for key in ("loss", "intersection_loss", "grad_norm"):
+        torch.testing.assert_close(out[True][key], out[False][key], rtol=1e-4, atol=1e-6)

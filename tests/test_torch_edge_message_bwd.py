@@ -112,3 +112,28 @@ def test_bwd_on_other_devices_raises(rng):
 def test_bwd_blocks_cover_every_node_within_the_cap():
     assert tem.bwd_blocks(10, 512) == tem.BWD_MAX_BLOCKS
     assert tem.bwd_blocks(1, 9) == 3
+
+
+def test_bwd_blocks_at_width_16():
+    """256 threads a block: 16 nodes of 16 channels."""
+    assert tem.bwd_blocks(1, 40, 16) == 3 and tem.bwd_blocks(10, 512, 16) == tem.BWD_MAX_BLOCKS
+
+
+def test_inverse_neighbors_give_the_transpose_of_the_gather(rng):
+    """The scatter kernel's inputs: summing each src row's edges in `order`
+    between its `offsets` (as the kernel does, here in numpy) gives the
+    gather's transpose, `index_add_` of the per-edge rows."""
+    B, N, K, Nsrc, C = 2, 9, 4, 11, 5
+    nbr = torch.from_numpy(rng.integers(0, Nsrc, (B, N, K)).astype(np.int32))
+    per_edge = torch.from_numpy(rng.standard_normal((B * N * K, C)).astype(np.float32))
+    order, offsets = tem.inverse_neighbors(nbr, Nsrc)
+    assert order.dtype == offsets.dtype == torch.int32 and offsets[-1] == B * N * K
+    rows = (nbr.long() + Nsrc * torch.arange(B)[:, None, None]).reshape(-1)
+    want = torch.zeros(B * Nsrc, C).index_add_(0, rows, per_edge)
+    got = np.zeros((B * Nsrc, C), np.float32)
+    for r in range(B * Nsrc):
+        edges = order[offsets[r]:offsets[r + 1]].long()
+        assert (rows[edges] == r).all() and (edges.diff() > 0).all()   # ascending edge order
+        for e in edges:
+            got[r] += per_edge[e].numpy()
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-6, atol=1e-6)

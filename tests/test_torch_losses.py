@@ -101,8 +101,27 @@ def test_masked_mse(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
 
 
-@pytest.mark.parametrize("field,value", [("ot_solver", "exact"),
-                                         ("use_fused_intersection", True)])
+def test_total_loss_with_the_fused_intersection(rng):
+    """`use_fused_intersection`: the JAX package's Pallas soft-min field
+    kernel (interpret mode, products at "highest" precision) against the
+    port's soft-min field path; the terms equal the unfused loss's too."""
+    b = _batch(rng)
+    out = _outputs(rng, b)
+    out["ligand_coords"] *= 0.3           # overlapping bodies: a non-zero penalty
+    with jax.default_matmul_precision("highest"):
+        _, want = jlo.total_loss({k: jnp.asarray(v) for k, v in out.items()}, b,
+                                 JaxTrainConfig(use_fused_intersection=True))
+    got = {fused: tlo.total_loss({k: t(v) for k, v in out.items()}, port_batch(b),
+                                 TrainConfig(use_fused_intersection=fused))[1]
+           for fused in (True, False)}
+    assert float(want["intersection_loss"]) > 0
+    for key in want:
+        for fused in (True, False):
+            np.testing.assert_allclose(float(got[fused][key]), float(want[key]), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{key} fused={fused}")
+
+
+@pytest.mark.parametrize("field,value", [("ot_solver", "exact")])
 def test_options_outside_the_slice_raise(rng, field, value):
     b = _batch(rng)
     out = {k: t(v) for k, v in _outputs(rng, b).items()}

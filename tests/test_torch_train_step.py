@@ -135,7 +135,7 @@ def test_full_width_step_matches_the_golden_file():
 
 
 @pytest.mark.parametrize("section,field,value", [
-    ("train", "use_fused_intersection", True), ("train", "ot_solver", "exact"),
+    ("train", "ot_solver", "exact"),
     ("train", "freeze_original", True), ("data", "pack", True),
     ("model", "dropout", 0.1), ("model", "fine_tune", True), ("model", "remat", True),
     ("model", "layer_norm", "BN")])

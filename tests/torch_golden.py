@@ -1,10 +1,13 @@
 """The JAX package's CPU outputs that the port is held to:
 `equidock_public_tpu_torch/assets/db5_model_best.golden.json` (the served
-smoke requests) and `db5_train_step.golden.json` (three training steps of
+smoke requests), `db5_train_step.golden.json` (three training steps of
 the DB5 paper model from its trained weights on a batch of ten split
-chains). Shared by the tests and the command that writes the files:
+chains) and `db5_fit.golden.json` (two epochs of `fit` on the tracked
+split chains, with the fused intersection loss). Shared by the tests and
+the command that writes the files:
 
-    JAX_PLATFORMS=cpu python -m tests.torch_golden
+    JAX_PLATFORMS=cpu python -m tests.torch_golden         # all of them
+    JAX_PLATFORMS=cpu python -m tests.torch_golden fit     # the fit file only
 """
 
 import json
@@ -183,6 +186,116 @@ def jax_train_golden():
     }
 
 
+FIT_GOLDEN = os.path.join(ASSETS, "db5_fit.golden.json")
+FIT_SEED = 0            # cfg.train.random_seed: batches, poses, metering
+FIT_EPOCHS = 2
+# The port on the card against these values: loss terms per epoch (relative),
+# RMSD medians (A). Four Adam steps of f32 in other orders.
+FIT_TOL = {"loss_rtol": 1e-3, "median_atol": 1e-2}
+FIT_LOSS_KEYS = ("loss", "ligand_coors_loss", "ot_loss", "intersection_loss")
+FIT_MEDIAN_KEYS = ("complex_rmsd_median", "interface_rmsd_median")
+
+
+def fit_partition():
+    """{split: codes} of the tracked chains: by residue count, largest first,
+    rank i goes to val when i % 5 == 2, to test when i % 5 == 4, else to
+    train (15 / 5 / 5)."""
+    parts = {"train": [], "val": [], "test": []}
+    for i, (code, _) in enumerate(chains_by_size()):
+        parts["val" if i % 5 == 2 else "test" if i % 5 == 4 else "train"].append(code)
+    return parts
+
+
+def fit_config(cfg, root):
+    """The DB5 paper model's config for the fit golden: fused intersection,
+    FIT_SEED, bs 10, val_repeats 1; caches, checkpoints and logs under root.
+    Works on either package's Config (same field names)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, use_fused_intersection=True,
+                                       random_seed=FIT_SEED, bs=10, val_repeats=1),
+        data=dataclasses.replace(cfg.data, cache_dir=os.path.join(root, "cache")),
+        checkpoint_dir=os.path.join(root, "ckpt"), log_dir=os.path.join(root, "logs"))
+
+
+def jax_fit_golden():
+    """The JAX package's `fit` for FIT_EPOCHS epochs from the trained weights
+    on caches of the split chains written by its own featurizer: per epoch
+    the train and val averages, the best epoch, and the test averages of the
+    best checkpoint reloaded. Products at "highest" precision (the Pallas
+    soft-min kernel's cross term in f32)."""
+    import dataclasses
+    import tempfile
+
+    import jax
+
+    from equidock_public_tpu.data.dataset import _graph_to_npz
+    from equidock_public_tpu.train import loop
+    from equidock_public_tpu.train.checkpoint import load_checkpoint
+    from equidock_public_tpu.train.step import create_train_state
+
+    payload, cfg, _ = load_checkpoint(CHECKPOINT)
+    parts = fit_partition()
+    rec = {"train": [], "eval": [], "best": []}
+    with tempfile.TemporaryDirectory() as root:
+        cfg = fit_config(cfg, root)
+        for split, codes in parts.items():
+            out = {"codes": np.array(codes)}
+            for i, code in enumerate(codes):
+                smp = jax_split_chain(code, cfg.graph)
+                _graph_to_npz(f"c{i}/lig/", smp.lig, out)
+                _graph_to_npz(f"c{i}/rec/", smp.rec, out)
+                out[f"c{i}/gt_lig"], out[f"c{i}/gt_rec"] = smp.gt_lig, smp.gt_rec
+                out[f"c{i}/pocket"] = smp.pocket
+            os.makedirs(cfg.cache_path(), exist_ok=True)
+            np.savez(os.path.join(cfg.cache_path(), f"{split}.npz"), **out)
+        run_train, run_eval, save = loop.run_train_epoch, loop.run_eval_epoch, loop.save_checkpoint
+
+        def train_epoch(*a, **kw):
+            state, tr = run_train(*a, **kw)
+            rec["train"].append(tr)
+            return state, tr
+
+        def eval_epoch(*a, **kw):
+            rec["eval"].append(run_eval(*a, **kw))
+            return rec["eval"][-1]
+
+        def save_best(path, state, cfg_, epoch):
+            rec["best"].append(epoch)
+            save(path, state, cfg_, epoch)
+
+        loop.run_train_epoch, loop.run_eval_epoch, loop.save_checkpoint = \
+            train_epoch, eval_epoch, save_best
+        cwd = os.getcwd()
+        os.chdir(root)                     # the JAX loop writes ./tb_logs
+        try:
+            with jax.default_matmul_precision("highest"):
+                loop.fit(cfg, create_train_state(payload["params"], cfg),
+                         max_epochs=FIT_EPOCHS, log=lambda *a: None)
+        finally:
+            os.chdir(cwd)
+            loop.run_train_epoch, loop.run_eval_epoch, loop.save_checkpoint = \
+                run_train, run_eval, save
+    keep = lambda d, keys: {k: float(d[k]) for k in keys}
+    return {
+        "source": "equidock_public_tpu on the CPU (fit, Pallas soft-min kernel in "
+                  "interpret mode), artifacts/db5_model_best",
+        "partition": parts,
+        "split": "each chain cut at residue n // 2; ligand = first half; chains ranked "
+                 "by residue count, largest first: rank % 5 == 2 val, == 4 test, else train",
+        "epochs": FIT_EPOCHS, "train_config": dataclasses.asdict(cfg.train),
+        "tolerance": FIT_TOL,
+        "history": [{"train": dict(keep(tr, FIT_LOSS_KEYS + ("complex_rmsd_median",)),
+                                   num_batches=int(tr["num_batches"]),
+                                   num_clips=int(tr["num_clips"])),
+                     "val": keep(va, FIT_LOSS_KEYS + FIT_MEDIAN_KEYS)}
+                    for tr, va in zip(rec["train"], rec["eval"])],
+        "best_epoch": rec["best"][-1],
+        "test": keep(rec["eval"][-1], FIT_LOSS_KEYS + FIT_MEDIAN_KEYS),
+    }
+
+
 def orbax_params_numpy():
     """The checkpoint's params pytree as nested dicts of numpy arrays."""
     import jax
@@ -195,6 +308,7 @@ def orbax_params_numpy():
 
 if __name__ == "__main__":
     import dataclasses
+    import sys
 
     import jax
 
@@ -203,13 +317,14 @@ if __name__ == "__main__":
     from equidock_public_tpu_torch.params import params_from_numpy, save_params
 
     os.makedirs(ASSETS, exist_ok=True)
+    if sys.argv[1:] == ["fit"]:
+        with open(FIT_GOLDEN, "w") as f:
+            json.dump(jax_fit_golden(), f, indent=1)
+        sys.exit(0)
     sidecar = os.path.join(ASSETS, "db5_model_best.config.json")
-    with open(sidecar, "w") as f:     # the sections the port reads
+    with open(sidecar, "w") as f:     # the whole config, as the port reads it
         cfg = load_config(CHECKPOINT + ".config.json")
-        json.dump({"model": dataclasses.asdict(cfg.model),
-                   "graph": dataclasses.asdict(cfg.graph),
-                   "data": dataclasses.asdict(cfg.data),
-                   "train": dataclasses.asdict(cfg.train)}, f)
+        json.dump(dataclasses.asdict(cfg), f)
     tree, _ = orbax_params_numpy()
     save_params(os.path.join(ASSETS, "db5_model_best.pt.xz"),
                 params_from_numpy(tree, cfg.model))
@@ -220,3 +335,5 @@ if __name__ == "__main__":
     train_golden = jax_train_golden()
     with open(TRAIN_GOLDEN, "w") as f:
         json.dump(train_golden, f, indent=1)
+    with open(FIT_GOLDEN, "w") as f:
+        json.dump(jax_fit_golden(), f, indent=1)

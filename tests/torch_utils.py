@@ -37,3 +37,22 @@ def port_batch(b) -> PairBatch:
                      gt_lig=t(b.gt_lig), pocket_lig=t(b.pocket_lig),
                      pocket_rec=t(b.pocket_rec), pocket_mask=t(b.pocket_mask),
                      pair_mask=t(b.pair_mask))
+
+
+def port_config(jcfg):
+    """The JAX package's Config -> the port's: every field the port has,
+    from the JAX value (the port's field names and defaults are the JAX
+    package's)."""
+    import dataclasses
+
+    from equidock_public_tpu_torch import config as tc
+
+    def section(cls, src):
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in dataclasses.asdict(src).items() if k in names})
+
+    return tc.Config(model=section(tc.ModelConfig, jcfg.model),
+                     graph=section(tc.GraphConfig, jcfg.graph),
+                     data=section(tc.DataConfig, jcfg.data),
+                     train=section(tc.TrainConfig, jcfg.train),
+                     checkpoint_dir=jcfg.checkpoint_dir, log_dir=jcfg.log_dir)
