@@ -8,17 +8,20 @@ Each phase prints one JSON line; any failure raises and the script exits
 non-zero without printing a result.
   device   the card (exit 1 when there is none), torch and CUDA versions,
            the power limit; TF32 stays off
-  build    wipes equidock_public_tpu_torch/_build and builds the five
+  build    wipes equidock_public_tpu_torch/_build and builds the six
            sources with one nvcc call; prints ptxas' register/shared-memory
            lines
   kernels  each CUDA kernel against its plain PyTorch version on the card:
            the forwards at the serving shapes, the backwards (edge message,
            attention dQ and dK/dV) against autograd through the plain
-           forwards at the training shapes, the edge kernels also at D = 16,
-           the soft-min field sums and their backward at the training, a
-           ragged and the largest bucket's shapes, with the stated
-           tolerances; and two launches of each backward on the same inputs
-           give the same bits
+           forwards at the training shapes, the edge kernels also at D = 16
+           and with a source wider than the destinations (the halo layer
+           body's Nsrc = S + 2 Hr + gp Hres), the soft-min field sums and
+           their backward at the training, a ragged and the largest
+           bucket's shapes, with the stated tolerances; the halo ring
+           kernels (rows 8, 9) bit-equal to their plain versions at the
+           halo path's shapes; and two launches of each backward and ring
+           kernel on the same inputs give the same bits
   serve    the DB5 paper model (committed weights) warms up buckets 512 and
            1024, then answers 4 requests through DockingServer.serve_lines;
            R, t and CA coordinates must match the JAX package's CPU values
@@ -47,6 +50,17 @@ non-zero without printing a result.
            sizes drawn from the tracked chains): epoch seconds, pairs/s,
            step median, val-epoch and checkpoint seconds, launches per step,
            and the device idle share of one profiled epoch
+  halo     the halo graph-parallel path (shards stacked on the card): the
+           4 served requests through `make_halo_forward` at padded gp=2,
+           ragged gp=4 and gp=4 with a forced residual tier, each against
+           the serving golden file through the node permutation, the ring
+           tier's kernel (row 8 padded, row 9 ragged) and the edge forward
+           launching exactly 10 times a forward; 3 `make_halo_train_step`
+           steps at gp=2 on the training batch against the training golden
+           file, rows 8 and 9 launching 10 times a step each, two steps
+           from one state bit-equal; the halo forward's and step's times
+           beside the dense ones in turns, and the halo bytes a layer
+           against a full gather
   times    each kernel's device time (CUDA-graph replays between CUDA
            events) beside its plain version, its bound and a PyTorch library
            call where one exists, and its eager per-call time; the
@@ -312,11 +326,17 @@ KERNELS = (
      "ops/pallas/softmin_field.py:26", "epoch"),
     ("softmin_field_bwd", "softmin_field", "bwd_launches", "csrc/softmin_field.cu",
      "ops/pallas/softmin_field.py:38", "epoch"),
+    ("halo_ring_exchange", "halo_ring", "launches", "csrc/halo_ring.cu",
+     "parallel/pallas_halo.py:122", "halo_train"),
+    ("halo_ring_ship2", "halo_ring", "ship_launches", "csrc/halo_ring.cu",
+     "parallel/pallas_halo.py:133", "halo_train"),
 )
 # The edge backward's second kernel (d_src in a fixed order, csrc/
 # edge_message_bwd.cu), launched once with each backward: counted apart and
-# required to match row 2's launches on every path.
+# required to match row 2's launches on every path. The halo path launches
+# it also as the transpose of its send-row gathers, counted apart again.
 SCATTER = ("edge_message", "scatter_launches")
+TAKE_SCATTER = ("halo_ring", "take_launches")
 # Launches a training step makes of each kernel (5 layers x 2 sides; the
 # soft-min field kernels once a direction) and a forward without gradient.
 PER_STEP = {"edge_message": 10, "edge_message_bwd": 10, "cross_attention": 10,
@@ -328,10 +348,10 @@ PER_EVAL_FUSED = {"edge_message": 10, "cross_attention": 10, "softmin_field": 2}
 def kernel_counters():
     """(module, launch-counter attribute, kernel name) of every kernel, and
     of the edge backward's scatter."""
-    mods = tuple((importlib.import_module(f"equidock_public_tpu_torch.ops.cuda.{mod}"),
-                  attr, name) for name, mod, attr, *_ in KERNELS)
-    return mods + ((importlib.import_module("equidock_public_tpu_torch.ops.cuda."
-                                            + SCATTER[0]), SCATTER[1], "edge_message_scatter"),)
+    mod = lambda name: importlib.import_module(f"equidock_public_tpu_torch.ops.cuda.{name}")
+    return (tuple((mod(m), attr, name) for name, m, attr, *_ in KERNELS)
+            + ((mod(SCATTER[0]), SCATTER[1], "edge_message_scatter"),
+               (mod(TAKE_SCATTER[0]), TAKE_SCATTER[1], "halo_take_scatter")))
 
 
 def reset_counts() -> None:
@@ -355,6 +375,8 @@ def expect_counts(what: str, counts: dict, steps: int, evals: int, fused: bool) 
     require(counts["edge_message_scatter"] == counts["edge_message_bwd"],
             f"{what}: the edge backward's scatter launched {counts['edge_message_scatter']} "
             f"times for {counts['edge_message_bwd']} backwards")
+    require(counts["halo_take_scatter"] == 0,
+            f"{what}: the halo path's take scatter launched on a dense path")
 
 
 def rel_err(got, want) -> float:
@@ -426,6 +448,16 @@ def edge_bwd_case(params, dev, B=10, N=512):
 
 def nbytes_of(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def ring_nbytes(args, outs) -> int:
+    """Bytes a ring call (rows 8, 9) must move: each output once, the local
+    block (row 8) once, and of the two send buffers (snd_next/snd_prev, or
+    a/b) only the shards that some shard reads: the chain ends receive
+    zeros, so the first buffer of shard P-1 and the second of shard 0 are
+    never read."""
+    *local, first, second = args
+    return nbytes_of(*local, first[:, :-1], second[:, 1:], *outs)
 
 
 def edge_bwd_cost(src, dst, he, nbr, msk, kp, ga, gx):
@@ -671,21 +703,20 @@ def timed_parts(step) -> dict:
     return parts
 
 
-def run_train(dev) -> dict:
-    """The train phase: the golden batch, the gradient check, TRAIN_STEPS
-    counted steps against the golden file, then timing and the profile."""
+def training_golden(dev):
+    """(golden file, committed weights, their config, the golden batch,
+    featurize seconds): 10 tracked chains cut in two, through the port's
+    featurizer and DockingDataset under the golden file's seed, checked
+    against the golden batch digest."""
     from equidock_public_tpu_torch.data.dataset import DockingDataset, split_chain_complex
     from equidock_public_tpu_torch.data.featurize import filter_residues
     from equidock_public_tpu_torch.data.pdb import group_residues, read_pdb
     from equidock_public_tpu_torch.graph import batch_digest, digests_agree
-    from equidock_public_tpu_torch.params import default_checkpoint, flatten, load_checkpoint
-    from equidock_public_tpu_torch.train.step import (create_train_state, loss_and_grads,
-                                                      train_step)
+    from equidock_public_tpu_torch.params import default_checkpoint, load_checkpoint
 
     with open(os.path.join(REPO, "equidock_public_tpu_torch", "assets",
                            "db5_train_step.golden.json")) as f:
         golden = json.load(f)
-    tol = golden["tolerance"]
     params, cfg = load_checkpoint(default_checkpoint(), dev)
     for key, value in dataclasses.asdict(cfg.train).items():
         require(golden["train"][key] == value, f"train.{key}: {value} in the weights' "
@@ -701,18 +732,68 @@ def run_train(dev) -> dict:
     featurize_s = time.perf_counter() - t0
     bad = digests_agree(batch_digest(batch), golden["batch_digest"])
     require(not bad, f"the training batch differs from the golden one in {bad}")
+    return golden, params, cfg, batch, featurize_s
+
+
+def check_step_golden(what, metrics, state, p0, golden, cfg) -> dict:
+    """TRAIN_STEPS steps' loss terms, gradient norms and clip flags, and the
+    parameters' moves, against the training golden file's gates; the worst
+    relative errors."""
+    from equidock_public_tpu_torch.params import flatten
+
+    tol = golden["tolerance"]
+    worst = {}
+    for i, (m, want) in enumerate(zip(metrics, golden["steps"])):
+        rtol = tol["loss_rtol_step1"] if i == 0 else tol["loss_rtol_later"]
+        for key in ("loss", "ligand_coors_loss", "receptor_coors_loss", "ot_loss",
+                    "intersection_loss", "grad_norm"):
+            got = float(m[key])
+            r = tol["grad_norm_rtol"] if key == "grad_norm" else rtol
+            require(np.isfinite(got) and abs(got - want[key]) <= r * abs(want[key])
+                    + tol["loss_atol"], f"{what} step {i + 1} {key}: {got:.7g}, "
+                                        f"JAX {want[key]:.7g}")
+            worst[key] = max(worst.get(key, 0.0), abs(got - want[key]) / max(abs(want[key]), 1e-12))
+        require(float(m["clipped"]) == want["clipped"], f"{what} step {i + 1}: clipped differs")
+    atol = tol["delta_norm_atol_lr"] * cfg.train.lr
+    worst["delta_norm"] = 0.0
+    for key, v in flatten(state.params).items():
+        got, want = float((v - p0[key]).norm()), golden["delta_norms_last"][key]
+        worst["delta_norm"] = max(worst["delta_norm"], abs(got - want) / max(want, 1e-12))
+        require(abs(got - want) <= tol["delta_norm_rtol"] * want + atol,
+                f"{what} {key}: moved {got:.6g} in {TRAIN_STEPS} steps, JAX {want:.6g}")
+    return worst
+
+
+def check_grad_norms(what, grads, golden) -> float:
+    """Every leaf's gradient finite, its norm the JAX package's; the worst
+    relative error."""
+    tol = golden["tolerance"]
+    worst = 0.0
+    for key, want in golden["grad_norms_step1"].items():
+        g = grads[key]
+        require(torch.isfinite(g).all().item(), f"{what} {key}: non-finite gradient")
+        err = abs(float(g.norm()) - want) / max(want, 1e-12)
+        worst = max(worst, err)
+        require(err <= tol["leaf_grad_norm_rtol"] or abs(float(g.norm()) - want) <= 1e-6,
+                f"{what} {key}: gradient norm {float(g.norm()):.6g}, JAX {want:.6g}")
+    return worst
+
+
+def run_train(dev, train_golden) -> dict:
+    """The train phase: the golden batch (`training_golden`), the gradient
+    check, TRAIN_STEPS counted steps against the golden file, then timing
+    and the profile."""
+    from equidock_public_tpu_torch.params import flatten
+    from equidock_public_tpu_torch.train.step import (create_train_state, loss_and_grads,
+                                                      train_step)
+
+    golden, params, cfg, batch, featurize_s = train_golden
+    tol = golden["tolerance"]
     pairs = int(batch.pair_mask.sum().item())
 
     # every leaf gets a finite gradient whose norm is the JAX package's
     grads, _, _ = loss_and_grads(params, cfg, batch)
-    worst_leaf = 0.0
-    for key, want in golden["grad_norms_step1"].items():
-        g = grads[key]
-        require(torch.isfinite(g).all().item(), f"{key}: non-finite gradient")
-        err = abs(float(g.norm()) - want) / max(want, 1e-12)
-        worst_leaf = max(worst_leaf, err)
-        require(err <= tol["leaf_grad_norm_rtol"] or abs(float(g.norm()) - want) <= 1e-6,
-                f"{key}: gradient norm {float(g.norm()):.6g}, JAX {want:.6g}")
+    worst_leaf = check_grad_norms("train", grads, golden)
 
     # the main path: TRAIN_STEPS train_steps, counts set to 0 just before
     state = create_train_state(params, cfg, dev)
@@ -724,27 +805,11 @@ def run_train(dev) -> dict:
         metrics.append(m)
     launches = read_counts()
     expect_counts("train", launches, TRAIN_STEPS, 0, fused=False)
-    worst = {}
-    for i, (m, want) in enumerate(zip(metrics, golden["steps"])):
-        rtol = tol["loss_rtol_step1"] if i == 0 else tol["loss_rtol_later"]
-        for key in ("loss", "ligand_coors_loss", "receptor_coors_loss", "ot_loss",
-                    "intersection_loss", "grad_norm"):
-            got = float(m[key])
-            r = tol["grad_norm_rtol"] if key == "grad_norm" else rtol
-            require(np.isfinite(got) and abs(got - want[key]) <= r * abs(want[key])
-                    + tol["loss_atol"], f"step {i + 1} {key}: {got:.7g}, JAX {want[key]:.7g}")
-            worst[key] = max(worst.get(key, 0.0), abs(got - want[key]) / max(abs(want[key]), 1e-12))
-        require(float(m["clipped"]) == want["clipped"], f"step {i + 1}: clipped differs")
+    worst = check_step_golden("train", metrics, state, p0, golden, cfg)
+    for m in metrics:
         lc = m["ligand_coords"]
         require(tuple(lc.shape) == tuple(batch.lig.x.shape) and torch.isfinite(lc).all().item(),
                 "ligand_coords: wrong shape or non-finite")
-    atol = tol["delta_norm_atol_lr"] * cfg.train.lr
-    worst_delta = 0.0
-    for key, v in flatten(state.params).items():
-        got, want = float((v - p0[key]).norm()), golden["delta_norms_last"][key]
-        worst_delta = max(worst_delta, abs(got - want) / max(want, 1e-12))
-        require(abs(got - want) <= tol["delta_norm_rtol"] * want + atol,
-                f"{key}: moved {got:.6g} in {TRAIN_STEPS} steps, JAX {want:.6g}")
 
     # the same first step with the soft-min field kernels: as the unfused one
     fcfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
@@ -792,8 +857,7 @@ def run_train(dev) -> dict:
                fused_step={"launches": fused_launches, "rel_err_vs_unfused": fused_err,
                            "rtol": FUSED_RTOL},
                small_model=small,
-               golden_worst_rel_err=dict(worst, leaf_grad_norm=worst_leaf,
-                                         delta_norm=worst_delta),
+               golden_worst_rel_err=dict(worst, leaf_grad_norm=worst_leaf),
                losses=[{k: float(m[k]) for k in ("loss", "ot_loss", "grad_norm")}
                        for m in metrics],
                step_ms=step_ms, step_ms_median=med, pairs_per_s=pairs / (med / 1e3),
@@ -985,6 +1049,291 @@ def run_epoch_db5_sized(dev, root) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# Slice 4: the halo graph-parallel path
+# --------------------------------------------------------------------------- #
+
+def served_requests(cfg, dev):
+    """The serving golden file's 4 requests, featurized as the server does:
+    [(golden entry, Request)]."""
+    from equidock_public_tpu_torch.eval.inference import featurize_request
+
+    with open(os.path.join(REPO, "equidock_public_tpu_torch", "assets",
+                           "db5_model_best.golden.json")) as f:
+        golden = json.load(f)["requests"]
+    return [(g, featurize_request(cfg, os.path.join(REPO, g["ligand"]),
+                                  os.path.join(REPO, g["receptor"]), dev)) for g in golden]
+
+
+def halo_plans(pair):
+    """(name, planner options, dp, gp) of the three halo forwards of a
+    request: the padded ring tier at gp=2, the ragged one at gp=4, and gp=4
+    in the chain order (spatial=False) with both tiers forced (hmax) to
+    the widest width the unforced plan needs, so the residual tier ships."""
+    from equidock_public_tpu_torch.parallel.halo import build_halo_batch
+
+    _, st, _, _ = build_halo_batch(pair, gp=4, spatial=False)
+    hmax = max(st.hring_lig, st.hring_rec, st.hres_lig, st.hres_rec)
+    return (("padded_gp2", dict(gp=2), 1, 2), ("ragged_gp4", dict(gp=4, ragged=True), 1, 4),
+            ("residual_gp4", dict(gp=4, spatial=False, hmax=hmax), 1, 4))
+
+
+def ring_inputs(pair, kw, dp, gp, side, dev, seed=0):
+    """(mesh, the side's folded ProteinBatch, its plan in the folded layout,
+    a random 64-wide h for its rows) of a request or batch planned with
+    `kw`."""
+    from equidock_public_tpu_torch.parallel.halo import build_halo_batch, shard_plan
+    from equidock_public_tpu_torch.parallel.mesh import ParallelMesh
+
+    hb, _, _, _ = build_halo_batch(pair, **kw)
+    mesh = ParallelMesh(dp, gp, dev)
+    prot = mesh.shard_protein(getattr(hb.pair, side))
+    plan = shard_plan(getattr(hb, "plan_" + side[:3]), mesh)
+    gen = torch.Generator().manual_seed(seed)
+    h = torch.randn(prot.x.shape[:2] + (64,), generator=gen).to(dev)
+    return mesh, prot, plan, h
+
+
+def halo_kernel_cases(params, requests, train_batch, dev):
+    """Rows 8 and 9 at the main path's shapes: the 512 x 1024 request's
+    receptor (padded plan, gp=2) and its ragged plan (gp=4), the training
+    batch's ligand at gp=2 and the shapes its backward ships; the edge
+    kernels at Nsrc != N: the same receptor's layer-body inputs at gp=2
+    and at gp=4 with the residual tier forced."""
+    from equidock_public_tpu_torch.models.iegmn import edge_kernel_inputs
+    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+    from equidock_public_tpu_torch.parallel.halo import halo_exchange
+
+    pair = requests[0][1].batch
+    require(tuple(pair.rec.x.shape[:2]) == (1, 1024), "request 0 is not 512 x 1024")
+    plans = {name: (kw, dp, gp) for name, kw, dp, gp in halo_plans(pair)}
+    exchange, ship, edge = [], [], []
+
+    def exchange_case(what, p, kw, dp, gp, side):
+        mesh, prot, plan, h = ring_inputs(p, kw, dp, gp, side, dev)
+        xh = torch.cat([prot.x, h], dim=-1)
+        args = (mesh.unfold(xh), mesh.unfold(hr.take_rows(xh, plan.send_next)),
+                mesh.unfold(hr.take_rows(xh, plan.send_prev)))
+        exchange.append(dict(shape=f"{what}: local {tuple(args[0].shape)}, "
+                                   f"Hr={args[1].shape[3]}", args=args))
+
+    exchange_case("512x1024 request, receptor, padded gp=2", pair, *plans["padded_gp2"], "rec")
+    exchange_case("training batch, ligand, padded gp=2", train_batch, dict(gp=2), 1, 2, "lig")
+    mesh, prot, plan, h = ring_inputs(pair, *plans["ragged_gp4"], "rec", dev)
+    flat = torch.cat([prot.x, h], dim=-1).reshape(mesh.dp * mesh.gp, -1, 67)
+    a, b = (hr.take_rows(flat, i).reshape(mesh.dp, mesh.gp, -1, 67)
+            for i in (plan.send_next_flat, plan.send_prev_flat))
+    ship.append(dict(shape=f"512x1024 request, receptor, ragged gp=4: a {tuple(a.shape)}, "
+                           f"b {tuple(b.shape)}", args=(a, b)))
+    shape = exchange[1]["args"][1].shape      # the training batch's gradient slices
+    gen = torch.Generator().manual_seed(3)
+    ship.append(dict(shape=f"training batch backward, gp=2: {tuple(shape)} both ways",
+                     args=tuple(torch.randn(shape, generator=gen).to(dev) for _ in range(2))))
+
+    for what in ("padded_gp2", "residual_gp4"):
+        kw, dp, gp = plans[what]
+        mesh, prot, plan, h = ring_inputs(pair, kw, dp, gp, "rec", dev, seed=1)
+        src_view = halo_exchange(prot.x, h, plan, mesh)
+        he = prot.edge_feat.contiguous()
+        src, dst, kp = edge_kernel_inputs(params["original"]["rest"], prot.x, h, he,
+                                          src=src_view)
+        gen = torch.Generator().manual_seed(2)
+        grads = (torch.randn(dst.shape[:2] + (64,), generator=gen).to(dev),
+                 torch.randn(dst.shape[:2] + (3,), generator=gen).to(dev))
+        edge.append(dict(shape=f"512x1024 request, receptor, {what}: B={src.shape[0]} "
+                               f"N={dst.shape[1]} Nsrc={src.shape[1]} K=10 D=64 E=27",
+                         args=(src, dst, he, prot.nbr, prot.nbr_mask, kp), grads=grads))
+    return exchange, ship, edge
+
+
+def check_halo_kernels(exchange, ship, edge, slope) -> dict:
+    """Rows 8 and 9 bit-equal to their plain versions and to a second
+    launch; the edge kernels at Nsrc != N to their plain versions (forward
+    EDGE_TOL, backward norm-wise), the d_src scatter to index_add_, two
+    backward launches bit-equal."""
+    from equidock_public_tpu_torch.ops.cuda import edge_message as em
+    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+
+    out = {"halo_ring_exchange": [], "halo_ring_ship2": [], "edge_message_nsrc": []}
+    for c in exchange:
+        got, again = hr.ring_exchange_kernel(*c["args"]), hr.ring_exchange_kernel(*c["args"])
+        want = hr.ring_exchange_plain(*c["args"])
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"halo_ring_exchange {c['shape']}: differs from plain")
+        require(torch.equal(got, again), f"halo_ring_exchange {c['shape']}: two launches differ")
+        c["err"] = max_err([got], [want])
+        out["halo_ring_exchange"].append({"shape": c["shape"], "max_abs_err": c["err"]})
+    for c in ship:
+        got, again = hr.ring_ship_kernel(*c["args"]), hr.ring_ship_kernel(*c["args"])
+        want = hr.ring_ship_plain(*c["args"])
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"halo_ring_ship2 {c['shape']}: differs from plain")
+        require(all(torch.equal(g, w) for g, w in zip(got, again)),
+                f"halo_ring_ship2 {c['shape']}: two launches differ")
+        c["err"] = max_err(got, want)
+        out["halo_ring_ship2"].append({"shape": c["shape"], "max_abs_err": c["err"]})
+    flat = lambda r: [*r[:3], *(r[3][n] for n in em.PARAM_NAMES)]
+    for c in edge:
+        a = c["args"]
+        fwd_err = check_close("edge_message " + c["shape"], em.edge_message_aggregate(*a, slope=slope),
+                              em.edge_message_plain(*a, slope=slope), EDGE_TOL)
+        got = em.edge_message_bwd(*a, *c["grads"], slope=slope)
+        want = em.edge_message_bwd_plain(*a, *c["grads"], slope=slope)
+        torch.cuda.synchronize()
+        check = check_grads("edge_message_bwd", c["shape"], flat(got), flat(want))
+        raw = em.edge_message_bwd_kernel(*a, *c["grads"], slope=slope)
+        nbr, nsrc = a[3], a[0].shape[1]
+        scatter_err = check_close("edge_message scatter " + c["shape"],
+                                  [em.scatter_src(nbr, nsrc, *raw[:2])],
+                                  [em.scatter_src_plain(nbr, nsrc, *raw[:2])], EDGE_TOL)
+        again = em.edge_message_bwd(*a, *c["grads"], slope=slope)
+        require(all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))),
+                f"edge_message_bwd {c['shape']}: two launches differ")
+        out["edge_message_nsrc"].append(dict(shape=c["shape"], max_abs_err=fwd_err,
+                                             bwd=check, scatter_max_abs_err=scatter_err))
+    return out
+
+
+def inverse(perm: np.ndarray) -> np.ndarray:
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return inv
+
+
+def timed_ms(fn, reps: int) -> list:
+    """Host-clock ms of `reps` calls, each ended by a synchronize."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def run_halo(dev, requests, train_golden) -> dict:
+    """The halo phase: (a) the 4 served requests through the halo forward
+    at three plans each against the serving golden file, each forward
+    launching the ring tier's kernel and the edge forward 10 times; (b) 3
+    halo training steps at gp=2 on the golden batch against the training
+    golden file, rows 8 and 9 10 times a step, two steps from one state
+    bit-equal; (c) times beside the dense path's in the same run."""
+    from equidock_public_tpu_torch.models.iegmn import docking_forward
+    from equidock_public_tpu_torch.params import flatten
+    from equidock_public_tpu_torch.parallel.halo import (build_halo_batch, make_halo_forward,
+                                                         make_halo_loss, make_halo_train_step)
+    from equidock_public_tpu_torch.parallel.mesh import ParallelMesh
+    from equidock_public_tpu_torch.train.step import (create_train_state, loss_and_grads,
+                                                      train_step)
+
+    golden, params, cfg, batch, _ = train_golden
+    per_fwd = LAYERS * SIDES
+    # (a) serving requests, counts set to 0 just before
+    plans = [(g, req, halo_plans(req.batch)) for g, req in requests]
+    forwards = {}
+    worst = {k: 0.0 for k in GOLDEN_ATOL}
+    reset_counts()
+    for g, req, req_plans in plans:
+        for name, kw, dp, gp in req_plans:
+            hb, stats, perm_l, _ = build_halo_batch(req.batch, **kw)
+            before = read_counts()
+            with torch.inference_mode():
+                out = make_halo_forward(cfg, ParallelMesh(dp, gp, dev))(params, hb)
+            after = read_counts()
+            grew = {k: after[k] - before[k] for k in after}
+            ring = "halo_ring_ship2" if kw.get("ragged") else "halo_ring_exchange"
+            want = {k: 0 for k in grew}
+            want.update({ring: per_fwd, "edge_message": per_fwd})
+            if name == "residual_gp4":
+                require(stats.hres_lig > 0 and stats.hres_rec > 0, "no residual tier")
+            require(grew == want, f"halo forward {name} {g['ligand']}: launches {grew}")
+            inv = inverse(perm_l[0])
+            got = {"R": out["R"][0].cpu().numpy(), "t": out["t"][0, 0].cpu().numpy(),
+                   "ca": out["ligand_coords"][0].cpu().numpy()[inv][:8]}
+            for k, atol in GOLDEN_ATOL.items():
+                require(np.isfinite(got[k]).all(), f"halo forward {name}: non-finite {k}")
+                err = float(np.abs(got[k] - np.asarray(g[k])).max())
+                worst[k] = max(worst[k], err)
+                require(err <= atol, f"halo forward {name} {g['ligand']}: {k} differs from "
+                                     f"the JAX golden value by {err:.3g} > {atol}")
+            forwards.setdefault(name, []).append(dict(
+                buckets=[hb.pair.lig.x.shape[1], hb.pair.rec.x.shape[1]],
+                hring=[stats.hring_lig, stats.hring_rec], hres=[stats.hres_lig, stats.hres_rec],
+                ring_flat=[stats.ring_flat_lig, stats.ring_flat_rec],
+                bytes_per_layer=stats.bytes_per_layer(64),
+                demand_bytes_per_layer=stats.bytes_per_layer(64, padded=False),
+                full_gather_bytes_per_layer=stats.full_gather_bytes_per_layer(
+                    64, hb.pair.lig.x.shape[1], hb.pair.rec.x.shape[1], 1)))
+    serve_counts = read_counts()
+
+    # (b) training steps at gp=2 padded on the golden batch
+    hb, stats, _, _ = build_halo_batch(batch, gp=2)
+    mesh = ParallelMesh(1, 2, dev)
+    grads, _, _ = loss_and_grads(params, cfg, hb, loss_fn_=make_halo_loss(cfg, mesh))
+    worst_leaf = check_grad_norms("halo", grads, golden)
+    step = make_halo_train_step(cfg, mesh)
+    state0 = create_train_state(params, cfg, dev)
+    p0 = {k: v.clone() for k, v in flatten(state0.params).items()}
+    state, metrics = state0, []
+    reset_counts()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, hb)
+        metrics.append(m)
+    train_counts = read_counts()
+    takes = LAYERS * (4 + (stats.hres_lig > 0) + (stats.hres_rec > 0))
+    want = {k: 0 for k in train_counts}
+    want.update({k: per_fwd * TRAIN_STEPS for k in ("halo_ring_exchange", "halo_ring_ship2",
+                                                    "edge_message", "edge_message_bwd",
+                                                    "edge_message_scatter")},
+                halo_take_scatter=takes * TRAIN_STEPS)
+    require(train_counts == want, f"halo train: launches {train_counts}, expected {want}")
+    worst_step = check_step_golden("halo train", metrics, state, p0, golden, cfg)
+    runs = [step(state0, hb) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(flatten(runs[0][0].params).values(),
+                                                 flatten(runs[1][0].params).values()))
+    same = same and all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
+    require(same, "halo train: two steps from one state differ")
+
+    # (c) times, the halo path beside the dense one in the same run, in turns
+    req = requests[0][1].batch
+    hbr, st_r, _, _ = build_halo_batch(req, gp=2)
+    fwd = make_halo_forward(cfg, ParallelMesh(1, 2, dev))
+    with torch.inference_mode():
+        halo_fwd = lambda: fwd(params, hbr)["R"].cpu()
+        dense_fwd = lambda: docking_forward(params, cfg.model, req)["R"].cpu()
+        fwd_ms = {"dense": [], "halo": []}
+        for _ in range(2):
+            fwd_ms["dense"] += timed_ms(dense_fwd, 5)
+            fwd_ms["halo"] += timed_ms(halo_fwd, 5)
+        fwd_profile = device_profile(halo_fwd, reps=3)
+    step_ms = {"dense": [], "halo": []}
+    for _ in range(2):
+        step_ms["dense"] += timed_ms(lambda: train_step(state0, batch, cfg), 3)
+        step_ms["halo"] += timed_ms(lambda: step(state0, hb), 3)
+    med = lambda d: {k: statistics.median(v) for k, v in d.items()}
+    return dict(
+        forwards=forwards, golden_max_abs_err=worst, golden_atol=GOLDEN_ATOL,
+        launches_serve=serve_counts, launches_per_forward={"ring": per_fwd, "edge_message": per_fwd,
+                                                           "cross_attention": 0},
+        train=dict(gp=2, hring=[stats.hring_lig, stats.hring_rec],
+                   hres=[stats.hres_lig, stats.hres_rec], launches=train_counts,
+                   golden_worst_rel_err=dict(worst_step, leaf_grad_norm=worst_leaf),
+                   two_steps_bit_equal=same,
+                   losses=[{k: float(m[k]) for k in ("loss", "ot_loss", "grad_norm")}
+                           for m in metrics],
+                   bytes_per_layer=stats.bytes_per_layer(64),
+                   full_gather_bytes_per_layer=stats.full_gather_bytes_per_layer(64, 512, 512, 10)),
+        forward_512x1024_gp2_ms=fwd_ms, forward_ms_median=med(fwd_ms),
+        forward_bytes_per_layer=st_r.bytes_per_layer(64),
+        forward_full_gather_bytes_per_layer=st_r.full_gather_bytes_per_layer(64, 512, 1024, 1),
+        forward_profile_512x1024_gp2=fwd_profile,
+        step_ms=step_ms, step_ms_median=med(step_ms),
+        timing="host clock around calls ended by a synchronize, dense and halo in turns; "
+               "steps from one state, not chained")
+
+
+# --------------------------------------------------------------------------- #
 # Main
 # --------------------------------------------------------------------------- #
 
@@ -1092,7 +1441,12 @@ def main() -> int:
         again = ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA)
         require(all(torch.equal(g, h) for g, h in zip(got, again)),
                 f"softmin_field_bwd {c['shape']}: two launches on the same inputs differ")
-    emit("kernels",
+    # rows 8 and 9, and the edge kernels at Nsrc != N, at the halo path's shapes
+    requests = served_requests(cfg, dev)
+    train_golden = training_golden(dev)
+    h_exchange, h_ship, h_edge = halo_kernel_cases(params, requests, train_golden[3], dev)
+    halo_checks = check_halo_kernels(h_exchange, h_ship, h_edge, slope)
+    emit("kernels", **halo_checks,
          edge_message=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in e_cases + [e16]],
          cross_attention=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in a_cases],
          edge_message_bwd=[{"shape": eb_case["shape"], **eb_case["check"],
@@ -1103,7 +1457,9 @@ def main() -> int:
          softmin_field=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in s_cases],
          softmin_field_bwd=[{"shape": c["shape"], **c["check"]} for c in s_cases],
          bit_equal_backwards=["edge_message_bwd D=64", "edge_message_bwd D=16",
+                              "edge_message_bwd Nsrc != N (2 shapes)",
                               "softmin_field_bwd (3 shapes)"],
+         bit_equal_to_plain=["halo_ring_exchange", "halo_ring_ship2"],
          tolerance={"edge_message": EDGE_TOL, "cross_attention": ATT_TOL,
                     "softmin_field": SOFTMIN_TOL, "backward_relative_norm": BWD_REL_TOL})
 
@@ -1166,7 +1522,7 @@ def main() -> int:
          buckets=[[r["num_lig_res"], r["num_rec_res"]] for r in responses])
 
     # -- train: the main path of slice 2 ----------------------------------------
-    train = run_train(dev)
+    train = run_train(dev, train_golden)
 
     # -- epoch: the main path of slice 3 ----------------------------------------
     root = tempfile.mkdtemp(prefix="equidock_epoch_")
@@ -1176,6 +1532,10 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit("epoch", golden_fit=epoch_golden, db5_sized=epoch_db5)
+
+    # -- halo: the main path of slice 4 -----------------------------------------
+    halo = run_halo(dev, requests, train_golden)
+    emit("halo", **halo)
 
     # -- times -----------------------------------------------------------------
     rows = []
@@ -1251,6 +1611,22 @@ def main() -> int:
                              call_ms=call_ms(kern), plain_ms=device_ms(plain, reps=5),
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
                              library_note=no_library))
+    no_library_ring = ("none: no single PyTorch call computes the ring exchange "
+                       "(torch.roll of the shard axis does not zero the chain ends)")
+    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+    for name, cases, kern_fn, plain_fn in (
+            ("halo_ring_exchange", h_exchange, hr.ring_exchange_kernel, hr.ring_exchange_plain),
+            ("halo_ring_ship2", h_ship, hr.ring_ship_kernel, hr.ring_ship_plain)):
+        for c in cases:
+            a = c["args"]
+            outs = kern_fn(*a)
+            b_ms, b_by = bound(ring_nbytes(a, outs if isinstance(outs, tuple) else (outs,)), 0)
+            kern = lambda f=kern_fn, a=a: f(*a)
+            rows.append(dict(kernel=name, shape=c["shape"], ms=device_ms(kern),
+                             call_ms=call_ms(kern),
+                             plain_ms=device_ms(lambda f=plain_fn, a=a: f(*a)),
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             library_note=no_library_ring))
     from equidock_public_tpu_torch.cli.serve import warmup_batch
 
     profile_batch = warmup_batch(server.cfg, 512, 1024, dev)
@@ -1286,12 +1662,18 @@ def main() -> int:
         main[f"cross_attention_{part}"] = (
             row(f"cross_attention_{part}", ab_cases[0]["shape"]),
             max(c[f"check_{part}"]["max_abs_err"] for c in ab_cases))
+    main["halo_ring_exchange"] = (row("halo_ring_exchange", h_exchange[0]["shape"]),
+                                  max(c["err"] for c in h_exchange))
+    main["halo_ring_ship2"] = (row("halo_ring_ship2", h_ship[0]["shape"]),
+                               max(c["err"] for c in h_ship))
     table = []
     for name, _, _, source, replaces, path in KERNELS:
         r, err = main[name]
         by_path = {"serve": serve_launches[name], "train": train["launches"][name],
                    "epoch": epoch_golden["launches"][name],
-                   "epoch_db5_sized": epoch_db5["launches"][name]}
+                   "epoch_db5_sized": epoch_db5["launches"][name],
+                   "halo_serve": halo["launches_serve"][name],
+                   "halo_train": halo["train"]["launches"][name]}
         table.append(dict(name=name, route="cuda",
                           source=f"equidock_public_tpu_torch/{source}",
                           replaces=f"equidock_public_tpu/{replaces}",

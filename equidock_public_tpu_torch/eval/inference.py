@@ -17,7 +17,7 @@ import torch
 
 from ..config import Config
 from ..data.featurize import alpha_carbon_array, build_protein_graph, filter_residues
-from ..data.pdb import group_residues, read_pdb, write_pdb
+from ..data.pdb import AtomTable, group_residues, read_pdb, write_pdb
 from ..device import resolve_device
 from ..graph import PairBatch, collate
 from ..models.iegmn import docking_forward
@@ -39,6 +39,34 @@ def make_forward(params, cfg: Config) -> Callable[[PairBatch], dict]:
     return forward
 
 
+@dataclasses.dataclass
+class Request:
+    """One docking request, parsed and featurized."""
+
+    batch: PairBatch        # one complex, padded to its buckets
+    lig_table: AtomTable    # every ligand atom, to move at the end
+    lig_x: np.ndarray       # (n_l, 3) the ligand graph's node coordinates
+    num_lig_res: int
+    num_rec_res: int
+
+
+def featurize_request(cfg: Config, ligand_pdb: str, receptor_pdb: str, device) -> Request:
+    """Parse both PDB files, featurize both proteins and collate the
+    one-complex batch on `device`."""
+    lig_table = read_pdb(ligand_pdb)
+    lig_res = filter_residues(group_residues(lig_table))
+    rec_res = filter_residues(group_residues(read_pdb(receptor_pdb)))
+    lig_ca = alpha_carbon_array(lig_res)
+    gc = cfg.graph
+    lig_g = build_protein_graph(lig_res, gc.graph_cutoff, gc.graph_max_neighbor)
+    rec_g = build_protein_graph(rec_res, gc.graph_cutoff, gc.graph_max_neighbor)
+    placeholder = np.zeros((4, 3), np.float32)   # pocket slots, unused here
+    batch = collate([lig_g], [rec_g], [lig_g.x], [lig_ca], [placeholder],
+                    [placeholder], cfg.data.node_buckets, cfg.data.pocket_buckets,
+                    device=device)
+    return Request(batch, lig_table, lig_g.x, len(lig_res), len(rec_res))
+
+
 def dock_one(params, cfg: Config, ligand_pdb: str, receptor_pdb: str,
              out_path: str, remove_clashes: bool = False,
              forward_fn: Optional[Callable[[PairBatch], dict]] = None,
@@ -50,31 +78,21 @@ def dock_one(params, cfg: Config, ligand_pdb: str, receptor_pdb: str,
         raise NotImplementedError("remove_clashes is not ported yet")
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    lig_table = read_pdb(ligand_pdb)
-    lig_res = filter_residues(group_residues(lig_table))
-    rec_res = filter_residues(group_residues(read_pdb(receptor_pdb)))
-    lig_ca = alpha_carbon_array(lig_res)
-    gc = cfg.graph
-    lig_g = build_protein_graph(lig_res, gc.graph_cutoff, gc.graph_max_neighbor)
-    rec_g = build_protein_graph(rec_res, gc.graph_cutoff, gc.graph_max_neighbor)
-    placeholder = np.zeros((4, 3), np.float32)   # pocket slots, unused here
-    batch = collate([lig_g], [rec_g], [lig_g.x], [lig_ca], [placeholder],
-                    [placeholder], cfg.data.node_buckets, cfg.data.pocket_buckets,
-                    device=dev)
+    req = featurize_request(cfg, ligand_pdb, receptor_pdb, dev)
     forward_fn = forward_fn or make_forward(params, cfg)
-    out = forward_fn(batch)
+    out = forward_fn(req.batch)
     R = out["R"][0].cpu().numpy().astype(np.float64)
     t = out["t"][0].cpu().numpy().astype(np.float64)
 
     # R @ CA + t must equal the model's moved coordinates
-    n_l = lig_ca.shape[0]
+    n_l = req.lig_x.shape[0]
     pred_ca = out["ligand_coords"][0, :n_l].cpu().numpy()
-    resid = np.linalg.norm((R @ lig_g.x.T).T + t - pred_ca)
+    resid = np.linalg.norm((R @ req.lig_x.T).T + t - pred_ca)
     if not resid < 1e-1:
         raise RuntimeError(f"R/t inconsistent with the moved coordinates: {resid}")
 
-    moved = (R @ lig_table.coords.T).T + t          # ALL ligand atoms
+    moved = (R @ req.lig_table.coords.T).T + t          # ALL ligand atoms
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-    write_pdb(out_path, lig_table, moved)
-    return InferenceResult(out_path, time.perf_counter() - t0, len(lig_res),
-                           len(rec_res))
+    write_pdb(out_path, req.lig_table, moved)
+    return InferenceResult(out_path, time.perf_counter() - t0, req.num_lig_res,
+                           req.num_rec_res)

@@ -10,7 +10,8 @@ The edge step and the cross-attention always go through
 computation with `fused_edge_message` and `use_fused_attention` on. On CUDA
 tensors those launch the hand-written kernels; on CPU tensors they run their
 plain PyTorch versions. Configs the fused edge kernel does not cover raise
-instead of taking another path.
+instead of taking another path. The halo path (`parallel/halo.py`) runs the
+same layer body on node shards, with its own source rows and attention.
 
 Parameters are nested dicts with the JAX package's keys (see `params.py`).
 """
@@ -18,7 +19,7 @@ Parameters are nested dicts with the JAX package's keys (see `params.py`).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -67,15 +68,19 @@ def _mlp2(p: Params, x: torch.Tensor, cfg: ModelConfig, use_ln: bool) -> torch.T
     return linear(p["lin2"], h)
 
 
-def edge_kernel_inputs(p: Params, x: torch.Tensor, h: torch.Tensor, he: torch.Tensor):
+def edge_kernel_inputs(p: Params, x: torch.Tensor, h: torch.Tensor, he: torch.Tensor,
+                       src: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """(src, dst, kernel params) of the edge-message kernel for one side:
     the split first edge layer of the JAX fused path, `lin1(concat) =
     h_src W_a + h_dst W_b + he Wc + rbf Wd + b1`, with the two per-node
-    products taken here."""
+    products taken here. `src` (x_src, h_src) is the array the neighbour
+    table indexes when it is not (x, h) itself (the halo path's local block
+    and received rows, Nsrc > N)."""
     ep, cp = p["edge_mlp"], p["coors_mlp"]
     W = ep["lin1"]["w"]
     Dh, E = h.shape[-1], he.shape[-1]
-    src = torch.cat([x, torch.matmul(h, W[:Dh])], dim=-1).contiguous()
+    x_s, h_s = src if src is not None else (x, h)
+    src = torch.cat([x_s, torch.matmul(h_s, W[:Dh])], dim=-1).contiguous()
     dst = torch.cat([x, torch.matmul(h, W[Dh:2 * Dh]) + ep["lin1"]["b"]],
                     dim=-1).contiguous()
     Do = ep["lin2"]["w"].shape[0]
@@ -93,9 +98,9 @@ def edge_kernel_inputs(p: Params, x: torch.Tensor, h: torch.Tensor, he: torch.Te
 
 
 def _edge_step(p: Params, cfg: ModelConfig, side: ProteinBatch,
-               x: torch.Tensor, h: torch.Tensor, he: torch.Tensor):
+               x: torch.Tensor, h: torch.Tensor, he: torch.Tensor, src=None):
     """Per-edge messages + masked means over K for one side."""
-    src, dst, kparams = edge_kernel_inputs(p, x, h, he)
+    src, dst, kparams = edge_kernel_inputs(p, x, h, he, src)
     return edge_message_aggregate(
         src, dst, he, side.nbr, side.nbr_mask, kparams,
         slope=cfg.leakyrelu_neg_slope, use_ln=cfg.layer_norm == "LN",
@@ -105,15 +110,31 @@ def _edge_step(p: Params, cfg: ModelConfig, side: ProteinBatch,
 def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool,
                         lig: ProteinBatch, rec: ProteinBatch,
                         x_l, h_l, x_r, h_r, orig_h_l, orig_h_r, he_l, he_r,
-                        orig_x_l, orig_x_r):
-    """One IEGMN layer on both proteins. Returns (x_l, h_l, x_r, h_r)."""
-    aggr_l, xupd_l = _edge_step(p, cfg, lig, x_l, h_l, he_l)
-    aggr_r, xupd_r = _edge_step(p, cfg, rec, x_r, h_r, he_r)
+                        orig_x_l, orig_x_r, src_l=None, src_r=None,
+                        attend: Optional[Callable] = None):
+    """One IEGMN layer on both proteins. Returns (x_l, h_l, x_r, h_r).
+
+    Node-sharded (halo) mode, used by `parallel/halo.py` so that one layer
+    body serves both paths, as in the JAX package:
+      * `src_l` / `src_r`: (x_src, h_src) the neighbour gathers read, the
+        local block followed by the received halo rows, indexed by the
+        remapped `side.nbr`. Default: (x, h) themselves.
+      * `attend`: a cross-attention callable with the signature of
+        `ops.attention.cross_attention` (the halo path passes the ring
+        attention over the shards' K/V chunks); it replaces the attention
+        kernel and the fine-tune stage's attention."""
+    aggr_l, xupd_l = _edge_step(p, cfg, lig, x_l, h_l, he_l, src_l)
+    aggr_r, xupd_r = _edge_step(p, cfg, rec, x_r, h_r, he_r, src_r)
 
     def qk(h, which):
         return nonlin(linear(p[which], h), cfg.nonlin, cfg.leakyrelu_neg_slope)
 
-    if cfg.cross_msgs:
+    if attend is not None:
+        cross_l = attend(qk(h_l, "att_q"), qk(h_r, "att_k"), linear(p["att_v"], h_r),
+                         lig.node_mask, rec.node_mask, cfg.cross_msgs)
+        cross_r = attend(qk(h_r, "att_q"), qk(h_l, "att_k"), linear(p["att_v"], h_l),
+                         rec.node_mask, lig.node_mask, cfg.cross_msgs)
+    elif cfg.cross_msgs:
         cross_l = cross_attention_fused(qk(h_l, "att_q"), qk(h_r, "att_k"),
                                         linear(p["att_v"], h_r),
                                         lig.node_mask, rec.node_mask)
@@ -136,10 +157,11 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
             z = nonlin(linear(p["ft_att_v1"], h), cfg.nonlin, cfg.leakyrelu_neg_slope)
             return linear(p["ft_att_v2"], z)
 
-        att_x_l = cross_attention(qk(h_l, "ft_att_q"), qk(h_r, "ft_att_k"), x_r,
-                                  lig.node_mask, rec.node_mask, cfg.cross_msgs)
-        att_x_r = cross_attention(qk(h_r, "ft_att_q"), qk(h_l, "ft_att_k"), x_l,
-                                  rec.node_mask, lig.node_mask, cfg.cross_msgs)
+        ft_attend = attend if attend is not None else cross_attention
+        att_x_l = ft_attend(qk(h_l, "ft_att_q"), qk(h_r, "ft_att_k"), x_r,
+                            lig.node_mask, rec.node_mask, cfg.cross_msgs)
+        att_x_r = ft_attend(qk(h_r, "ft_att_q"), qk(h_l, "ft_att_k"), x_l,
+                            rec.node_mask, lig.node_mask, cfg.cross_msgs)
         x_final_l = x_final_l + ft_v(h_l) * (x_l - att_x_l)
         x_final_r = x_final_r + ft_v(h_r) * (x_r - att_x_r)
 
@@ -159,16 +181,31 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
     return x_final_l, h_final_l, x_final_r, h_final_r
 
 
-def _rest_layer(cfg: ModelConfig, rest: Params, i: int) -> Params:
-    """Parameters of layer i >= 1: the shared layer, or slice i-1 of the
-    stacked unshared layers."""
+def layer_params(cfg: ModelConfig, p: Params, i: int) -> Params:
+    """Parameters of layer i: layer0, then the shared layer or slice i-1 of
+    the stacked unshared layers."""
+    if i == 0:
+        return p["layer0"]
     if cfg.shared_layers:
-        return rest
+        return p["rest"]
 
     def take(t):
         return {k: take(v) for k, v in t.items()} if isinstance(t, dict) else t[i - 1]
 
-    return take(rest)
+    return take(p["rest"])
+
+
+def trunk_inputs(p: Params, cfg: ModelConfig, lig: ProteinBatch, rec: ProteinBatch):
+    """(h_l, h_r, he_l, he_r): the input node features (residue embedding,
+    with the log surface features) and the gated edge features of both
+    sides."""
+    h_l = embedding(p["embedding"], lig.res_id)
+    h_r = embedding(p["embedding"], rec.res_id)
+    if cfg.use_mean_node_features:
+        h_l = torch.cat([h_l, torch.log(lig.mu_r_norm)], dim=-1)
+        h_r = torch.cat([h_r, torch.log(rec.mu_r_norm)], dim=-1)
+    gate = 1.0 if cfg.use_edge_features_in_gmn else 0.0
+    return h_l, h_r, (lig.edge_feat * gate).contiguous(), (rec.edge_feat * gate).contiguous()
 
 
 def iegmn_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
@@ -176,26 +213,13 @@ def iegmn_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
     """IEGMN trunk + keypoint head. Returns (R (B, 3, 3), t (B, 1, 3),
     keypts_lig (B, H, 3), keypts_rec (B, H, 3))."""
     lig, rec = batch.lig, batch.rec
-    orig_x_l, orig_x_r = x_l_in, rec.x
     x_l, x_r = x_l_in, rec.x
-    h_l = embedding(p["embedding"], lig.res_id)
-    h_r = embedding(p["embedding"], rec.res_id)
-    if cfg.use_mean_node_features:
-        h_l = torch.cat([h_l, torch.log(lig.mu_r_norm)], dim=-1)
-        h_r = torch.cat([h_r, torch.log(rec.mu_r_norm)], dim=-1)
+    h_l, h_r, he_l, he_r = trunk_inputs(p, cfg, lig, rec)
     orig_h_l, orig_h_r = h_l, h_r
-    gate = 1.0 if cfg.use_edge_features_in_gmn else 0.0
-    he_l = (lig.edge_feat * gate).contiguous()
-    he_r = (rec.edge_feat * gate).contiguous()
-
-    x_l, h_l, x_r, h_r = iegmn_layer_forward(
-        p["layer0"], cfg, fine_tune, False, lig, rec, x_l, h_l, x_r, h_r,
-        orig_h_l, orig_h_r, he_l, he_r, orig_x_l, orig_x_r)
-    for i in range(1, n_lays):
+    for i in range(n_lays):
         x_l, h_l, x_r, h_r = iegmn_layer_forward(
-            _rest_layer(cfg, p["rest"], i), cfg, fine_tune, True, lig, rec,
-            x_l, h_l, x_r, h_r, orig_h_l, orig_h_r, he_l, he_r,
-            orig_x_l, orig_x_r)
+            layer_params(cfg, p, i), cfg, fine_tune, i > 0, lig, rec, x_l, h_l, x_r, h_r,
+            orig_h_l, orig_h_r, he_l, he_r, x_l_in, rec.x)
     return keypoint_head(p, cfg, h_l, x_l, h_r, x_r, lig.node_mask, rec.node_mask)
 
 

@@ -192,13 +192,10 @@ def scatter_src_plain(nbr, Nsrc: int, dgx, dgh):
     return d_src.reshape(B, Nsrc, C)
 
 
-def scatter_src(nbr, Nsrc: int, dgx, dgh):
-    """d_src (B, Nsrc, 3 + D): the per-edge cotangents [dgx | dgh] summed
-    onto their src rows. CUDA tensors launch the scatter kernel, which sums
-    each row's edges in ascending edge order, so the sums are the same from
-    run to run; CPU tensors take the plain version."""
-    if dgh.device.type == "cpu":
-        return scatter_src_plain(nbr, Nsrc, dgx, dgh)
+def launch_scatter(nbr, Nsrc: int, dgx, dgh):
+    """The scatter kernel on contiguous CUDA operands, not counted (each
+    caller counts its own launches): d_src (B, Nsrc, 3 + D) with each row's
+    edges summed in ascending edge order, the same bits from run to run."""
     B, D = nbr.shape[0], dgh.shape[-1]
     order, offsets = inverse_neighbors(nbr, Nsrc)
     d_src = torch.empty((B, Nsrc, 3 + D), dtype=torch.float32, device=dgh.device)
@@ -207,6 +204,17 @@ def scatter_src(nbr, Nsrc: int, dgx, dgh):
                                dgh.data_ptr(), d_src.data_ptr(), B * Nsrc, D,
                                torch.cuda.current_stream(dgh.device).cuda_stream)
     check_launch(err, "edge_message bwd scatter")
+    return d_src
+
+
+def scatter_src(nbr, Nsrc: int, dgx, dgh):
+    """d_src (B, Nsrc, 3 + D): the per-edge cotangents [dgx | dgh] summed
+    onto their src rows. CUDA tensors launch the scatter kernel, which sums
+    each row's edges in ascending edge order, so the sums are the same from
+    run to run; CPU tensors take the plain version."""
+    if dgh.device.type == "cpu":
+        return scatter_src_plain(nbr, Nsrc, dgx, dgh)
+    d_src = launch_scatter(nbr, Nsrc, dgx, dgh)
     global scatter_launches
     scatter_launches += 1
     return d_src

@@ -15,7 +15,7 @@ one, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -28,6 +28,8 @@ from .losses import total_loss
 from .optim import adam_update
 
 Tensors = Dict[str, torch.Tensor]
+# (params, cfg, batch) -> (loss, (metrics, forward outputs))
+LossFn = Callable[..., Tuple[torch.Tensor, Tuple[Tensors, Tensors]]]
 
 
 @dataclasses.dataclass
@@ -73,14 +75,15 @@ def loss_fn(params, cfg: Config, batch: PairBatch):
     return loss, (metrics, out)
 
 
-def loss_and_grads(params, cfg: Config, batch: PairBatch
+def loss_and_grads(params, cfg: Config, batch: PairBatch, loss_fn_: Optional[LossFn] = None
                    ) -> Tuple[Tensors, Tensors, Dict[str, torch.Tensor]]:
     """(gradients by flat key, detached metrics, forward outputs) of the
-    training loss at `params`. Raises if a parameter gets no gradient."""
+    training loss at `params`. Raises if a parameter gets no gradient.
+    `loss_fn_` swaps the loss (the halo path's forward) for `loss_fn`."""
     flat = flatten(params)
     leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
     with torch.enable_grad():
-        loss, (metrics, out) = loss_fn(unflatten(leaves), cfg, batch)
+        loss, (metrics, out) = (loss_fn_ or loss_fn)(unflatten(leaves), cfg, batch)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     missing = [k for k, g in zip(leaves, grads) if g is None]
     if missing:
@@ -98,16 +101,20 @@ def apply_gradients(state: TrainState, grads: Tensors, cfg: Config,
     return TrainState(unflatten(new_p), mu, nu, state.step + 1), gnorm
 
 
-def train_step(state: TrainState, batch: PairBatch, cfg: Config,
-               lr_scale: float = 1.0) -> Tuple[TrainState, Tensors]:
+def train_step(state: TrainState, batch, cfg: Config, lr_scale: float = 1.0,
+               loss_fn_: Optional[LossFn] = None) -> Tuple[TrainState, Tensors]:
     """One optimizer step. Returns the new state and the metrics of
     `step_body`: loss, ligand_coors_loss, receptor_coors_loss, ot_loss,
-    intersection_loss, grad_norm, clipped and ligand_coords."""
+    intersection_loss, grad_norm, clipped and ligand_coords. `loss_fn_`
+    swaps the forward and loss (`parallel/halo.py` passes its HaloBatch
+    loss) and keeps the optimizer and the metrics; the batch's device is
+    then that loss's to check."""
     check_train_supported(cfg)
-    dev = next(iter(flatten(state.params).values())).device
-    if batch.lig.x.device != dev:
-        raise ValueError(f"batch on {batch.lig.x.device}, train state on {dev}")
-    grads, metrics, out = loss_and_grads(state.params, cfg, batch)
+    if loss_fn_ is None:
+        dev = next(iter(flatten(state.params).values())).device
+        if batch.lig.x.device != dev:
+            raise ValueError(f"batch on {batch.lig.x.device}, train state on {dev}")
+    grads, metrics, out = loss_and_grads(state.params, cfg, batch, loss_fn_)
     state, gnorm = apply_gradients(state, grads, cfg, lr_scale)
     metrics["grad_norm"] = gnorm
     metrics["clipped"] = (gnorm > cfg.train.clip).to(torch.float32)

@@ -16,7 +16,8 @@ single-entry change that an elementwise bound would report as a fault.
 Model gradients on the card against the CPU path: norm-wise 1e-3. The
 soft-min field kernels (smooth): S at rtol 1e-5 / atol 1e-4, dx and dA
 norm-wise 1e-5; the fused-intersection step against the unfused one at
-rtol 1e-4. Every backward gives the same bits on two launches."""
+rtol 1e-4. The halo ring kernels move floats: bit for bit. Every backward
+gives the same bits on two launches."""
 
 import numpy as np
 import pytest
@@ -362,3 +363,122 @@ def test_fused_intersection_step_matches_the_unfused_one(cuda):
         assert (ksf.launches - f0, ksf.bwd_launches - b0) == ((2, 2) if fused else (0, 0))
     for key in ("loss", "intersection_loss", "grad_norm"):
         torch.testing.assert_close(out[True][key], out[False][key], rtol=1e-4, atol=1e-6)
+
+
+# --------------------------------------------------------------------------- #
+# Rows 8 and 9: the halo ring, and the edge kernels at Nsrc != N
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("G,P,Bl,S,H,F", [(1, 2, 1, 512, 64, 67), (2, 4, 3, 7, 5, 67),
+                                          (1, 4, 2, 256, 8, 68), (1, 2, 10, 256, 1, 67)])
+def test_ring_exchange_kernel_equals_plain(cuda, G, P, Bl, S, H, F):
+    """Bit for bit (the kernel moves floats), float4 path (F = 68) and the
+    scalar one, interior shards and both chain ends; two launches alike."""
+    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+
+    gen = torch.Generator().manual_seed(S + H)
+    local, sn, sp = (torch.randn(G, P, Bl, n, F, generator=gen).to(cuda) for n in (S, H, H))
+    before = hr.launches
+    got = hr.ring_exchange_kernel(local, sn, sp)
+    again = hr.ring_exchange_kernel(local, sn, sp)
+    assert hr.launches == before + 2
+    want = hr.ring_exchange_plain(local, sn, sp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+@pytest.mark.parametrize("shape_a,shape_b", [((1, 2, 96, 67), (1, 2, 64, 67)),
+                                             ((2, 4, 3, 5, 67), (2, 4, 3, 5, 67)),
+                                             ((1, 4, 32, 68), (1, 4, 1, 68))])
+def test_ring_ship_kernel_equals_plain(cuda, shape_a, shape_b):
+    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+
+    gen = torch.Generator().manual_seed(len(shape_a))
+    a, b = torch.randn(*shape_a, generator=gen).to(cuda), torch.randn(*shape_b, generator=gen).to(cuda)
+    before = hr.ship_launches
+    got = hr.ring_ship_kernel(a, b)
+    assert hr.ship_launches == before + 1
+    for g, w in zip(got, hr.ring_ship_plain(a, b)):
+        assert torch.equal(g, w)
+
+
+def test_ring_backward_on_the_card_equals_the_cpu(cuda):
+    """The Functions' backwards (row 9 with the slices swapped) and the
+    take's deterministic transpose give the CPU's values, the same bits on
+    two runs."""
+    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+
+    gen = torch.Generator().manual_seed(0)
+    src = torch.randn(2 * 4 * 3, 9, 67, generator=gen)
+    idx = torch.randint(0, 9, (2 * 4 * 3, 5), generator=gen, dtype=torch.int32)
+    idx[:, -1] = 0                       # padding slots name row 0
+    ct = torch.randn(2, 4, 3, 9 + 10, 67, generator=gen)
+
+    def run(dev):
+        leaf = src.to(dev).requires_grad_(True)
+        snd = hr.take_rows(leaf, idx.to(dev)).reshape(2, 4, 3, 5, 67)
+        out = hr.ring_exchange(leaf.reshape(2, 4, 3, 9, 67), snd, snd * 2)
+        (g,) = torch.autograd.grad(out, [leaf], ct.to(dev))
+        return out.detach().cpu(), g.cpu()
+
+    before = (hr.launches, hr.ship_launches, hr.take_launches)
+    first, second, cpu = run(cuda), run(cuda), run("cpu")
+    assert (hr.launches, hr.ship_launches, hr.take_launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
+    assert torch.equal(first[0], cpu[0]) and torch.equal(first[1], second[1])
+    torch.testing.assert_close(first[1], cpu[1], rtol=1e-6, atol=1e-6)
+
+
+def test_edge_kernels_with_a_wider_source_match_plain(cuda):
+    """The halo layer body's shape: src is the local block plus received
+    rows (Nsrc = S + 2 Hr + gp Hres > N); forward to EDGE tolerance,
+    backward norm-wise, the d_src scatter against index_add_, two launches
+    bit-equal."""
+    N, nsrc = 256, 256 + 2 * 48 + 2 * 8
+    src, dst, he, nbr, msk, prm = _edge_inputs(np.random.default_rng(7), cuda, B=2, N=N,
+                                               n_valid=N)
+    src = torch.cat([src, torch.randn(2, nsrc - N, 67, device=cuda)], dim=1).contiguous()
+    nbr = torch.randint(0, nsrc, nbr.shape, device=cuda, dtype=torch.int32)
+    got = em.edge_message_aggregate(src, dst, he, nbr, msk, prm)
+    want = em.edge_message_plain(src, dst, he, nbr, msk, prm)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    gen = torch.Generator().manual_seed(7)
+    ga, gx = torch.randn(2, N, 64, generator=gen).to(cuda), torch.randn(2, N, 3, generator=gen).to(cuda)
+    args = (src, dst, he, nbr, msk, prm, ga, gx)
+    got = em.edge_message_bwd(*args)
+    want = em.edge_message_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert got[0].shape == (2, nsrc, 67)
+    names = ["d_src", "d_dst", "d_he"] + list(em.PARAM_NAMES)
+    flat = lambda r: [*r[:3], *(r[3][n] for n in em.PARAM_NAMES)]
+    _assert_grads_close(flat(got), flat(want), names, rel=1e-3)
+    raw = em.edge_message_bwd_kernel(*args)
+    torch.testing.assert_close(em.scatter_src(nbr, nsrc, *raw[:2]),
+                               em.scatter_src_plain(nbr, nsrc, *raw[:2]), **TOL)
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(em.edge_message_bwd(*args))))
+
+
+def test_halo_forward_on_the_card_matches_the_cpu_path(cuda):
+    """Padded gp=2 and ragged gp=4: row 8 or row 9 launches twice a layer."""
+    from equidock_public_tpu_torch.config import Config
+    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+    from equidock_public_tpu_torch.parallel.halo import build_halo_batch, make_halo_forward
+    from equidock_public_tpu_torch.parallel.mesh import ParallelMesh
+
+    cfg = Config(model=ModelConfig(residue_emb_dim=16, iegmn_lay_hid_dim=64, iegmn_n_lays=3,
+                                   shared_layers=True, num_att_heads=8))
+    for kw, grew in ((dict(gp=2), (6, 0)), (dict(gp=4, ragged=True), (0, 6))):
+        out = {}
+        for dev in (cuda, "cpu"):
+            hb, _, _, _ = build_halo_batch(_batch(np.random.default_rng(1), dev), **kw)
+            before = (hr.launches, hr.ship_launches)
+            with torch.inference_mode():
+                out[str(dev)] = make_halo_forward(cfg, ParallelMesh(1, kw["gp"], dev))(
+                    init_params(cfg.model, 0, dev), hb)
+            if dev == cuda:
+                assert (hr.launches - before[0], hr.ship_launches - before[1]) == grew
+        for key in ("R", "t", "ligand_coords"):
+            torch.testing.assert_close(out[str(cuda)][key].cpu(), out["cpu"][key],
+                                       rtol=1e-4, atol=1e-3)

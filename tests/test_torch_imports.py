@@ -2,8 +2,8 @@
 nor `chip_smoke.py` may import JAX, flax, optax, orbax or anything of the
 JAX package `equidock_public_tpu`, because the machine with the card has
 none of them. Checked statically (ast) and by running the port's serving
-path and one training step in a process where those modules cannot be
-imported."""
+path, one training step and one halo forward and step in a process where
+those modules cannot be imported."""
 
 import ast
 import os
@@ -180,6 +180,55 @@ def test_a_training_step_runs_with_jax_and_the_jax_package_unimportable():
                           timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "TRAINED" in proc.stdout
+
+
+HALO_MODULES = ("parallel/__init__.py", "parallel/halo.py", "parallel/mesh.py",
+                "parallel/ring_attention.py", "ops/cuda/halo_ring.py")
+
+BLOCKED_HALO = r'''
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint",
+             "equidock_public_tpu"):
+    sys.modules[name] = None
+import numpy as np
+from equidock_public_tpu_torch.cli.serve import warmup_batch
+from equidock_public_tpu_torch.config import Config, ModelConfig, TrainConfig
+from equidock_public_tpu_torch.params import init_params
+from equidock_public_tpu_torch.parallel.halo import (build_halo_batch, make_halo_forward,
+                                                     make_halo_train_step)
+from equidock_public_tpu_torch.parallel.mesh import ParallelMesh
+from equidock_public_tpu_torch.train.step import create_train_state
+cfg = Config(model=ModelConfig(residue_emb_dim=8, iegmn_lay_hid_dim=8, iegmn_n_lays=2,
+                               num_att_heads=4), train=TrainConfig(sinkhorn_iters=10))
+params = init_params(cfg.model)
+hb, stats, perm_l, _ = build_halo_batch(warmup_batch(cfg, 32, 48, "cpu"), gp=2)
+mesh = ParallelMesh(1, 2, "cpu")
+out = make_halo_forward(cfg, mesh)(params, hb)
+assert out["ligand_coords"].shape == (1, 32, 3) and np.isfinite(out["R"].numpy()).all()
+state, m = make_halo_train_step(cfg, mesh)(create_train_state(params, cfg, "cpu"), hb)
+assert np.isfinite(float(m["loss"])) and state.step == 1
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "equidock_public_tpu")]
+assert not loaded, loaded
+print("HALO")
+'''
+
+
+@pytest.mark.parametrize("module", HALO_MODULES)
+def test_halo_modules_are_under_the_guard(module):
+    path = os.path.join(PKG, module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{module} imports {bad}"
+
+
+def test_a_halo_forward_and_step_run_with_jax_and_the_jax_package_unimportable():
+    code = f"REPO = {REPO!r}\n" + BLOCKED_HALO
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "HALO" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -39,6 +39,41 @@ def port_batch(b) -> PairBatch:
                      pair_mask=t(b.pair_mask))
 
 
+def port_halo_batch(jhb):
+    """JAX HaloBatch -> the port's HaloBatch on the CPU, field by field."""
+    import dataclasses
+
+    from equidock_public_tpu_torch.parallel.halo import HaloBatch, HaloPlan
+
+    def plan(jp):
+        return HaloPlan(**{f.name: None if getattr(jp, f.name) is None
+                           else t(getattr(jp, f.name), torch.int32)
+                           for f in dataclasses.fields(HaloPlan)})
+
+    return HaloBatch(pair=port_batch(jhb.pair), plan_lig=plan(jhb.plan_lig),
+                     plan_rec=plan(jhb.plan_rec))
+
+
+def jax_batch(pb):
+    """The port's PairBatch -> the JAX package's (unpacked), same values."""
+    import jax.numpy as jnp
+
+    from equidock_public_tpu.graph import PairBatch as JPair, ProteinBatch as JProt
+
+    def a(x, dtype=None):
+        v = x.detach().cpu().numpy()
+        return jnp.asarray(v if dtype is None else v.astype(dtype))
+
+    def side(s):
+        return JProt(res_id=a(s.res_id, np.int32), x=a(s.x), mu_r_norm=a(s.mu_r_norm),
+                     nbr=a(s.nbr), nbr_mask=a(s.nbr_mask), edge_feat=a(s.edge_feat),
+                     node_mask=a(s.node_mask))
+
+    return JPair(lig=side(pb.lig), rec=side(pb.rec), gt_lig=a(pb.gt_lig),
+                 pocket_lig=a(pb.pocket_lig), pocket_rec=a(pb.pocket_rec),
+                 pocket_mask=a(pb.pocket_mask), pair_mask=a(pb.pair_mask))
+
+
 def port_config(jcfg):
     """The JAX package's Config -> the port's: every field the port has,
     from the JAX value (the port's field names and defaults are the JAX
