@@ -16,12 +16,16 @@ non-zero without printing a result.
            attention dQ and dK/dV) against autograd through the plain
            forwards at the training shapes, the edge kernels also at D = 16
            and with a source wider than the destinations (the halo layer
-           body's Nsrc = S + 2 Hr + gp Hres), the soft-min field sums and
+           body's Nsrc = S + 2 Hr + gp Hres), the attention forward also at
+           the training batch and at the edges of its 64-row tiles (300 x
+           1000, a complex of padded query rows, tags that meet no key,
+           kept logits below -896; rows that keep no key must average all
+           M values with lse = -1000 + log M), the soft-min field sums and
            their backward at the training, a ragged and the largest
            bucket's shapes, with the stated tolerances; the halo ring
            kernels (rows 8, 9) bit-equal to their plain versions at the
-           halo path's shapes; and two launches of each backward and ring
-           kernel on the same inputs give the same bits
+           halo path's shapes; and two launches of each backward, ring and
+           attention kernel on the same inputs give the same bits
   serve    the DB5 paper model (committed weights) warms up buckets 512 and
            1024, then answers 4 requests through DockingServer.serve_lines;
            R, t and CA coordinates must match the JAX package's CPU values
@@ -63,7 +67,10 @@ non-zero without printing a result.
            against a full gather
   times    each kernel's device time (CUDA-graph replays between CUDA
            events) beside its plain version, its bound and a PyTorch library
-           call where one exists, and its eager per-call time; the
+           call where one exists, and its eager per-call time (the attention
+           forward at the serving and the training shapes; the attention
+           backward also as a whole, port, plain and SDPA alike: forward and
+           backward in one CUDA graph less the forward); the
            per-request latency after warm-up; a profiler breakdown of one
            forward (device busy and idle share, top kernels)
 Then one line with the kernel table, the card's name and power limit as
@@ -263,11 +270,20 @@ def edge_cases(params, dev):
 
 
 def attention_cases(dev):
-    """(name, q, k, v, q_tag, k_tag): unpadded 172x548 with masked rows, the
-    bucketed 512x1024 at the layer widths (69 in layer 0, 64 after), and
-    packed-segment tags."""
+    """Forward cases (shape, args = (q, k, v, q_tag, k_tag), timed): unpadded
+    172x548 with masked rows, the bucketed 512x1024 at the layer widths (69
+    in layer 0, 64 after), packed-segment tags, the training batch (B=10,
+    512x512, 70-274 valid nodes a side) at both widths, and the edges of the
+    kernel's 64-row tiles: N and M not multiples of 64 (300 x 1000), a
+    complex whose query rows are all padded, query rows whose tag meets no
+    key, and rows whose kept logits all lie below -896."""
     gen = torch.Generator().manual_seed(0)
     cases = []
+
+    def add(shape, q, k, v, qt, kt, timed):
+        cases.append(dict(shape=shape, timed=timed,
+                          args=tuple(x.to(dev).contiguous() for x in (q, k, v, qt, kt))))
+
     for N, M, nq, nk, D, tags in ((172, 548, 160, 530, 64, False),
                                   (512, 1024, 172, 548, 64, False),
                                   (512, 1024, 172, 548, 69, False),
@@ -280,10 +296,53 @@ def attention_cases(dev):
         if tags:
             qt *= torch.randint(1, 4, (1, N), generator=gen)
             kt *= torch.randint(1, 4, (1, M), generator=gen)
-        cases.append(dict(shape=f"B=1 N={N} ({nq} valid) M={M} ({nk} valid) D=Dv={D}"
-                          + (" tagged" if tags else ""),
-                          args=tuple(x.to(dev).contiguous() for x in (q, k, v, qt, kt))))
+        add(f"B=1 N={N} ({nq} valid) M={M} ({nk} valid) D=Dv={D}" + (" tagged" if tags else ""),
+            q, k, v, qt, kt, True)
+    for D in (64, 69):      # the training batch, layers 1-4 and layer 0
+        rng = np.random.default_rng(D)
+        q, k = (torch.randn(10, 512, D, generator=gen) * 0.3 for _ in range(2))
+        v = torch.randn(10, 512, D, generator=gen)
+        add(f"B=10 N=M=512 D=Dv={D} (70-274 valid a side)", q, k, v,
+            training_tags(rng, 10, 512), training_tags(rng, 10, 512), True)
+    rand = lambda B, N, D=64: torch.randn(B, N, D, generator=gen)
+    valid = lambda B, N, n: (torch.arange(N)[None] < n).float().expand(B, N).contiguous()
+    add("B=2 N=300 (250 valid) M=1000 (900 valid) D=Dv=64", rand(2, 300), rand(2, 1000),
+        rand(2, 1000), valid(2, 300, 250), valid(2, 1000, 900), False)
+    qt = valid(2, 200, 150)
+    qt[1] = 0
+    add("B=2 N=200 M=548 (500 valid) D=Dv=64, complex 1 all query rows padded",
+        rand(2, 200), rand(2, 548), rand(2, 548), qt, valid(2, 548, 500), False)
+    qt = valid(1, 200, 150) * torch.randint(1, 4, (1, 200), generator=gen)
+    qt[:, :50] = 4
+    kt = valid(1, 548, 500) * torch.randint(1, 4, (1, 548), generator=gen)
+    add("B=1 N=200 M=548 D=Dv=64 tagged, rows 0-49 tag 4 (no key has it)",
+        rand(1, 200), rand(1, 548), rand(1, 548), qt, kt, False)
+    q, k = rand(1, 200), rand(1, 548)
+    q[:, :40] = 4.0
+    k[:, :500] = -4.0
+    add("B=1 N=200 (150 valid) M=548 (500 valid) D=Dv=64, rows 0-39 keep only q.k = -1024",
+        q, k, rand(1, 548), valid(1, 200, 150), valid(1, 548, 500), False)
     return cases
+
+
+def check_empty_rows(name, args, out) -> dict:
+    """Rows that keep no key average all M values, with lse = -1000 + log M
+    (M not a multiple of the 64-row tile included: keys past M are left
+    out). lse within 1e-4 (f32 spacing near 1000 is 6.1e-5)."""
+    q, k, v, qt, kt = args
+    o, lse = out
+    empty = ~((qt[:, :, None] > 0) & (qt[:, :, None] == kt[:, None, :])).any(-1)
+    if not empty.any():
+        return {"empty_rows": 0}
+    M = k.shape[1]
+    want_lse = -1000.0 + float(np.log(M))
+    lse_err = float((lse[empty].double() - want_lse).abs().max())
+    require(lse_err <= 1e-4, f"{name}: lse of rows that keep no key off by {lse_err:.3g}")
+    mean = v.mean(1, keepdim=True).expand_as(o)[empty]
+    require(torch.allclose(o[empty], mean, **ATT_TOL),
+            f"{name}: rows that keep no key are not the mean of all {M} values")
+    return {"empty_rows": int(empty.sum()), "empty_lse_max_abs_err": lse_err,
+            "empty_o_max_abs_err": float((o[empty] - mean).abs().max())}
 
 
 def edge_cost(src, dst, he, nbr, msk, kp, out):
@@ -337,6 +396,14 @@ KERNELS = (
 # it also as the transpose of its send-row gathers, counted apart again.
 SCATTER = ("edge_message", "scatter_launches")
 TAKE_SCATTER = ("halo_ring", "take_launches")
+# The second passes of rows 3 and 5 (csrc/cross_attention.cu,
+# csrc/cross_attention_bwd.cu): the merges of their splits, launched once
+# with each forward and each dK/dV, counted apart and required to match
+# (module, counter attribute, name, the row whose launches it matches).
+COMBINES = (("cross_attention", "combine_launches", "cross_attention_combine",
+             "cross_attention"),
+            ("cross_attention", "dkv_combine_launches", "cross_attention_dkv_combine",
+             "cross_attention_dkv"))
 # Launches a training step makes of each kernel (5 layers x 2 sides; the
 # soft-min field kernels once a direction) and a forward without gradient.
 PER_STEP = {"edge_message": 10, "edge_message_bwd": 10, "cross_attention": 10,
@@ -346,12 +413,20 @@ PER_EVAL_FUSED = {"edge_message": 10, "cross_attention": 10, "softmin_field": 2}
 
 
 def kernel_counters():
-    """(module, launch-counter attribute, kernel name) of every kernel, and
-    of the edge backward's scatter."""
+    """(module, launch-counter attribute, kernel name) of every kernel, of
+    the edge backward's scatter and of the attention kernels' combine passes."""
     mod = lambda name: importlib.import_module(f"equidock_public_tpu_torch.ops.cuda.{name}")
     return (tuple((mod(m), attr, name) for name, m, attr, *_ in KERNELS)
             + ((mod(SCATTER[0]), SCATTER[1], "edge_message_scatter"),
-               (mod(TAKE_SCATTER[0]), TAKE_SCATTER[1], "halo_take_scatter")))
+               (mod(TAKE_SCATTER[0]), TAKE_SCATTER[1], "halo_take_scatter"))
+            + tuple((mod(m), attr, name) for m, attr, name, _ in COMBINES))
+
+
+def expect_combines(what: str, counts: dict) -> None:
+    """Each forward and each dK/dV launched its combine pass once."""
+    for _, _, name, row in COMBINES:
+        require(counts[name] == counts[row],
+                f"{what}: {name} launched {counts[name]} times for {counts[row]} {row}")
 
 
 def reset_counts() -> None:
@@ -377,6 +452,7 @@ def expect_counts(what: str, counts: dict, steps: int, evals: int, fused: bool) 
             f"times for {counts['edge_message_bwd']} backwards")
     require(counts["halo_take_scatter"] == 0,
             f"{what}: the halo path's take scatter launched on a dense path")
+    expect_combines(what, counts)
 
 
 def rel_err(got, want) -> float:
@@ -498,9 +574,9 @@ def backward_ms(fn_out, inputs, grad_out) -> float:
 
 
 def sdpa_bwd_ms(q, k, v, qt, kt, do):
-    """The library yardstick of rows 4 and 5: the backward of
-    scaled_dot_product_attention (scale 1, additive mask) for dq, dk and dv
-    together; (ms, None) or (None, reason)."""
+    """The eager time of the library yardstick of rows 4 and 5: the backward
+    of scaled_dot_product_attention (scale 1, additive mask) for dq, dk and
+    dv together, host work included; (ms, None) or (None, reason)."""
     keep = (qt[:, :, None] > 0) & (qt[:, :, None] == kt[:, None, :])
     add_mask = torch.where(keep, 0.0, -1000.0)
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -509,6 +585,30 @@ def sdpa_bwd_ms(q, k, v, qt, kt, do):
         return backward_ms(o, leaves, do), None
     except RuntimeError as e:   # a yardstick only: the port never calls SDPA
         return None, f"no f32 masked SDPA backward here: {str(e)[:120]}"
+
+
+def graph_backward_ms(forward, inputs, grad_out) -> float:
+    """Device time of one backward: `forward(leaves)` and its backward for
+    dq, dk and dv captured together in a CUDA graph (device_ms), less the
+    forward alone. Host work (autograd's engine, Python) is left out, as it
+    is for the kernel rows. The leaves are made here: a leaf that an earlier
+    autograd graph still holds keeps its gradient node on the stream that
+    graph ran on, which a capture on another stream cannot wait for."""
+    leaves = [x.detach().requires_grad_(True) for x in inputs]
+    both = device_ms(lambda: torch.autograd.grad(forward(leaves), leaves, grad_out))
+    return both - device_ms(lambda: forward(leaves))
+
+
+def sdpa_graph_bwd_ms(q, k, v, qt, kt, do):
+    """graph_backward_ms of scaled_dot_product_attention (scale 1, additive
+    mask): (ms, None) or (None, reason)."""
+    keep = (qt[:, :, None] > 0) & (qt[:, :, None] == kt[:, None, :])
+    add_mask = torch.where(keep, 0.0, -1000.0)
+    try:
+        return graph_backward_ms(lambda l: F.scaled_dot_product_attention(
+            *l, attn_mask=add_mask, scale=1.0), (q, k, v), do), None
+    except RuntimeError as e:   # a yardstick only: the port never calls SDPA
+        return None, f"no f32 masked SDPA backward in a CUDA graph here: {str(e)[:120]}"
 
 
 def edge16_case(dev, B=10, N=512):
@@ -625,6 +725,7 @@ def small_model_check(dev, batch, tol) -> dict:
     require(k["counts"]["edge_message"] == 3 * layers_sides
             and k["counts"]["edge_message_bwd"] == 2 * layers_sides,
             f"16-wide model: kernel launches {k['counts']}")
+    expect_combines("16-wide model", k["counts"])
     err = {}
     loss_keys = ("loss", "ligand_coors_loss", "ot_loss", "intersection_loss")
     for what, rtol in (("ev", tol["loss_rtol_step1"]), ("m", tol["loss_rtol_step1"])):
@@ -1390,6 +1491,10 @@ def main() -> int:
         want = ca.cross_attention_plain(*c["args"])
         torch.cuda.synchronize()
         c["err"] = check_close("cross_attention " + c["shape"], got, want, ATT_TOL)
+        c["empty"] = check_empty_rows("cross_attention " + c["shape"], c["args"], got)
+        again = ca.cross_attention_fwd(*c["args"])
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"cross_attention {c['shape']}: two launches on the same inputs differ")
         c["out"] = got
         att_err = max(att_err, c["err"])
     eb_case, ab_cases = edge_bwd_case(params, dev), attention_bwd_cases(dev)
@@ -1426,6 +1531,9 @@ def main() -> int:
         torch.cuda.synchronize()
         c["check_dq"] = check_grads("cross_attention_dq", c["shape"], got[:1], want[:1])
         c["check_dkv"] = check_grads("cross_attention_dkv", c["shape"], got[1:], want[1:])
+        again = ca.cross_attention_bwd(*c["args"])
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"cross_attention dq / dkv {c['shape']}: two launches on the same inputs differ")
     # rows 6 and 7: the soft-min field sums and their backward
     s_cases = softmin_cases(dev)
     for c in s_cases:
@@ -1448,7 +1556,8 @@ def main() -> int:
     halo_checks = check_halo_kernels(h_exchange, h_ship, h_edge, slope)
     emit("kernels", **halo_checks,
          edge_message=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in e_cases + [e16]],
-         cross_attention=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in a_cases],
+         cross_attention=[{"shape": c["shape"], "max_abs_err": c["err"], **c["empty"]}
+                          for c in a_cases],
          edge_message_bwd=[{"shape": eb_case["shape"], **eb_case["check"],
                             "scatter_max_abs_err": scatter_err},
                            {"shape": e16["shape"], **e16["check"]}],
@@ -1458,7 +1567,9 @@ def main() -> int:
          softmin_field_bwd=[{"shape": c["shape"], **c["check"]} for c in s_cases],
          bit_equal_backwards=["edge_message_bwd D=64", "edge_message_bwd D=16",
                               "edge_message_bwd Nsrc != N (2 shapes)",
-                              "softmin_field_bwd (3 shapes)"],
+                              "softmin_field_bwd (3 shapes)",
+                              "cross_attention_dq and _dkv (2 shapes)",
+                              f"cross_attention forward ({len(a_cases)} shapes)"],
          bit_equal_to_plain=["halo_ring_exchange", "halo_ring_ship2"],
          tolerance={"edge_message": EDGE_TOL, "cross_attention": ATT_TOL,
                     "softmin_field": SOFTMIN_TOL, "backward_relative_norm": BWD_REL_TOL})
@@ -1516,6 +1627,7 @@ def main() -> int:
             f"edge_message launched {edge_launches} times for {served} forwards")
     require(att_launches == per_fwd * served,
             f"cross_attention launched {att_launches} times for {served} forwards")
+    expect_combines("serve", serve_launches)
     emit("serve", warmed=n_warm, warmup_seconds=round(warm_s, 3), requests=served,
          launches=serve_launches,
          golden_max_abs_err=worst, golden_atol=GOLDEN_ATOL,
@@ -1549,7 +1661,7 @@ def main() -> int:
                          call_ms=call_ms(kern),
                          plain_ms=device_ms(lambda: em.edge_message_plain(*a, slope=slope)),
                          bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    for c in a_cases:
+    for c in (c for c in a_cases if c["timed"]):
         a = c["args"]
         q, k, v, qt, kt = a
         nbytes, flops = attention_cost(*a, c["out"])
@@ -1584,15 +1696,28 @@ def main() -> int:
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
         plain_o, _ = ca.cross_attention_plain(*leaves, qt, kt)
         plain = backward_ms(plain_o, leaves, do)
-        lib_ms, lib_why = sdpa_bwd_ms(q, k, v, qt, kt, do)
+        lib_eager, lib_why = sdpa_bwd_ms(q, k, v, qt, kt, do)
+        # the whole backward as device time, the same way for the port, the
+        # plain version and SDPA: forward + backward in one CUDA graph less
+        # the forward alone
+        device_bwd = {
+            "port": graph_backward_ms(lambda l: ca.cross_attention_fwd(*l, qt, kt)[0],
+                                      (q, k, v), do),
+            "plain": graph_backward_ms(lambda l: ca.cross_attention_plain(*l, qt, kt)[0],
+                                       (q, k, v), do)}
+        lib_ms, lib_graph_why = sdpa_graph_bwd_ms(q, k, v, qt, kt, do)
+        device_bwd["sdpa"] = lib_ms
         for part, fn in (("dq", ca.cross_attention_dq), ("dkv", ca.cross_attention_dkv)):
             nbytes, flops = attention_bwd_cost(part, q, k, v, qt, kt, o, lse, do)
             b_ms, b_by = bound(nbytes, flops)
             kern = lambda fn=fn: fn(*args)
             rows.append(dict(kernel=f"cross_attention_{part}", shape=c["shape"],
-                             ms=device_ms(kern), call_ms=call_ms(kern), plain_ms=plain,
+                             ms=device_ms(kern), call_ms=call_ms(kern),
+                             plain_ms=device_bwd["plain"], plain_eager_ms=plain,
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                             library_note=lib_why))
+                             library_eager_ms=lib_eager,
+                             library_note=lib_graph_why or lib_why,
+                             whole_backward_device_ms=device_bwd))
     no_library = ("none: no single PyTorch call computes the soft-min field sums "
                   "(torch.cdist gives only the distances)")
     for c in s_cases:
@@ -1638,9 +1763,13 @@ def main() -> int:
                                                  reps=3),
          timing="ms, plain_ms, library_ms: device time per call from CUDA-graph "
                 "replays; call_ms: eager back-to-back calls, host overhead included; "
-                "backward rows: plain_ms and library_ms are the whole backward "
-                "(dq, dk and dv together for attention) through an autograd graph "
-                "built once, timed over back-to-back eager calls between CUDA events",
+                "edge backward rows: plain_ms is the whole backward through an autograd "
+                "graph built once, over back-to-back eager calls between CUDA events; "
+                "attention backward rows (dq, dkv): plain_ms and library_ms are the "
+                "whole backward (dq, dk and dv) as device time, forward and backward "
+                "in one CUDA graph less the forward, the same for the port "
+                "(whole_backward_device_ms.port); *_eager_ms: the same backward over "
+                "back-to-back eager calls, host work included",
          library_call="torch.nn.functional.scaled_dot_product_attention, scale 1, "
                       "additive mask (0 kept, -1000 masked); for rows 4 and 5 its "
                       "backward",

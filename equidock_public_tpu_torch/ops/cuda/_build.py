@@ -31,6 +31,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("edge_message.cu", "edge_message_bwd.cu", "cross_attention.cu",
            "cross_attention_bwd.cu", "softmin_field.cu", "halo_ring.cu")
+HEADERS = ("attention_tiles.cuh",)    # included by sources; part of the hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libequidock_kernels.so"
@@ -63,7 +64,7 @@ def _source_paths() -> List[str]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _source_paths():
+    for p in _source_paths() + [os.path.join(CSRC_DIR, s) for s in HEADERS]:
         with open(p, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]

@@ -1,7 +1,7 @@
 """Masked cross-attention, forward and backward: CUDA kernels
-`csrc/cross_attention.cu` (forward) and `csrc/cross_attention_bwd.cu` (dQ,
-dK/dV), their plain PyTorch versions, and the `torch.autograd.Function`
-that joins them.
+`csrc/cross_attention.cu` (forward and its combine pass) and
+`csrc/cross_attention_bwd.cu` (dQ; dK/dV and its combine pass), their plain
+PyTorch versions, and the `torch.autograd.Function` that joins them.
 
 Replaces `_fwd_kernel`, `_bwd_dq_kernel` and `_bwd_dkv_kernel` of
 `equidock_public_tpu/ops/pallas/cross_attention.py`:
@@ -12,6 +12,11 @@ Keys run over exactly M, so every row, padded rows included, equals the
 oracle `ops/attention.py::cross_attention`. The backward takes
 delta = rowsum(dO * O) as a torch op, as the JAX package does outside its
 kernels, then launches the dQ and dK/dV kernels; tags get no gradient.
+
+The forward and dK/dV kernels work on 64-row tiles and split the walked
+axis (keys, queries) across blocks where the grid would leave the card
+under-filled; each split writes partial results to scratch that a combine
+kernel merges in a fixed order (no atomics, the same bits on every launch).
 """
 
 from __future__ import annotations
@@ -25,11 +30,22 @@ import torch
 from ._build import check_launch, check_tensor, load_library
 
 MAX_WIDTH = 96   # largest D / Dv the kernels are built for (layer 0 is 69 wide)
+TILE = 64        # rows of a query tile and of a key tile (csrc/attention_tiles.cuh)
+# Blocks a SM the splits aim at (each kernel holds one block a SM: about 200
+# registers a thread for the forward, 141 KB of shared memory for dK/dV at
+# D = 64). Tile pairs that keep nothing finish early, so the forward takes
+# several waves and dK/dV two. On an H100 (scripts/attention_tiles_check.py)
+# these pick one key tile a block at 512x1024 and 512x512, and 4 query-tile
+# runs for dK/dV at B = 10, 512x512: within 3% of the fastest count swept.
+FWD_SPLIT_TARGET = 8
+DKV_SPLIT_TARGET = 2
 
 # Launches of each CUDA kernel in this process (plain-version calls excluded).
-launches = 0        # forward
-dq_launches = 0     # backward, dQ
-dkv_launches = 0    # backward, dK and dV
+launches = 0                # forward
+combine_launches = 0        # forward, the merge of the key splits (one per forward)
+dq_launches = 0             # backward, dQ
+dkv_launches = 0            # backward, dK and dV
+dkv_combine_launches = 0    # backward, the sum of the query splits (one per dK/dV)
 
 
 def cross_attention_plain(q, k, v, q_tag, k_tag) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,14 +67,38 @@ def cross_attention_bwd_plain(q, k, v, q_tag, k_tag, dout):
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
     lib = load_library()
-    fwd, dq, dkv = (lib.equidock_cross_attention_fwd, lib.equidock_cross_attention_dq,
-                    lib.equidock_cross_attention_dkv)
-    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    dq.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    dkv.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    for fn in (fwd, dq, dkv):
+    fns = {name: getattr(lib, f"equidock_cross_attention_{name}")
+           for name in ("fwd", "combine", "dq", "dkv", "dkv_combine")}
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    fns["fwd"].argtypes = [ptr] * 8 + [num] * 6 + [ptr]
+    fns["combine"].argtypes = [ptr] * 5 + [num] * 4 + [ptr]
+    fns["dq"].argtypes = [ptr] * 9 + [num] * 5 + [ptr]
+    fns["dkv"].argtypes = [ptr] * 10 + [num] * 6 + [ptr]
+    fns["dkv_combine"].argtypes = [ptr] * 4 + [num] * 5 + [ptr]
+    for fn in fns.values():
         fn.restype = ctypes.c_int
-    return fwd, dq, dkv
+    return fns
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_splits(blocks: int, tiles: int, target: int) -> int:
+    """Runs of equal length, none empty, into which to cut `tiles` tiles so
+    that `blocks` x runs reaches `target` blocks (one tile a run at most)."""
+    want = min(tiles, max(1, -(-target // blocks)))
+    per_run = -(-tiles // want)
+    return -(-tiles // per_run)
+
+
+def _tiles(n: int) -> int:
+    return -(-n // TILE)
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check_inputs(q, k, v, q_tag, k_tag):
@@ -78,18 +118,33 @@ def _check_inputs(q, k, v, q_tag, k_tag):
     return B, N, M, D, Dv
 
 
-def _launch_fwd(q, k, v, q_tag, k_tag):
+def _launch_fwd(q, k, v, q_tag, k_tag, splits: Optional[int] = None):
+    """Launch the forward and its combine pass on checked CUDA operands;
+    (o, lse). `splits` (key-tile runs, one block each) defaults to what
+    fills the card."""
     B, N, M, D, Dv = _check_inputs(q, k, v, q_tag, k_tag)
-    o = torch.empty((B, N, Dv), dtype=torch.float32, device=q.device)
-    lse = torch.empty((B, N), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _kernel_fns()[0](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_tag.data_ptr(),
-            k_tag.data_ptr(), o.data_ptr(), lse.data_ptr(), B, N, M, D, Dv,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    dev, f32 = q.device, torch.float32
+    if splits is None:
+        splits = tile_splits(B * _tiles(N), _tiles(M), FWD_SPLIT_TARGET * _sm_count(dev.index))
+    # each split's (m, l, acc) for every row
+    part_m = torch.empty((B, splits, N), dtype=f32, device=dev)
+    part_l = torch.empty((B, splits, N), dtype=f32, device=dev)
+    part_acc = torch.empty((B, splits, N, Dv), dtype=f32, device=dev)
+    o = torch.empty((B, N, Dv), dtype=f32, device=dev)
+    lse = torch.empty((B, N), dtype=f32, device=dev)
+    fns = _kernel_fns()
+    scratch = [x.data_ptr() for x in (part_m, part_l, part_acc)]
+    with torch.cuda.device(dev):
+        err = fns["fwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(), q_tag.data_ptr(),
+                         k_tag.data_ptr(), *scratch, B, N, M, D, Dv, splits, _stream(dev))
     check_launch(err, "cross_attention")
-    global launches
+    global launches, combine_launches
     launches += 1
+    with torch.cuda.device(dev):
+        err = fns["combine"](*scratch, o.data_ptr(), lse.data_ptr(), B, N, Dv, splits,
+                             _stream(dev))
+    check_launch(err, "cross_attention combine")
+    combine_launches += 1
     return o, lse
 
 
@@ -99,30 +154,46 @@ def cross_attention_dq(q, k, v, q_tag, k_tag, lse, dout, delta):
     M, Dv = k.shape[1], v.shape[2]
     dq = torch.empty((B, N, D), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _kernel_fns()[1](
+        err = _kernel_fns()["dq"](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_tag.data_ptr(), k_tag.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, N, M, D, Dv,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _stream(q.device))
     check_launch(err, "cross_attention dq")
     global dq_launches
     dq_launches += 1
     return dq
 
 
-def cross_attention_dkv(q, k, v, q_tag, k_tag, lse, dout, delta):
-    """Launch the dK/dV kernel on checked CUDA operands; (dk, dv)."""
+def cross_attention_dkv(q, k, v, q_tag, k_tag, lse, dout, delta,
+                        splits: Optional[int] = None):
+    """Launch the dK/dV kernel and its combine pass on checked CUDA
+    operands; (dk, dv). `splits` (query-tile runs) defaults to what fills
+    the card."""
     B, N, D = q.shape
     M, Dv = k.shape[1], v.shape[2]
-    dk = torch.empty((B, M, D), dtype=torch.float32, device=q.device)
-    dv = torch.empty((B, M, Dv), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _kernel_fns()[2](
+    dev, f32 = q.device, torch.float32
+    if splits is None:
+        splits = tile_splits(B * _tiles(M), _tiles(N), DKV_SPLIT_TARGET * _sm_count(dev.index))
+    # each split's dK and dV for every key
+    part_k = torch.empty((B, splits, M, D), dtype=f32, device=dev)
+    part_v = torch.empty((B, splits, M, Dv), dtype=f32, device=dev)
+    dk = torch.empty((B, M, D), dtype=f32, device=dev)
+    dv = torch.empty((B, M, Dv), dtype=f32, device=dev)
+    fns = _kernel_fns()
+    scratch = [x.data_ptr() for x in (part_k, part_v)]
+    with torch.cuda.device(dev):
+        err = fns["dkv"](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_tag.data_ptr(), k_tag.data_ptr(),
-            lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, N, M, D, Dv, torch.cuda.current_stream(q.device).cuda_stream)
+            lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), *scratch, B, N, M, D, Dv,
+            splits, _stream(dev))
     check_launch(err, "cross_attention dkv")
-    global dkv_launches
+    global dkv_launches, dkv_combine_launches
     dkv_launches += 1
+    with torch.cuda.device(dev):
+        err = fns["dkv_combine"](*scratch, dk.data_ptr(), dv.data_ptr(), B, M, D, Dv,
+                                 splits, _stream(dev))
+    check_launch(err, "cross_attention dkv combine")
+    dkv_combine_launches += 1
     return dk, dv
 
 

@@ -84,9 +84,12 @@ def test_edge_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("N,M,D,Dv,tags", [
     (172, 548, 64, 64, False), (512, 1024, 69, 69, False), (33, 70, 96, 3, False),
-    (9, 40, 16, 16, False), (172, 548, 64, 64, True)])
+    (9, 40, 16, 16, False), (172, 548, 64, 64, True), (300, 1000, 64, 64, False),
+    (40, 100, 32, 20, False)])
 def test_attention_kernel_matches_plain(cuda, N, M, D, Dv, tags):
-    """Widths pad to 64 or 96 lanes; M is not a multiple of 32."""
+    """Widths pad to a multiple of 8; N and M are not multiples of the 64-row
+    tile; the forward and its combine pass launch once a call and give the
+    same bits twice."""
     gen = torch.Generator().manual_seed(N + M)
     q, k = torch.randn(2, N, D, generator=gen), torch.randn(2, M, D, generator=gen)
     v = torch.randn(2, M, Dv, generator=gen)
@@ -98,13 +101,14 @@ def test_attention_kernel_matches_plain(cuda, N, M, D, Dv, tags):
         qt *= torch.randint(1, 4, (2, N), generator=gen)
         kt *= torch.randint(1, 4, (2, M), generator=gen)
     args = [x.to(cuda) for x in (q, k, v, qt, kt)]
-    before = ca.launches
+    before = (ca.launches, ca.combine_launches)
     got = ca.cross_attention_fwd(*args)
-    assert ca.launches == before + 1
+    assert (ca.launches, ca.combine_launches) == (before[0] + 1, before[1] + 1)
     want = ca.cross_attention_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **TOL)
+    assert all(torch.equal(g, a) for g, a in zip(got, ca.cross_attention_fwd(*args)))
 
 
 def _batch(rng, dev, N_l=64, N_r=96, n_l=50, n_r=80, K=10):
@@ -178,7 +182,7 @@ def test_edge_bwd_kernel_matches_plain(cuda, N, use_ln, use_dist):
 
 @pytest.mark.parametrize("N,M,D,Dv,tags", [
     (172, 548, 64, 64, False), (512, 512, 69, 69, False), (33, 70, 96, 3, False),
-    (9, 40, 16, 16, False), (172, 548, 64, 64, True)])
+    (9, 40, 16, 16, False), (172, 548, 64, 64, True), (40, 100, 32, 20, False)])
 def test_attention_bwd_kernels_match_plain(cuda, N, M, D, Dv, tags):
     gen = torch.Generator().manual_seed(N + M)
     q, k = torch.randn(2, N, D, generator=gen) * 0.3, torch.randn(2, M, D, generator=gen) * 0.3
@@ -193,12 +197,15 @@ def test_attention_bwd_kernels_match_plain(cuda, N, M, D, Dv, tags):
         kt *= torch.randint(1, 4, (2, M), generator=gen)
     q, k, v, qt, kt, do = (x.to(cuda) for x in (q, k, v, qt, kt, do))
     o, lse = ca.cross_attention_plain(q, k, v, qt, kt)
-    b_dq, b_dkv = ca.dq_launches, ca.dkv_launches
+    counts = lambda: (ca.dq_launches, ca.dkv_launches, ca.dkv_combine_launches)
+    before = counts()
     got = ca.cross_attention_bwd(q, k, v, qt, kt, o, lse, do)
-    assert (ca.dq_launches, ca.dkv_launches) == (b_dq + 1, b_dkv + 1)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1)
     want = ca.cross_attention_bwd_plain(q, k, v, qt, kt, do)
     torch.cuda.synchronize()
     _assert_grads_close(got, want, ["dq", "dk", "dv"])
+    again = ca.cross_attention_bwd(q, k, v, qt, kt, o, lse, do)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
 def test_model_gradients_on_the_card_match_the_cpu_path(cuda):
