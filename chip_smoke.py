@@ -20,9 +20,11 @@ non-zero without printing a result.
            the training batch and at the edges of its 64-row tiles (300 x
            1000, a complex of padded query rows, tags that meet no key,
            kept logits below -896; rows that keep no key must average all
-           M values with lse = -1000 + log M), the soft-min field sums and
-           their backward at the training, a ragged and the largest
-           bucket's shapes, with the stated tolerances; the halo ring
+           M values with lse = -1000 + log M), attention dQ also at all
+           those shapes and at D 16, 32 and 96, the combine passes of the
+           attention rows at their main-path shapes, the soft-min field
+           sums and their backward at the training, a ragged and the
+           largest bucket's shapes, with the stated tolerances; the halo ring
            kernels (rows 8, 9) bit-equal to their plain versions at the
            halo path's shapes; and two launches of each backward, ring and
            attention kernel on the same inputs give the same bits
@@ -68,7 +70,8 @@ non-zero without printing a result.
   times    each kernel's device time (CUDA-graph replays between CUDA
            events) beside its plain version, its bound and a PyTorch library
            call where one exists, and its eager per-call time (the attention
-           forward at the serving and the training shapes; the attention
+           forward at the serving and the training shapes, and each
+           attention combine pass apart as a row of its own; the attention
            backward also as a whole, port, plain and SDPA alike: forward and
            backward in one CUDA graph less the forward); the
            per-request latency after warm-up; a profiler breakdown of one
@@ -396,12 +399,15 @@ KERNELS = (
 # it also as the transpose of its send-row gathers, counted apart again.
 SCATTER = ("edge_message", "scatter_launches")
 TAKE_SCATTER = ("halo_ring", "take_launches")
-# The second passes of rows 3 and 5 (csrc/cross_attention.cu,
+# The second passes of rows 3-5 (csrc/cross_attention.cu,
 # csrc/cross_attention_bwd.cu): the merges of their splits, launched once
-# with each forward and each dK/dV, counted apart and required to match
-# (module, counter attribute, name, the row whose launches it matches).
+# with each forward, each dQ and each dK/dV, counted apart and required to
+# match (module, counter attribute, name, the row whose launches it
+# matches). Each is a row of the kernel table too.
 COMBINES = (("cross_attention", "combine_launches", "cross_attention_combine",
              "cross_attention"),
+            ("cross_attention", "dq_combine_launches", "cross_attention_dq_combine",
+             "cross_attention_dq"),
             ("cross_attention", "dkv_combine_launches", "cross_attention_dkv_combine",
              "cross_attention_dkv"))
 # Launches a training step makes of each kernel (5 layers x 2 sides; the
@@ -423,7 +429,7 @@ def kernel_counters():
 
 
 def expect_combines(what: str, counts: dict) -> None:
-    """Each forward and each dK/dV launched its combine pass once."""
+    """Each forward, dQ and dK/dV launched its combine pass once."""
     for _, _, name, row in COMBINES:
         require(counts[name] == counts[row],
                 f"{what}: {name} launched {counts[name]} times for {counts[row]} {row}")
@@ -494,6 +500,54 @@ def attention_bwd_cases(dev, B=10, N=512):
                           args=(q, k, v, qt, kt, o.contiguous(), lse.contiguous(), do),
                           delta=delta))
     return cases
+
+
+def attention_dq_cases(dev, a_cases):
+    """dQ inputs (q, k, v, q_tag, k_tag, o, lse, dout) at every forward case
+    (the 64-row tiles' edges included) and at the card tests' other widths
+    (D 16, D 32 with Dv 20, D 96 with Dv 3). Where every key row is the
+    same vector (the kept logits below -896), sum_m ds = 0 on a row whose
+    kept weights sum to one, so dQ = sum_m ds k is zero in exact arithmetic
+    there and any f32 result is rounding noise: those key rows get noise of
+    zero sum over the channels, which keeps q.k = -1024 on the constant
+    query rows."""
+    from equidock_public_tpu_torch.ops.cuda import cross_attention as ca
+
+    gen = torch.Generator().manual_seed(5)
+    inputs = [(c["shape"], c["args"]) for c in a_cases]
+    for B, N, M, D, Dv in ((2, 9, 40, 16, 16), (2, 40, 100, 32, 20), (2, 33, 70, 96, 3)):
+        qt, kt = torch.ones(B, N), torch.ones(B, M)
+        qt[:, N // 3:] = 0
+        kt[0, M // 2:] = 0
+        inputs.append((f"B={B} N={N} M={M} D={D} Dv={Dv}",
+                       tuple(x.to(dev) for x in (torch.randn(B, N, D, generator=gen) * 0.3,
+                                                 torch.randn(B, M, D, generator=gen) * 0.3,
+                                                 torch.randn(B, M, Dv, generator=gen), qt, kt))))
+    cases = []
+    for shape, (q, k, v, qt, kt) in inputs:
+        if "-1024" in shape:
+            z = torch.randn(k.shape, generator=gen).to(dev)
+            k = (k + (z - z.mean(-1, keepdim=True)) * (k == -4.0).all(-1, keepdim=True))
+        o, lse = ca.cross_attention_plain(q, k, v, qt, kt)
+        do = torch.randn(o.shape, generator=gen).to(dev)
+        cases.append(dict(shape=shape, args=tuple(x.contiguous() for x in
+                                                  (q, k, v, qt, kt, o, lse, do))))
+    return cases
+
+
+def combine_case(name, ca, a_case, ab_case):
+    """(shape, partials, kernel, plain version, library call or None) of a
+    combine pass at its row's main-path shape: the partials its row's kernel
+    writes there. A sum over the splits (dQ) is one PyTorch call."""
+    if name == "cross_attention_combine":
+        return (a_case["shape"], ca.fwd_partials(*a_case["args"]), ca.fwd_combine,
+                ca.fwd_combine_plain, None)
+    q, k, v, qt, kt, o, lse, do = ab_case["args"]
+    args = (q, k, v, qt, kt, lse, do, ab_case["delta"])
+    if name == "cross_attention_dq_combine":
+        return (ab_case["shape"], (ca.dq_partials(*args),), ca.dq_combine, ca.split_sum_plain,
+                lambda p: torch.sum(p, dim=1))
+    return ab_case["shape"], ca.dkv_partials(*args), ca.dkv_combine, ca.split_sum_plain, None
 
 
 def edge_bwd_case(params, dev, B=10, N=512):
@@ -1534,6 +1588,27 @@ def main() -> int:
         again = ca.cross_attention_bwd(*c["args"])
         require(all(torch.equal(a, b) for a, b in zip(got, again)),
                 f"cross_attention dq / dkv {c['shape']}: two launches on the same inputs differ")
+    # dQ also at the forward's shapes (the edges of its 64-row tiles) and widths
+    dq_cases = attention_dq_cases(dev, a_cases)
+    for c in dq_cases:
+        q, k, v, qt, kt, o, lse, do = c["args"]
+        delta = (do * o).sum(-1).contiguous()
+        got = ca.cross_attention_dq(q, k, v, qt, kt, lse, do, delta)
+        want = ca.cross_attention_bwd_plain(q, k, v, qt, kt, do)[0]
+        torch.cuda.synchronize()
+        c["check"] = check_grads("cross_attention_dq", c["shape"], [got], [want])
+        require(torch.equal(got, ca.cross_attention_dq(q, k, v, qt, kt, lse, do, delta)),
+                f"cross_attention dq {c['shape']}: two launches on the same inputs differ")
+    # the combine passes of rows 3-5 against their plain versions
+    combines = {}
+    for _, _, name, _ in COMBINES:
+        shape, parts, kern, plain, library = combine_case(name, ca, a_cases[1], ab_cases[0])
+        got, want = kern(*parts), plain(*parts)
+        torch.cuda.synchronize()
+        as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
+        err = check_close(name, as_tuple(got), as_tuple(want), ATT_TOL)
+        combines[name] = dict(shape=shape, parts=parts, kern=kern, plain=plain,
+                              library=library, outs=as_tuple(got), err=err)
     # rows 6 and 7: the soft-min field sums and their backward
     s_cases = softmin_cases(dev)
     for c in s_cases:
@@ -1561,7 +1636,8 @@ def main() -> int:
          edge_message_bwd=[{"shape": eb_case["shape"], **eb_case["check"],
                             "scatter_max_abs_err": scatter_err},
                            {"shape": e16["shape"], **e16["check"]}],
-         cross_attention_dq=[{"shape": c["shape"], **c["check_dq"]} for c in ab_cases],
+         cross_attention_dq=[{"shape": c["shape"], **c["check_dq"]} for c in ab_cases]
+         + [{"shape": c["shape"], **c["check"]} for c in dq_cases],
          cross_attention_dkv=[{"shape": c["shape"], **c["check_dkv"]} for c in ab_cases],
          softmin_field=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in s_cases],
          softmin_field_bwd=[{"shape": c["shape"], **c["check"]} for c in s_cases],
@@ -1569,7 +1645,10 @@ def main() -> int:
                               "edge_message_bwd Nsrc != N (2 shapes)",
                               "softmin_field_bwd (3 shapes)",
                               "cross_attention_dq and _dkv (2 shapes)",
+                              f"cross_attention_dq ({len(dq_cases)} more shapes)",
                               f"cross_attention forward ({len(a_cases)} shapes)"],
+         combines={n: {"shape": c["shape"], "max_abs_err": c["err"]}
+                   for n, c in combines.items()},
          bit_equal_to_plain=["halo_ring_exchange", "halo_ring_ship2"],
          tolerance={"edge_message": EDGE_TOL, "cross_attention": ATT_TOL,
                     "softmin_field": SOFTMIN_TOL, "backward_relative_norm": BWD_REL_TOL})
@@ -1752,6 +1831,18 @@ def main() -> int:
                              plain_ms=device_ms(lambda f=plain_fn, a=a: f(*a)),
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
                              library_note=no_library_ring))
+    for name, c in combines.items():
+        parts = c["parts"]
+        b_ms, b_by = bound(nbytes_of(*parts, *c["outs"]), float(sum(p.numel() for p in parts)))
+        kern = lambda c=c: c["kern"](*c["parts"])
+        library = c["library"]
+        rows.append(dict(kernel=name, shape=c["shape"], ms=device_ms(kern),
+                         call_ms=call_ms(kern),
+                         plain_ms=device_ms(lambda c=c: c["plain"](*c["parts"])),
+                         bound_ms=b_ms, bound_by=b_by,
+                         library_ms=device_ms(lambda: library(*parts)) if library else None,
+                         library_note="torch.sum over the splits (the plain version's call)"
+                         if library else "none: no single PyTorch call merges the splits"))
     from equidock_public_tpu_torch.cli.serve import warmup_batch
 
     profile_batch = warmup_batch(server.cfg, 512, 1024, dev)
@@ -1769,7 +1860,9 @@ def main() -> int:
                 "whole backward (dq, dk and dv) as device time, forward and backward "
                 "in one CUDA graph less the forward, the same for the port "
                 "(whole_backward_device_ms.port); *_eager_ms: the same backward over "
-                "back-to-back eager calls, host work included",
+                "back-to-back eager calls, host work included; the rows of the attention "
+                "kernels (forward, dq, dkv) take kernel and combine pass together, the "
+                "*_combine rows the combine pass alone",
          library_call="torch.nn.functional.scaled_dot_product_attention, scale 1, "
                       "additive mask (0 kept, -1000 masked); for rows 4 and 5 its "
                       "backward",
@@ -1795,8 +1888,14 @@ def main() -> int:
                                   max(c["err"] for c in h_exchange))
     main["halo_ring_ship2"] = (row("halo_ring_ship2", h_ship[0]["shape"]),
                                max(c["err"] for c in h_ship))
+    for name, c in combines.items():
+        main[name] = (row(name, c["shape"]), c["err"])
+    # each combine pass beside its row: the same source, TPU kernel and path
+    of_row = {k[0]: k for k in KERNELS}
+    entries = list(KERNELS) + [(name, *of_row[row_name][1:])
+                               for _, _, name, row_name in COMBINES]
     table = []
-    for name, _, _, source, replaces, path in KERNELS:
+    for name, _, _, source, replaces, path in entries:
         r, err = main[name]
         by_path = {"serve": serve_launches[name], "train": train["launches"][name],
                    "epoch": epoch_golden["launches"][name],

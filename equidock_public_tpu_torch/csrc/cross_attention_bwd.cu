@@ -18,38 +18,45 @@
 // 70-274 valid nodes a side, about 11% of the pairs kept): dQ needs
 // 2 (2D + Dv) and dK/dV 2 (2D + 2Dv) f32 operations a kept pair, plus
 // w dO for the keys of rows that keep none; each kernel moves under 10 MB.
-// Both are bound by operations, at 2-6 us. The logits are recomputed in
-// each kernel instead of being stored.
+// dQ is bound by bytes at about 2 us, dK/dV by operations at about 6 us.
+// The logits are recomputed in each kernel instead of being stored.
 //
-// dQ (`cross_attention_dq_kernel`): a block owns kRows query rows (q and dO
-// rows staged in shared memory), its kWarps warps split the keys in 32-key
-// chunks; per chunk each lane holds one key row, then one value row, in
-// registers and scores them against the block's rows (broadcast reads),
-// giving ds for 32 keys at once; then the warp walks the chunk's keys,
-// reading each key row from global memory (coalesced) and adding ds * k
-// into per-lane channel accumulators. The kWarps partial sums of each row
-// meet in shared memory in a fixed order. Widths up to DP = 64 or 96 lanes.
+// Both kernels use the forward's tile design (csrc/cross_attention.cu,
+// csrc/attention_tiles.cuh): 64-row tiles of queries and keys, a (query
+// tile, key tile) pair tested from the tags in global memory before it is
+// staged (att::may_keep), 4 x 4 register-blocked f32 products from shared
+// memory, and a split of the walked axis whose partial sums a combine
+// kernel adds in split order. No atomics: two launches give the same bits.
+// All in f32 FMA, no TF32; widths pad to DP = 16, 64, 72 or 96 (72 for
+// layer 0).
 //
-// dK/dV (`cross_attention_dkv_kernel`), the forward's tile design
-// (csrc/cross_attention.cu, csrc/attention_tiles.cuh) turned key-stationary:
-// a block owns one 64-key tile and one split of the query tiles, which it
-// tests from the tags in global memory and walks through a two-stage
-// cp.async ring (dO and lse for a query tile that keeps nothing with the key
-// tile; Q, tags and delta too for the others, and, with the first of them,
-// the key and value rows). For each query tile:
-//  - if no (query, key) pair of the two tiles can be kept (att::may_keep),
-//    ds = 0, so dK gets nothing, and every key of the tile gets the same
-//    dV term u = sum_n exp(-1000 - lse_n) dO_n (1/M dO_n on padded rows, 0
-//    on rows that keep a logit well above -1000): each thread adds its
-//    share of u over 4 rows, and the 16 shares meet once at the end, in a
-//    fixed order;
+// dQ (`cross_attention_dq_kernel`), query-stationary: a block owns one
+// 64-row query tile and one split of the key tiles. A tile pair that keeps
+// no (query, key) pair has ds = 0 on every pair and adds exactly nothing to
+// dQ, so the block skips it unstaged; a query tile with no positive tag
+// stages nothing and writes a zero partial. The block stages its Q, dO,
+// query tags, lse and delta once, with the first key tile that may keep a
+// pair, and walks those key tiles through a two-stage cp.async ring (K, V
+// and the key tags). For each: S = Q K^T and dP = dO V^T as 4 x 4 register
+// blocks, ds = keep ? w (dP - delta) : 0 with the per-pair mask through
+// shared memory, then dQ += ds K, 4 queries x DP/16 channels a thread.
+// The key tiles are dealt to the splits in turn, so the tiles that keep
+// pairs (the valid keys sit at the front) spread over all splits; on an
+// H100 this was faster than contiguous runs at 2-4 splits.
+//
+// dK/dV (`cross_attention_dkv_kernel`), key-stationary: a block owns one
+// 64-key tile and one split of the query tiles, which it walks through a
+// two-stage cp.async ring (dO and lse for a query tile that keeps nothing
+// with the key tile; Q, tags and delta too for the others, and, with the
+// first of them, the key and value rows). For each query tile:
+//  - if no (query, key) pair of the two tiles can be kept, ds = 0, so dK
+//    gets nothing, and every key of the tile gets the same dV term
+//    u = sum_n exp(-1000 - lse_n) dO_n (1/M dO_n on padded rows, 0 on rows
+//    that keep a logit well above -1000): each thread adds its share of u
+//    over 4 rows, and the 16 shares meet once at the end, in a fixed order;
 //  - else S = K Q^T and dP = V dO^T as 4 x 4 register blocks, P and ds
 //    with the per-pair mask go through shared memory, and dV += P dO,
 //    dK += ds Q, 4 keys x DP/16 channels a thread.
-// Each block writes its keys' partial dK and dV to a scratch slot of its
-// split; the combine kernel sums the splits in split order. No atomics: two
-// launches give the same bits. All in f32 FMA, no TF32; widths pad to
-// DP = 16, 64, 72 or 96 (72 for layer 0).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,151 +65,190 @@
 
 namespace {
 
-// The dQ kernel's layout.
-constexpr int kRows = 4;                  // query rows a block owns
-constexpr int kWarps = 8;                 // warps per block, splitting the keys
-constexpr int kThreads = 32 * kWarps;
-
-// Shared memory: the block's rows twice ([2][kRows][DP]: q and dO), then
-// per warp a chunk [32][DP + 1] (padded: 32 lanes reading 32 rows hit 32
-// banks). The final merge reuses the chunks.
-__host__ __device__ constexpr int smem_floats(int DP) {
-  return 2 * kRows * DP + kWarps * 32 * (DP + 1);
-}
-
-// Copy rows [r0, r0 + 32) of a (rows, width) matrix into a padded chunk.
-template <int DP>
-__device__ __forceinline__ void stage_chunk(float* chunk, const float* __restrict__ src,
-                                            int r0, int rows, int width, int lane) {
-  __syncwarp();        // the warp is done with the chunk's previous contents
-  for (int i = lane; i < 32 * DP; i += 32) {
-    const int rr = i / DP, d = i % DP, r = r0 + rr;
-    chunk[rr * (DP + 1) + d] = r < rows && d < width ? src[(size_t)r * width + d] : 0.f;
-  }
-  __syncwarp();
+// Shared memory (floats) of the dQ kernel: the query and dO tiles, two
+// stages of key and value tiles, ds [64 queries][64 keys], the query tags,
+// lse, delta and two stages of key tags.
+__host__ __device__ constexpr int dq_smem_floats(int DP) {
+  return 6 * att::kTile * att::stride_of(DP) + att::kTile * att::stride_of(att::kTile) +
+         5 * att::kTile;
 }
 
 template <int DP>
-__device__ __forceinline__ float dot_row(const float* a, const float (&b)[DP]) {
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-#pragma unroll
-  for (int d = 0; d < DP; d += 4) {
-    s0 = fmaf(a[d], b[d], s0);
-    s1 = fmaf(a[d + 1], b[d + 1], s1);
-    s2 = fmaf(a[d + 2], b[d + 2], s2);
-    s3 = fmaf(a[d + 3], b[d + 3], s3);
-  }
-  return (s0 + s1) + (s2 + s3);
-}
-
-// Sum the kWarps partial rows acc[kRows][C] of every warp and store row r
-// (when r0 + r < rows) to out (rows, width).
-template <int DP>
-__device__ __forceinline__ void merge_store(float* part, const float (&acc)[kRows][DP / 32],
-                                            float* __restrict__ out, int r0, int rows,
-                                            int width, int warp, int lane) {
-  constexpr int C = DP / 32;
-  __syncthreads();     // every warp is done with its chunk
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int i = 0; i < C; ++i) part[(warp * kRows + r) * DP + lane + 32 * i] = acc[r][i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows * DP; i += kThreads) {
-    const int r = i / DP, d = i % DP;
-    if (r0 + r >= rows || d >= width) continue;
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += part[(w * kRows + r) * DP + d];
-    out[(size_t)(r0 + r) * width + d] = s;
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(att::kThreads)
 cross_attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const float* __restrict__ q_tag,
                           const float* __restrict__ k_tag, const float* __restrict__ lse,
                           const float* __restrict__ dout, const float* __restrict__ delta,
-                          float* __restrict__ dq, int N, int M, int D, int Dv) {
-  extern __shared__ float smem[];
-  constexpr int C = DP / 32;
-  float* sQ = smem;                        // [kRows][DP]
-  float* sO = smem + kRows * DP;           // [kRows][DP] dO rows
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* chunk = smem + 2 * kRows * DP + warp * 32 * (DP + 1);
+                          float* __restrict__ part, int N, int M, int D, int Dv, bool vec_qk,
+                          bool vec_o) {
+  constexpr int T = att::kTile, R = att::kSub;
+  constexpr int S = att::stride_of(DP), SP = att::stride_of(att::kTile);
+  constexpr int CJ = att::col_groups(DP);
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                    // [64][S] query rows
+  float* sO = sQ + T * S;              // [64][S] dO rows
+  float* sK = sO + T * S;              // [2][64][S] key rows
+  float* sV = sK + 2 * T * S;          // [2][64][S] value rows
+  float* sG = sV + 2 * T * S;          // [64 queries][SP] ds
+  float* sQt = sG + T * SP;            // [64] query tags
+  float* sL = sQt + T;                 // [64] lse
+  float* sDl = sL + T;                 // [64] delta
+  float* sKt = sDl + T;                // [2][64] key tags
 
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int b = blockIdx.z, split = blockIdx.y, splits = gridDim.y;
+  const int n0 = blockIdx.x * T;
+  const int key_tiles = (M + T - 1) / T;
   q += (size_t)b * N * D;
   dout += (size_t)b * N * Dv;
+  q_tag += (size_t)b * N;
+  lse += (size_t)b * N;
+  delta += (size_t)b * N;
   k += (size_t)b * M * D;
   v += (size_t)b * M * Dv;
-  for (int i = threadIdx.x; i < kRows * DP; i += kThreads) {
-    const int r = i / DP, d = i % DP, n = row0 + r;
-    sQ[i] = n < N && d < D ? q[(size_t)n * D + d] : 0.f;
-    sO[i] = n < N && d < Dv ? dout[(size_t)n * Dv + d] : 0.f;
+  k_tag += (size_t)b * M;
+
+  // A key tile that keeps no (query, key) pair with the query tile has
+  // ds = 0 on every pair, so it adds nothing to dQ: the block tests each
+  // tile from the tags in global memory and stages only those that may keep
+  // something. A query tile with no positive tag stages nothing at all.
+  const att::TagRange q_range = att::tag_range(q_tag, n0, N);
+  auto next_kept = [&](int t) {
+    while (t < key_tiles && !att::may_keep(q_range, att::tag_range(k_tag, t * T, M)))
+      t += splits;
+    return t;
+  };
+  auto stage_keys = [&](int t, int stage_idx) {
+    att::stage_tile<DP>(sK + stage_idx * T * S, k, t * T, M, D, vec_qk);
+    att::stage_tile<DP>(sV + stage_idx * T * S, v, t * T, M, Dv, vec_o);
+    att::stage_vec(sKt + stage_idx * T, k_tag, t * T, M);
+    att::cp_async_commit();
+  };
+
+  float acc[R][CJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
+
+  // The key tiles are dealt to the splits in turn (split s takes tiles s,
+  // s + splits, ...): the valid keys sit at the front of each protein, so
+  // contiguous runs would leave the tiles that keep pairs to the first splits.
+  int t = q_range.lo <= q_range.hi ? next_kept(split) : key_tiles;
+  if (t < key_tiles) {
+    att::stage_tile<DP>(sQ, q, n0, N, D, vec_qk);
+    att::stage_tile<DP>(sO, dout, n0, N, Dv, vec_o);
+    att::stage_vec(sQt, q_tag, n0, N);
+    att::stage_vec(sL, lse, n0, N);
+    att::stage_vec(sDl, delta, n0, N);
+    stage_keys(t, 0);
   }
-  float qt[kRows], ls[kRows], dl[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const bool in = row0 + r < N;
-    const size_t n = (size_t)b * N + row0 + r;
-    qt[r] = in ? q_tag[n] : 0.f;
-    ls[r] = in ? lse[n] : 0.f;
-    dl[r] = in ? delta[n] : 0.f;
-  }
-  __syncthreads();
-
-  float acc[kRows][C];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int i = 0; i < C; ++i) acc[r][i] = 0.f;
-
-  for (int j0 = warp * 32; j0 < M; j0 += kWarps * 32) {
-    const int j = j0 + lane;
-    const bool in = j < M;
-    const float kt = in ? k_tag[(size_t)b * M + j] : 0.f;
-    float row[DP];
-    float s[kRows], ds[kRows];
-
-    stage_chunk<DP>(chunk, k, j0, M, D, lane);
-#pragma unroll
-    for (int d = 0; d < DP; ++d) row[d] = chunk[lane * (DP + 1) + d];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = dot_row<DP>(sQ + r * DP, row);
-
-    stage_chunk<DP>(chunk, v, j0, M, Dv, lane);
-#pragma unroll
-    for (int d = 0; d < DP; ++d) row[d] = chunk[lane * (DP + 1) + d];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float dw = dot_row<DP>(sO + r * DP, row);
-      const bool mk = in && qt[r] > 0.f && qt[r] == kt;
-      const float w = expf((mk ? s[r] : -1000.f) - ls[r]);
-      ds[r] = mk ? w * (dw - dl[r]) : 0.f;
+  for (int buf = 0; t < key_tiles; buf ^= 1) {
+    const int next = next_kept(t + splits);
+    if (next < key_tiles) {
+      stage_keys(next, buf ^ 1);
+      att::cp_async_wait<1>();
+    } else {
+      att::cp_async_wait<0>();
     }
+    __syncthreads();
+    const float* tK = sK + buf * T * S;
+    const float* tV = sV + buf * T * S;
+    const float* tKt = sKt + buf * T;
 
-    const int nj = min(32, M - j0);
-    for (int jj = 0; jj < nj; ++jj) {
-      const float* k_row = k + (size_t)(j0 + jj) * D;
-      float kk[C];
+    // S = Q K^T and dP = dO V^T: queries ty * 4 + i, keys tx + 16 j.
+    float s[R][R], dp[R][R];
 #pragma unroll
-      for (int i = 0; i < C; ++i) {
-        const int d = lane + 32 * i;
-        kk[i] = d < D ? k_row[d] : 0.f;
-      }
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float dsj = __shfl_sync(0xffffffffu, ds[r], jj);
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < DP; d += 4) {
+      float4 qa[R], kb[R];
 #pragma unroll
-        for (int i = 0; i < C; ++i) acc[r][i] = fmaf(dsj, kk[i], acc[r][i]);
+      for (int i = 0; i < R; ++i) qa[i] = att::ld4(sQ + (ty * R + i) * S + d);
+#pragma unroll
+      for (int j = 0; j < R; ++j) kb[j] = att::ld4(tK + (tx + 16 * j) * S + d);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) s[i][j] = att::dot4(qa[i], kb[j], s[i][j]);
+    }
+#pragma unroll 2
+    for (int d = 0; d < DP; d += 4) {
+      float4 oa[R], vb[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) oa[i] = att::ld4(sO + (ty * R + i) * S + d);
+#pragma unroll
+      for (int j = 0; j < R; ++j) vb[j] = att::ld4(tV + (tx + 16 * j) * S + d);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) dp[i][j] = att::dot4(oa[i], vb[j], dp[i][j]);
+    }
+    // ds with the per-pair mask (rows past N and keys past M have tag 0).
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int nl = ty * R + i;
+      const float qt = sQt[nl], ls = sL[nl], dl = sDl[nl];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const bool keep = qt > 0.f && qt == tKt[tx + 16 * j];
+        sG[nl * SP + tx + 16 * j] = keep ? expf(s[i][j] - ls) * (dp[i][j] - dl) : 0.f;
       }
     }
+    __syncthreads();
+    // dQ += ds K: queries ty * 4 + i, channels tx + 16 j.
+#pragma unroll 2
+    for (int c = 0; c < T; c += 4) {
+      float4 g[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) g[i] = att::ld4(sG + (ty * R + i) * SP + c);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        float kk[CJ];
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+          kk[j] = att::owns_col<DP>(j, tx) ? tK[(c + cc) * S + tx + 16 * j] : 0.f;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float gi = att::lane4(g[i], cc);
+#pragma unroll
+          for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(gi, kk[j], acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();                     // this stage and sG are free again
+    t = next;
   }
-  merge_store<DP>(smem + 2 * kRows * DP, acc, dq + (size_t)b * N * D, row0, N, D, warp,
-                  lane);
+
+  const size_t slot = (size_t)b * splits + split;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int n = n0 + ty * R + i;
+    if (n >= N) continue;
+    const size_t row = slot * N + n;
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      const int c = tx + 16 * j;
+      if (c < D) part[row * D + c] = acc[i][j];
+    }
+  }
+}
+
+// One thread per (b, n, channel): the splits of dQ summed in order.
+__global__ void cross_attention_dq_combine_kernel(const float* __restrict__ part,
+                                                  float* __restrict__ dq, int B, int N, int D,
+                                                  int splits) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)B * N * D) return;
+  const size_t row = idx / D;
+  const float* p = part + ((row / N) * splits * N + row % N) * D + idx % D;
+  const size_t step = (size_t)N * D;           // from one split to the next
+  float s = 0.f;
+#pragma unroll 4
+  for (int sp = 0; sp < splits; ++sp) s += p[sp * step];
+  dq[idx] = s;
 }
 
 // Shared memory (floats) of the dK/dV kernel: the key and value tiles, two
@@ -456,15 +502,17 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, bool* configured) {
 template <int DP>
 cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* q_tag,
                       const float* k_tag, const float* lse, const float* dout,
-                      const float* delta, float* dq, int B, int N, int M, int D, int Dv,
-                      cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * smem_floats(DP);
+                      const float* delta, float* part, int B, int N, int M, int D, int Dv,
+                      int splits, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(float) * dq_smem_floats(DP);
   static bool configured = false;
   cudaError_t err = allow_smem(cross_attention_dq_kernel<DP>, smem, &configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kRows - 1) / kRows, B);
-  cross_attention_dq_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      q, k, v, q_tag, k_tag, lse, dout, delta, dq, N, M, D, Dv);
+  if (splits > (M + att::kTile - 1) / att::kTile) return cudaErrorInvalidValue;  // an empty split
+  const dim3 grid((N + att::kTile - 1) / att::kTile, splits, B);
+  cross_attention_dq_kernel<DP><<<grid, att::kThreads, smem, stream>>>(
+      q, k, v, q_tag, k_tag, lse, dout, delta, part, N, M, D, Dv,
+      att::vec_ok(q, D) && att::vec_ok(k, D), att::vec_ok(v, Dv) && att::vec_ok(dout, Dv));
   return cudaGetLastError();
 }
 
@@ -493,22 +541,40 @@ extern "C" {
 
 // Device pointers to contiguous f32 arrays: q (B, N, D), k (B, M, D),
 // v (B, M, Dv), q_tag (B, N), k_tag (B, M), lse (B, N) from the forward,
-// dout (B, N, Dv), delta (B, N); output dq (B, N, D). D, Dv <= 96.
-// Returns the cudaError_t of the launch.
+// dout (B, N, Dv), delta (B, N); scratch part (B, splits, N, D): each
+// split's partial dQ. The key tiles are dealt to the `splits` splits in
+// turn; splits <= the number of key tiles. D, Dv <= 96. Returns the
+// cudaError_t of the launch.
 int equidock_cross_attention_dq(const void* q, const void* k, const void* v,
                                 const void* q_tag, const void* k_tag, const void* lse,
-                                const void* dout, const void* delta, void* dq, int B,
-                                int N, int M, int D, int Dv, void* stream) {
-  if (B <= 0 || N <= 0 || M <= 0 || D <= 0 || Dv <= 0) return (int)cudaErrorInvalidValue;
+                                const void* dout, const void* delta, void* part, int B,
+                                int N, int M, int D, int Dv, int splits, void* stream) {
+  if (B <= 0 || N <= 0 || M <= 0 || D <= 0 || Dv <= 0 || splits <= 0)
+    return (int)cudaErrorInvalidValue;
   const int w = D > Dv ? D : Dv;
 #define DQ_ARGS                                                                    \
   (const float*)q, (const float*)k, (const float*)v, (const float*)q_tag,          \
       (const float*)k_tag, (const float*)lse, (const float*)dout,                  \
-      (const float*)delta, (float*)dq, B, N, M, D, Dv, (cudaStream_t)stream
+      (const float*)delta, (float*)part, B, N, M, D, Dv, splits, (cudaStream_t)stream
+  if (w <= 16) return (int)launch_dq<16>(DQ_ARGS);
   if (w <= 64) return (int)launch_dq<64>(DQ_ARGS);
+  if (w <= 72) return (int)launch_dq<72>(DQ_ARGS);
   if (w <= 96) return (int)launch_dq<96>(DQ_ARGS);
 #undef DQ_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// The dQ backward's second pass: dq (B, N, D), the splits' partials summed
+// in split order.
+int equidock_cross_attention_dq_combine(const void* part, void* dq, int B, int N, int D,
+                                        int splits, void* stream) {
+  if (B <= 0 || N <= 0 || D <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+  const size_t total = (size_t)B * N * D;
+  const int threads = 256;
+  cross_attention_dq_combine_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
+                                      (cudaStream_t)stream>>>((const float*)part, (float*)dq,
+                                                              B, N, D, splits);
+  return (int)cudaGetLastError();
 }
 
 // As above; scratch part_k (B, splits, M, D) and part_v (B, splits, M, Dv):

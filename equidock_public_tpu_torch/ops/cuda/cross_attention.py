@@ -1,7 +1,8 @@
 """Masked cross-attention, forward and backward: CUDA kernels
 `csrc/cross_attention.cu` (forward and its combine pass) and
-`csrc/cross_attention_bwd.cu` (dQ; dK/dV and its combine pass), their plain
-PyTorch versions, and the `torch.autograd.Function` that joins them.
+`csrc/cross_attention_bwd.cu` (dQ and dK/dV, each with its combine pass),
+their plain PyTorch versions, and the `torch.autograd.Function` that joins
+them.
 
 Replaces `_fwd_kernel`, `_bwd_dq_kernel` and `_bwd_dkv_kernel` of
 `equidock_public_tpu/ops/pallas/cross_attention.py`:
@@ -13,10 +14,13 @@ oracle `ops/attention.py::cross_attention`. The backward takes
 delta = rowsum(dO * O) as a torch op, as the JAX package does outside its
 kernels, then launches the dQ and dK/dV kernels; tags get no gradient.
 
-The forward and dK/dV kernels work on 64-row tiles and split the walked
-axis (keys, queries) across blocks where the grid would leave the card
-under-filled; each split writes partial results to scratch that a combine
-kernel merges in a fixed order (no atomics, the same bits on every launch).
+All three kernels work on 64-row tiles and skip the dense work of the tile
+pairs that keep no (query, key) pair: the forward and dK/dV take those in
+closed form, and dQ, which gets exactly nothing from them, skips them. Each
+splits the walked axis (keys for the forward and dQ, queries for dK/dV)
+across blocks where the grid would leave the card under-filled; each split
+writes partial results to scratch that a combine kernel merges in a fixed
+order (no atomics, the same bits on every launch).
 """
 
 from __future__ import annotations
@@ -32,18 +36,21 @@ from ._build import check_launch, check_tensor, load_library
 MAX_WIDTH = 96   # largest D / Dv the kernels are built for (layer 0 is 69 wide)
 TILE = 64        # rows of a query tile and of a key tile (csrc/attention_tiles.cuh)
 # Blocks a SM the splits aim at (each kernel holds one block a SM: about 200
-# registers a thread for the forward, 141 KB of shared memory for dK/dV at
-# D = 64). Tile pairs that keep nothing finish early, so the forward takes
-# several waves and dK/dV two. On an H100 (scripts/attention_tiles_check.py)
-# these pick one key tile a block at 512x1024 and 512x512, and 4 query-tile
-# runs for dK/dV at B = 10, 512x512: within 3% of the fastest count swept.
+# registers a thread for the forward, 141 KB of shared memory for dK/dV and
+# 123 KB for dQ at D = 64). Tile pairs that keep nothing finish early, so
+# the forward takes several waves and dK/dV and dQ two. On an H100
+# (scripts/attention_tiles_check.py) these pick one key tile a block at
+# 512x1024 and 512x512, 4 query-tile runs for dK/dV and 4 key-tile splits
+# for dQ at B = 10, 512x512: near the fastest count swept at D 64 and 69.
 FWD_SPLIT_TARGET = 8
 DKV_SPLIT_TARGET = 2
+DQ_SPLIT_TARGET = 2
 
 # Launches of each CUDA kernel in this process (plain-version calls excluded).
 launches = 0                # forward
 combine_launches = 0        # forward, the merge of the key splits (one per forward)
 dq_launches = 0             # backward, dQ
+dq_combine_launches = 0     # backward, the sum of dQ's key splits (one per dQ)
 dkv_launches = 0            # backward, dK and dV
 dkv_combine_launches = 0    # backward, the sum of the query splits (one per dK/dV)
 
@@ -64,15 +71,31 @@ def cross_attention_bwd_plain(q, k, v, q_tag, k_tag, dout):
         return torch.autograd.grad(o, qkv, dout)
 
 
+def fwd_combine_plain(part_m, part_l, part_acc) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward's combine pass: (o, lse) from the key
+    splits' running max, sum and accumulator (B, splits, N[, Dv])."""
+    mx = part_m.max(dim=1).values
+    w = torch.exp(part_m - mx[:, None])
+    l = (part_l * w).sum(dim=1)
+    return (part_acc * w[..., None]).sum(dim=1) / l[..., None], mx + torch.log(l)
+
+
+def split_sum_plain(*parts) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the backward's combine passes: each (B, splits, rows,
+    width) partial summed over its splits."""
+    return tuple(p.sum(dim=1) for p in parts)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
     lib = load_library()
     fns = {name: getattr(lib, f"equidock_cross_attention_{name}")
-           for name in ("fwd", "combine", "dq", "dkv", "dkv_combine")}
+           for name in ("fwd", "combine", "dq", "dq_combine", "dkv", "dkv_combine")}
     ptr, num = ctypes.c_void_p, ctypes.c_int
     fns["fwd"].argtypes = [ptr] * 8 + [num] * 6 + [ptr]
     fns["combine"].argtypes = [ptr] * 5 + [num] * 4 + [ptr]
-    fns["dq"].argtypes = [ptr] * 9 + [num] * 5 + [ptr]
+    fns["dq"].argtypes = [ptr] * 9 + [num] * 6 + [ptr]
+    fns["dq_combine"].argtypes = [ptr] * 2 + [num] * 4 + [ptr]
     fns["dkv"].argtypes = [ptr] * 10 + [num] * 6 + [ptr]
     fns["dkv_combine"].argtypes = [ptr] * 4 + [num] * 5 + [ptr]
     for fn in fns.values():
@@ -87,7 +110,8 @@ def _sm_count(index: int) -> int:
 
 def tile_splits(blocks: int, tiles: int, target: int) -> int:
     """Runs of equal length, none empty, into which to cut `tiles` tiles so
-    that `blocks` x runs reaches `target` blocks (one tile a run at most)."""
+    that `blocks` x runs reaches `target` blocks (one tile a run at most).
+    dQ deals its key tiles to that many splits in turn instead."""
     want = min(tiles, max(1, -(-target // blocks)))
     per_run = -(-tiles // want)
     return -(-tiles // per_run)
@@ -99,6 +123,16 @@ def _tiles(n: int) -> int:
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch(name: str, err_name: str, dev, *args) -> None:
+    with torch.cuda.device(dev):
+        err = _kernel_fns()[name](*args, _stream(dev))
+    check_launch(err, err_name)
+
+
+def _ptrs(*ts):
+    return [x.data_ptr() for x in ts]
 
 
 def _check_inputs(q, k, v, q_tag, k_tag):
@@ -118,83 +152,133 @@ def _check_inputs(q, k, v, q_tag, k_tag):
     return B, N, M, D, Dv
 
 
-def _launch_fwd(q, k, v, q_tag, k_tag, splits: Optional[int] = None):
-    """Launch the forward and its combine pass on checked CUDA operands;
-    (o, lse). `splits` (key-tile runs, one block each) defaults to what
-    fills the card."""
+def _check_parts(*parts) -> None:
+    """The partials a combine pass takes: contiguous f32 CUDA tensors of one
+    (B, splits, rows) on one device."""
+    for i, p in enumerate(parts):
+        if p.device.type != "cuda" or p.shape[:3] != parts[0].shape[:3]:
+            raise ValueError(f"combine: part {i} of shape {tuple(p.shape)} on {p.device}")
+        check_tensor(p, f"part {i}", p.shape, torch.float32, parts[0].device)
+
+
+def fwd_partials(q, k, v, q_tag, k_tag, splits: Optional[int] = None):
+    """Launch the forward kernel on checked CUDA operands; each key split's
+    running max and sum (B, splits, N) and accumulator (B, splits, N, Dv).
+    `splits` (key-tile runs, one block each) defaults to what fills the card."""
     B, N, M, D, Dv = _check_inputs(q, k, v, q_tag, k_tag)
     dev, f32 = q.device, torch.float32
     if splits is None:
         splits = tile_splits(B * _tiles(N), _tiles(M), FWD_SPLIT_TARGET * _sm_count(dev.index))
-    # each split's (m, l, acc) for every row
-    part_m = torch.empty((B, splits, N), dtype=f32, device=dev)
-    part_l = torch.empty((B, splits, N), dtype=f32, device=dev)
-    part_acc = torch.empty((B, splits, N, Dv), dtype=f32, device=dev)
-    o = torch.empty((B, N, Dv), dtype=f32, device=dev)
-    lse = torch.empty((B, N), dtype=f32, device=dev)
-    fns = _kernel_fns()
-    scratch = [x.data_ptr() for x in (part_m, part_l, part_acc)]
-    with torch.cuda.device(dev):
-        err = fns["fwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(), q_tag.data_ptr(),
-                         k_tag.data_ptr(), *scratch, B, N, M, D, Dv, splits, _stream(dev))
-    check_launch(err, "cross_attention")
-    global launches, combine_launches
+    parts = (torch.empty((B, splits, N), dtype=f32, device=dev),
+             torch.empty((B, splits, N), dtype=f32, device=dev),
+             torch.empty((B, splits, N, Dv), dtype=f32, device=dev))
+    _launch("fwd", "cross_attention", dev, *_ptrs(q, k, v, q_tag, k_tag, *parts),
+            B, N, M, D, Dv, splits)
+    global launches
     launches += 1
-    with torch.cuda.device(dev):
-        err = fns["combine"](*scratch, o.data_ptr(), lse.data_ptr(), B, N, Dv, splits,
-                             _stream(dev))
-    check_launch(err, "cross_attention combine")
+    return parts
+
+
+def fwd_combine(part_m, part_l, part_acc):
+    """Launch the forward's combine pass; (o (B, N, Dv), lse (B, N)). CPU
+    tensors take the plain version."""
+    if part_acc.device.type == "cpu":
+        return fwd_combine_plain(part_m, part_l, part_acc)
+    _check_parts(part_m, part_l, part_acc)
+    B, splits, N, Dv = part_acc.shape
+    o = torch.empty((B, N, Dv), dtype=torch.float32, device=part_acc.device)
+    lse = torch.empty((B, N), dtype=torch.float32, device=part_acc.device)
+    _launch("combine", "cross_attention combine", part_acc.device,
+            *_ptrs(part_m, part_l, part_acc, o, lse), B, N, Dv, splits)
+    global combine_launches
     combine_launches += 1
     return o, lse
 
 
-def cross_attention_dq(q, k, v, q_tag, k_tag, lse, dout, delta):
-    """Launch the dQ kernel on checked CUDA operands; dq (B, N, D)."""
+def _launch_fwd(q, k, v, q_tag, k_tag, splits: Optional[int] = None):
+    """The forward kernel and its combine pass on checked CUDA operands;
+    (o, lse)."""
+    return fwd_combine(*fwd_partials(q, k, v, q_tag, k_tag, splits))
+
+
+def dq_partials(q, k, v, q_tag, k_tag, lse, dout, delta, splits: Optional[int] = None):
+    """Launch the dQ kernel on checked CUDA operands; each key split's
+    partial dQ (B, splits, N, D). `splits` (key-tile runs) defaults to what
+    fills the card."""
     B, N, D = q.shape
     M, Dv = k.shape[1], v.shape[2]
-    dq = torch.empty((B, N, D), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _kernel_fns()["dq"](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_tag.data_ptr(), k_tag.data_ptr(),
-            lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, N, M, D, Dv,
-            _stream(q.device))
-    check_launch(err, "cross_attention dq")
+    dev = q.device
+    if splits is None:
+        splits = tile_splits(B * _tiles(N), _tiles(M), DQ_SPLIT_TARGET * _sm_count(dev.index))
+    part = torch.empty((B, splits, N, D), dtype=torch.float32, device=dev)
+    _launch("dq", "cross_attention dq", dev,
+            *_ptrs(q, k, v, q_tag, k_tag, lse, dout, delta, part), B, N, M, D, Dv, splits)
     global dq_launches
     dq_launches += 1
+    return part
+
+
+def dq_combine(part):
+    """Launch dQ's combine pass: dq (B, N, D), the splits summed in order.
+    CPU tensors take the plain version."""
+    if part.device.type == "cpu":
+        return split_sum_plain(part)[0]
+    _check_parts(part)
+    B, splits, N, D = part.shape
+    dq = torch.empty((B, N, D), dtype=torch.float32, device=part.device)
+    _launch("dq_combine", "cross_attention dq combine", part.device, *_ptrs(part, dq),
+            B, N, D, splits)
+    global dq_combine_launches
+    dq_combine_launches += 1
     return dq
 
 
-def cross_attention_dkv(q, k, v, q_tag, k_tag, lse, dout, delta,
-                        splits: Optional[int] = None):
-    """Launch the dK/dV kernel and its combine pass on checked CUDA
-    operands; (dk, dv). `splits` (query-tile runs) defaults to what fills
-    the card."""
+def cross_attention_dq(q, k, v, q_tag, k_tag, lse, dout, delta,
+                       splits: Optional[int] = None):
+    """The dQ kernel and its combine pass on checked CUDA operands; dq."""
+    return dq_combine(dq_partials(q, k, v, q_tag, k_tag, lse, dout, delta, splits))
+
+
+def dkv_partials(q, k, v, q_tag, k_tag, lse, dout, delta, splits: Optional[int] = None):
+    """Launch the dK/dV kernel on checked CUDA operands; each query split's
+    partial dK (B, splits, M, D) and dV (B, splits, M, Dv). `splits`
+    (query-tile runs) defaults to what fills the card."""
     B, N, D = q.shape
     M, Dv = k.shape[1], v.shape[2]
     dev, f32 = q.device, torch.float32
     if splits is None:
         splits = tile_splits(B * _tiles(M), _tiles(N), DKV_SPLIT_TARGET * _sm_count(dev.index))
-    # each split's dK and dV for every key
-    part_k = torch.empty((B, splits, M, D), dtype=f32, device=dev)
-    part_v = torch.empty((B, splits, M, Dv), dtype=f32, device=dev)
-    dk = torch.empty((B, M, D), dtype=f32, device=dev)
-    dv = torch.empty((B, M, Dv), dtype=f32, device=dev)
-    fns = _kernel_fns()
-    scratch = [x.data_ptr() for x in (part_k, part_v)]
-    with torch.cuda.device(dev):
-        err = fns["dkv"](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_tag.data_ptr(), k_tag.data_ptr(),
-            lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), *scratch, B, N, M, D, Dv,
-            splits, _stream(dev))
-    check_launch(err, "cross_attention dkv")
-    global dkv_launches, dkv_combine_launches
+    parts = (torch.empty((B, splits, M, D), dtype=f32, device=dev),
+             torch.empty((B, splits, M, Dv), dtype=f32, device=dev))
+    _launch("dkv", "cross_attention dkv", dev,
+            *_ptrs(q, k, v, q_tag, k_tag, lse, dout, delta, *parts), B, N, M, D, Dv, splits)
+    global dkv_launches
     dkv_launches += 1
-    with torch.cuda.device(dev):
-        err = fns["dkv_combine"](*scratch, dk.data_ptr(), dv.data_ptr(), B, M, D, Dv,
-                                 splits, _stream(dev))
-    check_launch(err, "cross_attention dkv combine")
+    return parts
+
+
+def dkv_combine(part_k, part_v):
+    """Launch dK/dV's combine pass: (dk, dv), the splits summed in order.
+    CPU tensors take the plain version."""
+    if part_k.device.type == "cpu":
+        return split_sum_plain(part_k, part_v)
+    _check_parts(part_k, part_v)
+    B, splits, M, D = part_k.shape
+    Dv = part_v.shape[3]
+    dk = torch.empty((B, M, D), dtype=torch.float32, device=part_k.device)
+    dv = torch.empty((B, M, Dv), dtype=torch.float32, device=part_k.device)
+    _launch("dkv_combine", "cross_attention dkv combine", part_k.device,
+            *_ptrs(part_k, part_v, dk, dv), B, M, D, Dv, splits)
+    global dkv_combine_launches
     dkv_combine_launches += 1
     return dk, dv
+
+
+def cross_attention_dkv(q, k, v, q_tag, k_tag, lse, dout, delta,
+                        splits: Optional[int] = None):
+    """The dK/dV kernel and its combine pass on checked CUDA operands;
+    (dk, dv)."""
+    return dkv_combine(*dkv_partials(q, k, v, q_tag, k_tag, lse, dout, delta, splits))
 
 
 def cross_attention_bwd(q, k, v, q_tag, k_tag, o, lse, dout):

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""Rows 3 and 5 of PERF.md's kernel table on one CUDA card: the attention
-forward (`csrc/cross_attention.cu`) and dK/dV backward
+"""Rows 3-5 of PERF.md's kernel table on one CUDA card: the attention
+forward (`csrc/cross_attention.cu`) and its dQ and dK/dV backward
 (`csrc/cross_attention_bwd.cu`) of `equidock_public_tpu_torch`.
 
     python3 scripts/attention_tiles_check.py              # build, check, sweep
     python3 scripts/attention_tiles_check.py --times-only [--root DIR]
 
 The full run wipes the kernel build, prints ptxas' lines for the attention
-kernels, holds the forward and dK/dV against their plain versions on
+kernels, holds the forward, dQ and dK/dV against their plain versions on
 chip_smoke.py's attention cases (two launches bit-equal), then times the
 forward at the serving shape (512x1024, D 64) and the training shape
-(B=10, 512x512, D 64) and dK/dV at the training shape for several numbers
-of splits beside SDPA's forward. `--times-only` times the default launches
+(B=10, 512x512, D 64), and dQ and dK/dV at the training shape (D 64 and
+69), each for several numbers of splits, beside SDPA's forward, and each
+kernel and combine pass apart. `--times-only` times the default launches
 and SDPA only, with the package and chip_smoke.py of the checkout at DIR
 (an unpacked commit, to compare two versions in one call). One JSON line a
 phase; device ms from CUDA-graph replays (chip_smoke.device_ms).
@@ -31,39 +32,27 @@ import torch.nn.functional as F
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def parts_ms(cs, ca, serve, train, dargs) -> dict:
-    """Device ms of the forward kernel, its combine, the dK/dV kernel and its
-    combine apart, at the default split counts, on preallocated buffers."""
-    fns, out = ca._kernel_fns(), {}
-    stream = lambda: torch.cuda.current_stream().cuda_stream
-    empty = lambda *s: torch.empty(s, device="cuda")
-    for name, (q, k, v, qt, kt) in (("512x1024", serve), ("B=10 512x512", train)):
-        B, N, D = q.shape
-        M, Dv = k.shape[1], v.shape[2]
-        S = ca.tile_splits(B * ca._tiles(N), ca._tiles(M),
-                           ca.FWD_SPLIT_TARGET * ca._sm_count(q.device.index))
-        held = (empty(B, S, N), empty(B, S, N), empty(B, S, N, Dv))
-        scratch = [x.data_ptr() for x in held]
-        o, lse = empty(B, N, Dv), empty(B, N)
-        out[f"forward kernel {name} (splits {S})"] = cs.device_ms(lambda: fns["fwd"](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), qt.data_ptr(), kt.data_ptr(),
-            *scratch, B, N, M, D, Dv, S, stream()))
-        out[f"forward combine {name}"] = cs.device_ms(lambda: fns["combine"](
-            *scratch, o.data_ptr(), lse.data_ptr(), B, N, Dv, S, stream()))
-    q, k, v, qt, kt, lse, do, delta = dargs
-    B, N, D = q.shape
-    M, Dv = k.shape[1], v.shape[2]
-    S = ca.tile_splits(B * ca._tiles(M), ca._tiles(N),
-                       ca.DKV_SPLIT_TARGET * ca._sm_count(q.device.index))
-    held = (empty(B, S, M, D), empty(B, S, M, Dv))
-    scratch = [x.data_ptr() for x in held]
-    dk, dv = empty(B, M, D), empty(B, M, Dv)
-    out[f"dkv kernel B=10 512x512 (splits {S})"] = cs.device_ms(lambda: fns["dkv"](
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qt.data_ptr(), kt.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), delta.data_ptr(), *scratch, B, N, M, D, Dv, S,
-        stream()))
-    out["dkv combine B=10 512x512"] = cs.device_ms(lambda: fns["dkv_combine"](
-        *scratch, dk.data_ptr(), dv.data_ptr(), B, M, D, Dv, S, stream()))
+def parts_ms(cs, ca, serve, train, bwd) -> dict:
+    """Device ms of each attention kernel and each combine pass apart, at
+    the default split counts."""
+    out = {}
+    for name, a in (("512x1024", serve), ("B=10 512x512", train)):
+        parts = ca.fwd_partials(*a)
+        S = parts[0].shape[1]
+        out[f"forward kernel {name} (splits {S})"] = cs.device_ms(lambda: ca.fwd_partials(*a))
+        out[f"forward combine {name}"] = cs.device_ms(lambda: ca.fwd_combine(*parts))
+    for c in bwd:
+        q, k, v, qt, kt, o, lse, do = c["args"]
+        dargs = (q, k, v, qt, kt, lse, do, c["delta"])
+        D = q.shape[-1]
+        part = ca.dq_partials(*dargs)
+        out[f"dq kernel D{D} (splits {part.shape[1]})"] = cs.device_ms(
+            lambda: ca.dq_partials(*dargs))
+        out[f"dq combine D{D}"] = cs.device_ms(lambda: ca.dq_combine(part))
+        parts = ca.dkv_partials(*dargs)
+        out[f"dkv kernel D{D} (splits {parts[0].shape[1]})"] = cs.device_ms(
+            lambda: ca.dkv_partials(*dargs))
+        out[f"dkv combine D{D}"] = cs.device_ms(lambda: ca.dkv_combine(*parts))
     return out
 
 
@@ -114,10 +103,20 @@ def main() -> int:
             got = ca.cross_attention_bwd(*c["args"])
             want = ca.cross_attention_bwd_plain(*c["args"][:5], c["args"][7])
             torch.cuda.synchronize()
-            chk = cs.check_grads("cross_attention_dkv", c["shape"], got[1:], want[1:])
+            chk = {part: cs.check_grads(f"cross_attention_{part}", c["shape"], g, w)
+                   for part, g, w in (("dq", got[:1], want[:1]), ("dkv", got[1:], want[1:]))}
             again = ca.cross_attention_bwd(*c["args"])
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            emit("dkv", shape=c["shape"], bit_equal=same, **chk)
+            emit("backward", shape=c["shape"], bit_equal=same, **chk)
+        for c in cs.attention_dq_cases(dev, cs.attention_cases(dev)):
+            q, k, v, qt, kt, o, lse, do = c["args"]
+            dargs = (q, k, v, qt, kt, lse, do, (do * o).sum(-1).contiguous())
+            got = ca.cross_attention_dq(*dargs)
+            want = ca.cross_attention_bwd_plain(q, k, v, qt, kt, do)[0]
+            torch.cuda.synchronize()
+            chk = cs.check_grads("cross_attention_dq", c["shape"], [got], [want])
+            same = torch.equal(got, ca.cross_attention_dq(*dargs))
+            emit("dq", shape=c["shape"], bit_equal=same, **chk)
 
     def sdpa(q, k, v, qt, kt):
         keep = (qt[:, :, None] > 0) & (qt[:, :, None] == kt[:, None, :])
@@ -134,22 +133,30 @@ def main() -> int:
                 if s <= tiles[1] and ca.tile_splits(1, tiles[1], s) == s:
                     times[name][f"splits={s}"] = cs.device_ms(
                         lambda s=s: ca._launch_fwd(*a, splits=s))
-    q, k, v, qt, kt, o, lse, do = bwd[0]["args"]
-    dargs = (q, k, v, qt, kt, lse, do, bwd[0]["delta"])
-    name = "dkv " + bwd[0]["shape"]
-    times[name] = {"default": cs.device_ms(lambda: ca.cross_attention_dkv(*dargs)),
-                   "dq": cs.device_ms(lambda: ca.cross_attention_dq(*dargs))}
-    if not args.times_only:
-        for s in (1, 2, 4, 8):
-            times[name][f"splits={s}"] = cs.device_ms(
-                lambda s=s: ca.cross_attention_dkv(*dargs, splits=s))
+    for c in bwd:
+        q, k, v, qt, kt, o, lse, do = c["args"]
+        dargs = (q, k, v, qt, kt, lse, do, c["delta"])
+        name = "backward " + c["shape"]
+        times[name] = {"dq": cs.device_ms(lambda: ca.cross_attention_dq(*dargs)),
+                       "dkv": cs.device_ms(lambda: ca.cross_attention_dkv(*dargs))}
+        if not args.times_only:
+            tiles = -(-k.shape[1] // 64)
+            for s in (1, 2, 3, 4, 8):
+                if ca.tile_splits(1, tiles, s) != s:
+                    continue
+                times[name][f"dq splits={s}"] = cs.device_ms(
+                    lambda s=s: ca.cross_attention_dq(*dargs, splits=s))
+                times[name][f"dkv splits={s}"] = cs.device_ms(
+                    lambda s=s: ca.cross_attention_dkv(*dargs, splits=s))
+        if hasattr(cs, "graph_backward_ms"):     # the whole backward as device time
+            times[name]["whole_backward"] = {
+                "port": cs.graph_backward_ms(lambda l: ca.cross_attention_fwd(*l, qt, kt)[0],
+                                             (q, k, v), do),
+                "plain": cs.graph_backward_ms(
+                    lambda l: ca.cross_attention_plain(*l, qt, kt)[0], (q, k, v), do),
+                "sdpa": cs.sdpa_graph_bwd_ms(q, k, v, qt, kt, do)}
     if not args.times_only:                  # each kernel of a row apart
-        times["parts"] = parts_ms(cs, ca, serve, train, dargs)
-    if hasattr(cs, "graph_backward_ms"):     # the whole backward as device time
-        times[name]["whole_backward"] = {
-            "port": cs.graph_backward_ms(lambda l: ca.cross_attention_fwd(*l, qt, kt)[0],
-                                         (q, k, v), do),
-            "sdpa": cs.sdpa_graph_bwd_ms(q, k, v, qt, kt, do)}
+        times["parts"] = parts_ms(cs, ca, serve, train, bwd)
     emit("times", ms=times)
     return 0
 

@@ -1,5 +1,5 @@
 """The tile decomposition of the port's attention kernels, emulated in
-torch on the CPU (`csrc/cross_attention.cu`, the dK/dV kernel of
+torch on the CPU (`csrc/cross_attention.cu`, the dQ and dK/dV kernels of
 `csrc/cross_attention_bwd.cu`; the card runs the same arithmetic in CUDA):
 
 - the conservative tile test (positive-tag ranges of a query tile and a key
@@ -11,7 +11,10 @@ torch on the CPU (`csrc/cross_attention.cu`, the dK/dV kernel of
   its combine in split order;
 - dK/dV key-stationary: for a query tile that keeps nothing with the key
   tile, dK gets nothing and every key's dV the same u = sum_n
-  exp(-1000 - lse_n) dO_n; the split of the query tiles summed in order.
+  exp(-1000 - lse_n) dO_n; the split of the query tiles summed in order;
+- dQ query-stationary: a tile pair that keeps nothing has ds = 0 and is
+  skipped, a query tile with no positive tag does nothing; the key tiles
+  dealt to the splits in turn, the splits summed in order.
 
 The emulation runs in float64: it checks the decomposition's closed forms,
 not f32 rounding. (On the card, w = exp(a - lse) inherits the f32 rounding
@@ -21,10 +24,11 @@ backward, which reads the same f32 lse, the emulation takes lse rounded to
 f32.) Held against the plain
 versions (`cross_attention_plain`, `cross_attention_bwd_plain`) on every row, and against the JAX package's
 Pallas kernel in interpret mode on every row that keeps a key (on every
-row at M = 512, where its key padding adds nothing). Tolerance: forward
-1e-5 abs and rel; dK and dV 1e-5 norm-wise (f32, other summation orders).
-Also pins ROADMAP C3: at M = 576 the Pallas path pads the keys to 1024
-with mask 0, so rows that keep no key differ from the port by M / 1024."""
+row at M = 512, where its key padding adds nothing; dQ on every row of
+every case). Tolerance: forward 1e-5 abs and rel; dQ, dK and dV 1e-5
+norm-wise (f32, other summation orders). Also pins ROADMAP C3: at M = 576
+the Pallas path pads the keys to 1024 with mask 0, so rows that keep no key
+differ from the port by M / 1024 in the forward; dQ cannot see it."""
 
 import math
 
@@ -142,6 +146,40 @@ def dkv_tiles(q, k, v, qt, kt, lse, do, delta, tile, splits, seen):
     return dk, dv
 
 
+def key_turns(tiles, splits):
+    """The dQ kernel's cut: the key tiles dealt to `splits` splits in turn."""
+    assert splits <= tiles, "an empty split"
+    return [range(s, tiles, splits) for s in range(splits)]
+
+
+def dq_tiles(q, k, v, qt, kt, lse, do, delta, tile, splits, seen):
+    """dq by the dQ kernel's decomposition."""
+    B, N, D = q.shape
+    M = k.shape[1]
+    dq = q.new_empty(B, N, D)
+    for b in range(B):
+        for n0 in range(0, N, tile):
+            rows = slice(n0, min(n0 + tile, N))
+            qtag, R = qt[b, rows], rows.stop - rows.start
+            parts = []
+            for run in key_turns(-(-M // tile), splits):
+                acc = q.new_zeros(R, D)
+                for kt_i in run:
+                    keys = slice(kt_i * tile, min(kt_i * tile + tile, M))
+                    if not may_keep(tag_range(qtag), tag_range(kt[b, keys])):
+                        seen["skipped"] += 1            # ds = 0: nothing to add
+                        continue
+                    seen["mixed"] += 1
+                    keep = (qtag[:, None] > 0) & (qtag[:, None] == kt[b, keys][None])
+                    w = torch.exp(q[b, rows] @ k[b, keys].T - lse[b, rows][:, None])
+                    dp = do[b, rows] @ v[b, keys].T
+                    ds = torch.where(keep, w * (dp - delta[b, rows][:, None]), 0.0)
+                    acc = acc + ds @ k[b, keys]
+                parts.append(acc)
+            dq[b, rows] = sum(parts[1:], parts[0])                # split order
+    return dq
+
+
 def _case(name, rng):
     """(q, k, v, q_tag, k_tag, do) as float32 numpy arrays."""
     B, N, M, D, scale = {"training": (3, 40, 40, 16, 0.5), "ragged": (2, 37, 45, 8, 0.5),
@@ -252,6 +290,102 @@ def test_dkv_tiles_match_pallas_vjp_at_m512(tagged):
     dk, dv = dkv_tiles(*T[:5], lse, T[5], (T[5] * o).sum(-1), 64, 1,
                        {"masked": 0, "mixed": 0})
     assert _rel(dk, f64(jdk)) <= DKV_REL and _rel(dv, f64(jdv)) <= DKV_REL
+
+
+def _pallas_dq(q, k, v, qt, kt, do):
+    """dq of the JAX package's Pallas backward (vjp of the fused core) in
+    interpret mode."""
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(lambda a: _fused_core(a, jnp.asarray(k), jnp.asarray(v),
+                                               jnp.asarray(qt), jnp.asarray(kt), True), q)
+        return f64(vjp(jnp.asarray(do))[0])
+
+
+def _dq_by_tiles(arrays, tile, splits, lse_f32=False):
+    """(dq, seen) of the dQ decomposition in float64 on the forward
+    decomposition's lse (rounded to f32, as the Pallas kernel reads it,
+    when `lse_f32`)."""
+    q, k, v, qt, kt, do = map(f64, arrays)
+    o, lse = fwd_tiles(q, k, v, qt, kt, tile, 1, {"masked": 0, "mixed": 0})
+    if lse_f32:
+        lse = lse.float().double()
+    seen = {"skipped": 0, "mixed": 0}
+    dq = dq_tiles(q, k, v, qt, kt, lse, do, (do * o).sum(-1), tile,
+                  min(splits, -(-k.shape[1] // tile)), seen)
+    return dq, seen
+
+
+def _dq_case(name, rng):
+    """`_case` for dQ. Where every key row is the same vector (below_896),
+    sum_m ds = 0 on a row whose kept weights sum to one, so dQ = sum_m ds k
+    is zero in exact arithmetic there and any f32 result is rounding noise;
+    each key row gets noise of zero sum over its channels instead, which
+    keeps the kept logits of the constant query rows at -1024."""
+    arrays = _case(name, rng)
+    if name == "below_896":
+        z = rng.standard_normal(arrays[1].shape[1:]).astype(np.float32)
+        arrays[1][0] += z - z.mean(-1, keepdims=True)
+    return arrays
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_dq_tiles_match_plain_and_pallas(name):
+    rng = np.random.default_rng(200 + CASES.index(name))
+    arrays = _dq_case(name, rng)
+    tile, splits = _tile_and_splits(name)
+    dq, seen = _dq_by_tiles(arrays, tile, splits)
+    assert seen["skipped"] > 0 and seen["mixed"] > 0, seen
+    pdq = tca.cross_attention_bwd_plain(*map(t, arrays))[0].double()
+    assert _rel(dq, pdq) <= DKV_REL
+    dq32, _ = _dq_by_tiles(arrays, tile, splits, lse_f32=True)
+    assert _rel(dq32, _pallas_dq(*arrays)) <= DKV_REL
+
+
+def test_dq_c3_cannot_reach_dq():
+    """ROADMAP C3 at M = 576: the Pallas path's padded keys carry mask 0, so
+    their ds is 0 and the padding cannot reach dQ; rows that keep no key
+    have dQ = 0 exactly in both packages, and dQ agrees on every row."""
+    rng = np.random.default_rng(3)
+    B, N, M, D = 2, 20, 576, 8
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32) for s in
+                   ((B, N, D), (B, M, D), (B, M, D), (B, N, D)))
+    qm, km = np.zeros((B, N), np.float32), np.zeros((B, M), np.float32)
+    qm[0, :13] = 1
+    qm[1, :6] = 1
+    km[0, :400] = 1
+    km[1, :570] = 1
+    arrays = (q, k, v, qm, km, do)
+    pallas = _pallas_dq(*arrays)
+    plain = tca.cross_attention_bwd_plain(*map(t, arrays))[0].double()
+    tiles, _ = _dq_by_tiles(arrays, 64, 3, lse_f32=True)
+    empty = torch.from_numpy(qm == 0)
+    assert empty.any() and (~empty).any()
+    for dq in (pallas, plain, tiles):
+        assert torch.equal(dq[empty], torch.zeros_like(dq[empty]))
+    assert _rel(tiles, pallas) <= DKV_REL and _rel(plain, pallas) <= DKV_REL
+
+
+def test_combines_take_their_plain_versions_on_the_cpu():
+    """The combine passes on CPU tensors take their plain versions, which
+    merge per-split partials into the whole: the forward's (m, l, acc) of
+    each key split by the rescaled sums, dQ's and dK/dV's by a sum over the
+    splits."""
+    rng = np.random.default_rng(11)
+    B, S, N, M, Dv = 2, 3, 5, 21, 4
+    a, v = f64(rng.standard_normal((B, N, M)) * 3), f64(rng.standard_normal((B, M, Dv)))
+    cuts = [slice(0, 4), slice(4, 15), slice(15, M)]
+    m = torch.stack([a[..., c].max(-1).values for c in cuts], 1)
+    e = [torch.exp(a[..., c] - m[:, i, :, None]) for i, c in enumerate(cuts)]
+    part_l = torch.stack([x.sum(-1) for x in e], 1)
+    part_acc = torch.stack([x @ v[:, c] for x, c in zip(e, cuts)], 1)
+    o, lse = tca.fwd_combine(m, part_l, part_acc)
+    torch.testing.assert_close(o, torch.softmax(a, -1) @ v)
+    torch.testing.assert_close(lse, torch.logsumexp(a, -1))
+    part = f64(rng.standard_normal((B, S, N, 7)))
+    torch.testing.assert_close(tca.dq_combine(part), part[:, 0] + part[:, 1] + part[:, 2])
+    dk, dv = tca.dkv_combine(part, part_acc)
+    torch.testing.assert_close(dk, part.sum(1))
+    torch.testing.assert_close(dv, part_acc.sum(1))
 
 
 def test_keys_past_m_c3_pallas_pads_the_port_does_not():

@@ -182,7 +182,8 @@ def test_edge_bwd_kernel_matches_plain(cuda, N, use_ln, use_dist):
 
 @pytest.mark.parametrize("N,M,D,Dv,tags", [
     (172, 548, 64, 64, False), (512, 512, 69, 69, False), (33, 70, 96, 3, False),
-    (9, 40, 16, 16, False), (172, 548, 64, 64, True), (40, 100, 32, 20, False)])
+    (9, 40, 16, 16, False), (172, 548, 64, 64, True), (40, 100, 32, 20, False),
+    (300, 1000, 64, 64, False)])
 def test_attention_bwd_kernels_match_plain(cuda, N, M, D, Dv, tags):
     gen = torch.Generator().manual_seed(N + M)
     q, k = torch.randn(2, N, D, generator=gen) * 0.3, torch.randn(2, M, D, generator=gen) * 0.3
@@ -197,15 +198,41 @@ def test_attention_bwd_kernels_match_plain(cuda, N, M, D, Dv, tags):
         kt *= torch.randint(1, 4, (2, M), generator=gen)
     q, k, v, qt, kt, do = (x.to(cuda) for x in (q, k, v, qt, kt, do))
     o, lse = ca.cross_attention_plain(q, k, v, qt, kt)
-    counts = lambda: (ca.dq_launches, ca.dkv_launches, ca.dkv_combine_launches)
+    counts = lambda: (ca.dq_launches, ca.dq_combine_launches, ca.dkv_launches,
+                      ca.dkv_combine_launches)
     before = counts()
     got = ca.cross_attention_bwd(q, k, v, qt, kt, o, lse, do)
-    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1)
     want = ca.cross_attention_bwd_plain(q, k, v, qt, kt, do)
     torch.cuda.synchronize()
     _assert_grads_close(got, want, ["dq", "dk", "dv"])
     again = ca.cross_attention_bwd(q, k, v, qt, kt, o, lse, do)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_attention_combines_match_plain(cuda):
+    """Each combine pass of rows 3-5 against its plain version on the
+    partials its kernel writes, one launch a call."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(2, n, 64, generator=gen).to(cuda) * 0.3
+                   for n in (300, 1000, 1000, 300))
+    qt, kt = torch.ones(2, 300, device=cuda), torch.ones(2, 1000, device=cuda)
+    qt[:, 250:] = 0
+    kt[:, 900:] = 0
+    o, lse = ca.cross_attention_plain(q, k, v, qt, kt)
+    bwd = (q, k, v, qt, kt, lse, do, (do * o).sum(-1).contiguous())
+    for parts, combine, plain, counter in (
+            (ca.fwd_partials(q, k, v, qt, kt), ca.fwd_combine, ca.fwd_combine_plain,
+             "combine_launches"),
+            ((ca.dq_partials(*bwd),), ca.dq_combine, ca.split_sum_plain, "dq_combine_launches"),
+            (ca.dkv_partials(*bwd), ca.dkv_combine, ca.split_sum_plain,
+             "dkv_combine_launches")):
+        before = getattr(ca, counter)
+        got = combine(*parts)
+        assert getattr(ca, counter) == before + 1
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, plain(*parts)):
+            torch.testing.assert_close(g, w, **TOL)
 
 
 def test_model_gradients_on_the_card_match_the_cpu_path(cuda):
