@@ -14,9 +14,12 @@ non-zero without printing a result.
   kernels  each CUDA kernel against its plain PyTorch version on the card:
            the forwards at the serving shapes, the backwards (edge message,
            attention dQ and dK/dV) against autograd through the plain
-           forwards at the training shapes, the edge kernels also at D = 16
-           and with a source wider than the destinations (the halo layer
-           body's Nsrc = S + 2 Hr + gp Hres), the attention forward also at
+           forwards at the training shapes, the edge kernels also at D = 16,
+           with a source wider than the destinations (the halo layer
+           body's Nsrc = S + 2 Hr + gp Hres) and at the edges of their
+           tiles (N = 300, a graph whose nodes are all padded, Nsrc != N,
+           D 64 and 16), each edge launch writing into outputs inside NaN
+           guard regions that must stay untouched, the attention forward also at
            the training batch and at the edges of its 64-row tiles (300 x
            1000, a complex of padded query rows, tags that meet no key,
            kept logits below -896; rows that keep no key must average all
@@ -26,13 +29,17 @@ non-zero without printing a result.
            sums and their backward at the training, a ragged and the
            largest bucket's shapes, with the stated tolerances; the halo ring
            kernels (rows 8, 9) bit-equal to their plain versions at the
-           halo path's shapes; and two launches of each backward, ring and
-           attention kernel on the same inputs give the same bits
+           halo path's shapes; and two launches of each backward, ring,
+           edge and attention kernel on the same inputs give the same bits.
+           Each kernel's first launch is synchronised at once, so a fault
+           names its kernel
   serve    the DB5 paper model (committed weights) warms up buckets 512 and
            1024, then answers 4 requests through DockingServer.serve_lines;
            R, t and CA coordinates must match the JAX package's CPU values
            in the golden file, and every forward must launch each forward
-           kernel exactly 10 times (5 layers x 2 sides)
+           kernel exactly 10 times (5 layers x 2 sides) and build no
+           inverse neighbour list (only the backward reads one: 2 a step,
+           one a side, on every path)
   train    the same model trains on a batch of 10 tracked DB5 chains, each
            cut in two (the port's featurizer and DockingDataset, the golden
            file's seed): every parameter gets a finite gradient whose norm
@@ -243,6 +250,33 @@ def check_close(name, got, want, tol) -> float:
     return max_err(got, want)
 
 
+def synced(name: str) -> None:
+    """Synchronise right after a launch: a fault the card reports names the
+    kernel that ran last."""
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        raise SmokeFailure(f"{name}: the card reported a fault after its launch: {e}") from e
+
+
+GUARD = 1024    # NaN floats before and after each guarded output
+
+
+def guarded(shapes, dev):
+    """(buffers, views): each view a contiguous tensor of its shape inside a
+    buffer with GUARD NaN floats before and after it."""
+    bufs = [torch.full((2 * GUARD + int(np.prod(s)),), float("nan"), device=dev)
+            for s in shapes]
+    return bufs, [b[GUARD:GUARD + int(np.prod(s))].view(s) for b, s in zip(bufs, shapes)]
+
+
+def require_guards(name: str, bufs) -> None:
+    """After a synchronised launch: no float outside its outputs written."""
+    for i, b in enumerate(bufs):
+        require(bool(torch.isnan(b[:GUARD]).all()) and bool(torch.isnan(b[-GUARD:]).all()),
+                f"{name}: the launch wrote outside output {i}")
+
+
 # --------------------------------------------------------------------------- #
 # Kernel cases at the serving shapes
 # --------------------------------------------------------------------------- #
@@ -399,6 +433,12 @@ KERNELS = (
 # it also as the transpose of its send-row gathers, counted apart again.
 SCATTER = ("edge_message", "scatter_launches")
 TAKE_SCATTER = ("halo_ring", "take_launches")
+# Inverse neighbour lists built (ops/cuda/edge_message.py, any device): one
+# per side per forward that records gradients, on every path (the model
+# shares each across its layers and the backward's scatters), none in a
+# forward without gradients; the halo path's take scatter builds its own.
+INVERSE = ("edge_message", "inverse_builds", "edge_inverse_builds")
+PER_STEP_INVERSE = SIDES
 # The second passes of rows 3-5 (csrc/cross_attention.cu,
 # csrc/cross_attention_bwd.cu): the merges of their splits, launched once
 # with each forward, each dQ and each dK/dV, counted apart and required to
@@ -424,7 +464,8 @@ def kernel_counters():
     mod = lambda name: importlib.import_module(f"equidock_public_tpu_torch.ops.cuda.{name}")
     return (tuple((mod(m), attr, name) for name, m, attr, *_ in KERNELS)
             + ((mod(SCATTER[0]), SCATTER[1], "edge_message_scatter"),
-               (mod(TAKE_SCATTER[0]), TAKE_SCATTER[1], "halo_take_scatter"))
+               (mod(TAKE_SCATTER[0]), TAKE_SCATTER[1], "halo_take_scatter"),
+               (mod(INVERSE[0]), INVERSE[1], INVERSE[2]))
             + tuple((mod(m), attr, name) for m, attr, name, _ in COMBINES))
 
 
@@ -446,7 +487,9 @@ def read_counts() -> dict:
 
 def expect_counts(what: str, counts: dict, steps: int, evals: int, fused: bool) -> None:
     """Each kernel launched exactly as `steps` training steps and `evals`
-    forwards without gradient make it, and the scatter once per backward."""
+    forwards without gradient make it, the scatter once per backward, and
+    one inverse neighbour list built per side per step (none for the
+    forwards without gradient)."""
     per_step = PER_STEP_FUSED if fused else PER_STEP
     per_eval = PER_EVAL_FUSED if fused else {"edge_message": 10, "cross_attention": 10}
     for name, *_ in KERNELS:
@@ -458,6 +501,9 @@ def expect_counts(what: str, counts: dict, steps: int, evals: int, fused: bool) 
             f"times for {counts['edge_message_bwd']} backwards")
     require(counts["halo_take_scatter"] == 0,
             f"{what}: the halo path's take scatter launched on a dense path")
+    want = PER_STEP_INVERSE * steps
+    require(counts[INVERSE[2]] == want, f"{what}: {counts[INVERSE[2]]} inverse neighbour "
+                                        f"lists built, expected {want}")
     expect_combines(what, counts)
 
 
@@ -573,7 +619,82 @@ def edge_bwd_case(params, dev, B=10, N=512):
     ga = torch.from_numpy(rng.standard_normal((B, N, 64)).astype(np.float32)).to(dev)
     gx = torch.from_numpy(rng.standard_normal((B, N, 3)).astype(np.float32)).to(dev)
     return dict(shape=f"B={B} N={N} (70-274 valid) K=10 D=64 E=27",
-                args=(src, dst, he, T("nbr"), T("nbr_mask"), kp, ga, gx))
+                args=(src, dst, he, T("nbr"), T("nbr_mask"), kp), grads=(ga, gx))
+
+
+def edge_tile_cases(dev):
+    """The edge kernels at the edges of their tiles of 64 // K nodes: N = 300
+    (not a multiple of 6 nodes), graph 1 all padded (every tile of it has
+    masks 0), graph 2 partly, a source wider than the destinations
+    (Nsrc = 337), at D 64 and 16; random inputs and parameters, masks 0.2
+    of a valid node's edges, random output cotangents."""
+    from equidock_public_tpu_torch.ops.cuda import edge_message as em
+
+    cases = []
+    for D in (64, 16):
+        rng = np.random.default_rng(300 + D)
+        B, N, Nsrc, K, E = 3, 300, 337, 10, 27
+        f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+        src, dst = f(B, Nsrc, 3 + D), f(B, N, 3 + D)
+        src[..., :3] *= 8
+        dst[..., :3] *= 8
+        msk = torch.from_numpy((rng.uniform(size=(B, N, K)) > 0.2).astype(np.float32))
+        msk[0, 250:] = 0
+        msk[1] = 0
+        msk[2, 131:] = 0
+        nbr = torch.from_numpy(rng.integers(0, Nsrc, (B, N, K)).astype(np.int32))
+        he = f(B, N, K, E) * msk[..., None]
+        kp = {k: (f(*s) * 0.3).to(dev) for k, s in em.param_shapes(D, E).items()}
+        cases.append(dict(shape=f"B={B} N={N} (250, 0, 131 valid) Nsrc={Nsrc} K={K} D={D} E={E}",
+                          args=tuple(x.to(dev).contiguous() for x in (src, dst, he, nbr, msk))
+                          + (kp,), grads=(f(B, N, D).to(dev), f(B, N, 3).to(dev))))
+    return cases
+
+
+def check_edge_case(c, slope) -> dict:
+    """Rows 1 and 2 at one case against their plain versions: the forward
+    (EDGE_TOL, its tile flags bit-equal to tile_keep's) and, where the case
+    has cotangents, the backward on those flags (norm-wise) and its d_src
+    scatter (against index_add_); each kernel's launch into guarded outputs,
+    and two launches bit-equal."""
+    from equidock_public_tpu_torch.ops.cuda import edge_message as em
+
+    a, name = c["args"], c["shape"]
+    B, N, K = a[3].shape
+    D, E = a[0].shape[-1] - 3, a[2].shape[-1]
+    tn = em.edge_tile_plan(B, N, D, K)[0]
+    bufs, views = guarded([(B, N, D), (B, N, 3)], a[0].device)
+    kept = torch.full((em.n_tiles(B, N, tn),), 7, dtype=torch.uint8, device=a[0].device)
+    got = em._launch_fwd(*a, slope, True, True, out=views, kept=kept)
+    synced(f"edge_message {name}")
+    require_guards(f"edge_message {name}", bufs)
+    require(torch.equal(kept, em.tile_keep(a[4], tn)),
+            f"edge_message {name}: the tile flags differ from tile_keep's")
+    want = em.edge_message_plain(*a, slope=slope)
+    out = {"shape": name, "max_abs_err": check_close(f"edge_message {name}", got, want, EDGE_TOL)}
+    again = em.edge_message_aggregate(*a, slope=slope)
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            f"edge_message {name}: two launches on the same inputs differ")
+    if "grads" not in c:
+        return out
+    flat = lambda r: [*r[:3], *(r[3][n] for n in em.PARAM_NAMES)]
+    got = em.edge_message_bwd(*a, *c["grads"], slope=slope)
+    synced(f"edge_message_bwd {name}")
+    want = em.edge_message_bwd_plain(*a, *c["grads"], slope=slope)
+    out["bwd"] = check_grads("edge_message_bwd", name, flat(got), flat(want))
+    blocks = em.edge_tile_plan(B, N, D, K)[1]
+    bufs, views = guarded(em.bwd_output_shapes(B, N, K, D, E, blocks), a[0].device)
+    raw = em.edge_message_bwd_kernel(*a, *c["grads"], slope=slope, out=views, kept=kept)
+    synced(f"edge_message_bwd {name}")
+    require_guards(f"edge_message_bwd {name}", bufs)
+    nbr, nsrc = a[3], a[0].shape[1]
+    out["scatter_max_abs_err"] = check_close(
+        f"edge_message scatter {name}", [em.scatter_src(nbr, nsrc, *raw[:2])],
+        [em.scatter_src_plain(nbr, nsrc, *raw[:2])], EDGE_TOL)
+    again = em.edge_message_bwd(*a, *c["grads"], slope=slope)
+    require(all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))),
+            f"edge_message_bwd {name}: two launches on the same inputs differ")
+    return out
 
 
 def nbytes_of(*ts) -> int:
@@ -742,7 +863,8 @@ def plain_versions():
     from equidock_public_tpu_torch.ops.cuda import edge_message as em
 
     saved = (iegmn.edge_message_aggregate, ca.cross_attention_fwd, sf.softmin_field_sums)
-    iegmn.edge_message_aggregate = em.edge_message_plain
+    iegmn.edge_message_aggregate = (lambda *a, inverse=None, **kw:
+                                    em.edge_message_plain(*a, **kw))
     ca.cross_attention_fwd = ca.cross_attention_plain
     sf.softmin_field_sums = sf.softmin_field_sums_plain
     try:
@@ -774,10 +896,12 @@ def small_model_check(dev, batch, tol) -> dict:
             state, m = train_step(create_train_state(params, cfg, dev), batch, cfg)
         runs[name] = dict(ev=ev, grads=grads, m=m, state=state, counts=read_counts())
     k, p = runs["kernels"], runs["plain"]
-    require(sum(p["counts"].values()) == 0, f"the plain run launched kernels: {p['counts']}")
+    require(sum(v for n, v in p["counts"].items() if n != INVERSE[2]) == 0,
+            f"the plain run launched kernels: {p['counts']}")
     layers_sides = cfg.model.iegmn_n_lays * SIDES
     require(k["counts"]["edge_message"] == 3 * layers_sides
-            and k["counts"]["edge_message_bwd"] == 2 * layers_sides,
+            and k["counts"]["edge_message_bwd"] == 2 * layers_sides
+            and k["counts"][INVERSE[2]] == 2 * PER_STEP_INVERSE,
             f"16-wide model: kernel launches {k['counts']}")
     expect_combines("16-wide model", k["counts"])
     err = {}
@@ -1304,13 +1428,14 @@ def check_halo_kernels(exchange, ship, edge, slope) -> dict:
     """Rows 8 and 9 bit-equal to their plain versions and to a second
     launch; the edge kernels at Nsrc != N to their plain versions (forward
     EDGE_TOL, backward norm-wise), the d_src scatter to index_add_, two
-    backward launches bit-equal."""
-    from equidock_public_tpu_torch.ops.cuda import edge_message as em
+    launches of each bit-equal (check_edge_case)."""
     from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
 
     out = {"halo_ring_exchange": [], "halo_ring_ship2": [], "edge_message_nsrc": []}
     for c in exchange:
-        got, again = hr.ring_exchange_kernel(*c["args"]), hr.ring_exchange_kernel(*c["args"])
+        got = hr.ring_exchange_kernel(*c["args"])
+        synced("halo_ring_exchange")
+        again = hr.ring_exchange_kernel(*c["args"])
         want = hr.ring_exchange_plain(*c["args"])
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"halo_ring_exchange {c['shape']}: differs from plain")
@@ -1318,7 +1443,9 @@ def check_halo_kernels(exchange, ship, edge, slope) -> dict:
         c["err"] = max_err([got], [want])
         out["halo_ring_exchange"].append({"shape": c["shape"], "max_abs_err": c["err"]})
     for c in ship:
-        got, again = hr.ring_ship_kernel(*c["args"]), hr.ring_ship_kernel(*c["args"])
+        got = hr.ring_ship_kernel(*c["args"])
+        synced("halo_ring_ship2")
+        again = hr.ring_ship_kernel(*c["args"])
         want = hr.ring_ship_plain(*c["args"])
         torch.cuda.synchronize()
         require(all(torch.equal(g, w) for g, w in zip(got, want)),
@@ -1327,25 +1454,7 @@ def check_halo_kernels(exchange, ship, edge, slope) -> dict:
                 f"halo_ring_ship2 {c['shape']}: two launches differ")
         c["err"] = max_err(got, want)
         out["halo_ring_ship2"].append({"shape": c["shape"], "max_abs_err": c["err"]})
-    flat = lambda r: [*r[:3], *(r[3][n] for n in em.PARAM_NAMES)]
-    for c in edge:
-        a = c["args"]
-        fwd_err = check_close("edge_message " + c["shape"], em.edge_message_aggregate(*a, slope=slope),
-                              em.edge_message_plain(*a, slope=slope), EDGE_TOL)
-        got = em.edge_message_bwd(*a, *c["grads"], slope=slope)
-        want = em.edge_message_bwd_plain(*a, *c["grads"], slope=slope)
-        torch.cuda.synchronize()
-        check = check_grads("edge_message_bwd", c["shape"], flat(got), flat(want))
-        raw = em.edge_message_bwd_kernel(*a, *c["grads"], slope=slope)
-        nbr, nsrc = a[3], a[0].shape[1]
-        scatter_err = check_close("edge_message scatter " + c["shape"],
-                                  [em.scatter_src(nbr, nsrc, *raw[:2])],
-                                  [em.scatter_src_plain(nbr, nsrc, *raw[:2])], EDGE_TOL)
-        again = em.edge_message_bwd(*a, *c["grads"], slope=slope)
-        require(all(torch.equal(x, y) for x, y in zip(flat(got), flat(again))),
-                f"edge_message_bwd {c['shape']}: two launches differ")
-        out["edge_message_nsrc"].append(dict(shape=c["shape"], max_abs_err=fwd_err,
-                                             bwd=check, scatter_max_abs_err=scatter_err))
+    out["edge_message_nsrc"] = [check_edge_case(c, slope) for c in edge]
     return out
 
 
@@ -1442,6 +1551,8 @@ def run_halo(dev, requests, train_golden) -> dict:
                                                     "edge_message", "edge_message_bwd",
                                                     "edge_message_scatter")},
                 halo_take_scatter=takes * TRAIN_STEPS)
+    # the forward's two lists, and one for each take scatter of the backward
+    want[INVERSE[2]] = (PER_STEP_INVERSE + takes) * TRAIN_STEPS
     require(train_counts == want, f"halo train: launches {train_counts}, expected {want}")
     worst_step = check_step_golden("halo train", metrics, state, p0, golden, cfg)
     runs = [step(state0, hb) for _ in range(2)]
@@ -1532,16 +1643,17 @@ def main() -> int:
     params, cfg = load_checkpoint(default_checkpoint(), dev)
     slope = cfg.model.leakyrelu_neg_slope
     e_cases, a_cases = edge_cases(params, dev), attention_cases(dev)
-    edge_err = att_err = 0.0
-    for c in e_cases:
-        got = em.edge_message_aggregate(*c["args"], slope=slope)
-        want = em.edge_message_plain(*c["args"], slope=slope)
-        torch.cuda.synchronize()
-        c["err"] = check_close("edge_message " + c["shape"], got, want, EDGE_TOL)
-        c["out"] = got
-        edge_err = max(edge_err, c["err"])
+    eb_case, e16, e_tiles = edge_bwd_case(params, dev), edge16_case(dev), edge_tile_cases(dev)
+    # rows 1 and 2: the serving shapes (forward), the training batch at D 64
+    # and 16, the edges of the tiles
+    edge_checks = [check_edge_case(c, slope) for c in e_cases + [eb_case, e16] + e_tiles]
+    edge_err = max(c["max_abs_err"] for c in edge_checks[:len(e_cases)])
+    for c in e_cases + [eb_case, e16]:
+        c["out"] = em.edge_message_aggregate(*c["args"], slope=slope)
+    att_err = 0.0
     for c in a_cases:
         got = ca.cross_attention_fwd(*c["args"])
+        synced("cross_attention")
         want = ca.cross_attention_plain(*c["args"])
         torch.cuda.synchronize()
         c["err"] = check_close("cross_attention " + c["shape"], got, want, ATT_TOL)
@@ -1551,36 +1663,10 @@ def main() -> int:
                 f"cross_attention {c['shape']}: two launches on the same inputs differ")
         c["out"] = got
         att_err = max(att_err, c["err"])
-    eb_case, ab_cases = edge_bwd_case(params, dev), attention_bwd_cases(dev)
-    got = em.edge_message_bwd(*eb_case["args"], slope=slope)
-    want = em.edge_message_bwd_plain(*eb_case["args"], slope=slope)
-    torch.cuda.synchronize()
-    flat = lambda r: [*r[:3], *(r[3][n] for n in em.PARAM_NAMES)]
-    eb_case["check"] = check_grads("edge_message_bwd", eb_case["shape"], flat(got), flat(want))
-    # the d_src scatter against its plain version (index_add_), and two
-    # launches of the backward on the same inputs give the same bits
-    raw = em.edge_message_bwd_kernel(*eb_case["args"], slope=slope)
-    nbr, nsrc = eb_case["args"][3], eb_case["args"][0].shape[1]
-    scatter_err = check_close("edge_message scatter", [em.scatter_src(nbr, nsrc, *raw[:2])],
-                              [em.scatter_src_plain(nbr, nsrc, *raw[:2])], EDGE_TOL)
-    again = em.edge_message_bwd(*eb_case["args"], slope=slope)
-    require(all(torch.equal(a, b) for a, b in zip(flat(got), flat(again))),
-            "edge_message_bwd: two launches on the same inputs differ")
-    # C1: the edge kernels at D = 16
-    e16 = edge16_case(dev)
-    got16 = em.edge_message_aggregate(*e16["args"], slope=slope)
-    want16 = em.edge_message_plain(*e16["args"], slope=slope)
-    torch.cuda.synchronize()
-    e16["err"] = check_close("edge_message " + e16["shape"], got16, want16, EDGE_TOL)
-    got16 = em.edge_message_bwd(*e16["args"], *e16["grads"], slope=slope)
-    want16 = em.edge_message_bwd_plain(*e16["args"], *e16["grads"], slope=slope)
-    torch.cuda.synchronize()
-    e16["check"] = check_grads("edge_message_bwd", e16["shape"], flat(got16), flat(want16))
-    again = em.edge_message_bwd(*e16["args"], *e16["grads"], slope=slope)
-    require(all(torch.equal(a, b) for a, b in zip(flat(got16), flat(again))),
-            "edge_message_bwd D=16: two launches on the same inputs differ")
+    ab_cases = attention_bwd_cases(dev)
     for c in ab_cases:
         got = ca.cross_attention_bwd(*c["args"])
+        synced("cross_attention_dq, cross_attention_dkv")
         want = ca.cross_attention_bwd_plain(*c["args"][:5], c["args"][7])
         torch.cuda.synchronize()
         c["check_dq"] = check_grads("cross_attention_dq", c["shape"], got[:1], want[:1])
@@ -1594,6 +1680,7 @@ def main() -> int:
         q, k, v, qt, kt, o, lse, do = c["args"]
         delta = (do * o).sum(-1).contiguous()
         got = ca.cross_attention_dq(q, k, v, qt, kt, lse, do, delta)
+        synced("cross_attention_dq")
         want = ca.cross_attention_bwd_plain(q, k, v, qt, kt, do)[0]
         torch.cuda.synchronize()
         c["check"] = check_grads("cross_attention_dq", c["shape"], [got], [want])
@@ -1603,8 +1690,9 @@ def main() -> int:
     combines = {}
     for _, _, name, _ in COMBINES:
         shape, parts, kern, plain, library = combine_case(name, ca, a_cases[1], ab_cases[0])
-        got, want = kern(*parts), plain(*parts)
-        torch.cuda.synchronize()
+        got = kern(*parts)
+        synced(name)
+        want = plain(*parts)
         as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
         err = check_close(name, as_tuple(got), as_tuple(want), ATT_TOL)
         combines[name] = dict(shape=shape, parts=parts, kern=kern, plain=plain,
@@ -1614,12 +1702,12 @@ def main() -> int:
     for c in s_cases:
         x, a, am = c["args"]
         got = ksf.softmin_field_fwd(x, a, am, SIGMA)
+        synced("softmin_field")
         want = sf.softmin_field_sums_plain(x, a, am, SIGMA)
-        torch.cuda.synchronize()
         c["err"] = check_close("softmin_field " + c["shape"], [got], [want], SOFTMIN_TOL)
         got = ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA)
+        synced("softmin_field_bwd")
         want = sf.softmin_field_bwd_plain(x, a, am, c["c"], SIGMA)
-        torch.cuda.synchronize()
         c["check"] = check_grads("softmin_field_bwd", c["shape"], got, want)
         again = ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA)
         require(all(torch.equal(g, h) for g, h in zip(got, again)),
@@ -1630,19 +1718,16 @@ def main() -> int:
     h_exchange, h_ship, h_edge = halo_kernel_cases(params, requests, train_golden[3], dev)
     halo_checks = check_halo_kernels(h_exchange, h_ship, h_edge, slope)
     emit("kernels", **halo_checks,
-         edge_message=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in e_cases + [e16]],
+         edge_message=edge_checks,
          cross_attention=[{"shape": c["shape"], "max_abs_err": c["err"], **c["empty"]}
                           for c in a_cases],
-         edge_message_bwd=[{"shape": eb_case["shape"], **eb_case["check"],
-                            "scatter_max_abs_err": scatter_err},
-                           {"shape": e16["shape"], **e16["check"]}],
          cross_attention_dq=[{"shape": c["shape"], **c["check_dq"]} for c in ab_cases]
          + [{"shape": c["shape"], **c["check"]} for c in dq_cases],
          cross_attention_dkv=[{"shape": c["shape"], **c["check_dkv"]} for c in ab_cases],
          softmin_field=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in s_cases],
          softmin_field_bwd=[{"shape": c["shape"], **c["check"]} for c in s_cases],
-         bit_equal_backwards=["edge_message_bwd D=64", "edge_message_bwd D=16",
-                              "edge_message_bwd Nsrc != N (2 shapes)",
+         bit_equal=[f"edge_message and edge_message_bwd ({len(edge_checks)} and "
+                    f"{sum('bwd' in c for c in edge_checks)} shapes, Nsrc != N included)",
                               "softmin_field_bwd (3 shapes)",
                               "cross_attention_dq and _dkv (2 shapes)",
                               f"cross_attention_dq ({len(dq_cases)} more shapes)",
@@ -1650,6 +1735,8 @@ def main() -> int:
          combines={n: {"shape": c["shape"], "max_abs_err": c["err"]}
                    for n, c in combines.items()},
          bit_equal_to_plain=["halo_ring_exchange", "halo_ring_ship2"],
+         guarded_outputs=f"edge_message, edge_message_bwd: {GUARD} NaN floats before and "
+                         "after each output, untouched",
          tolerance={"edge_message": EDGE_TOL, "cross_attention": ATT_TOL,
                     "softmin_field": SOFTMIN_TOL, "backward_relative_norm": BWD_REL_TOL})
 
@@ -1706,6 +1793,9 @@ def main() -> int:
             f"edge_message launched {edge_launches} times for {served} forwards")
     require(att_launches == per_fwd * served,
             f"cross_attention launched {att_launches} times for {served} forwards")
+    require(serve_launches[INVERSE[2]] == 0,
+            f"{serve_launches[INVERSE[2]]} inverse neighbour lists built for {served} "
+            "forwards without gradient")
     expect_combines("serve", serve_launches)
     emit("serve", warmed=n_warm, warmup_seconds=round(warm_s, 3), requests=served,
          launches=serve_launches,
@@ -1730,8 +1820,7 @@ def main() -> int:
 
     # -- times -----------------------------------------------------------------
     rows = []
-    e16["out"] = em.edge_message_aggregate(*e16["args"], slope=slope)
-    for c in e_cases + [e16]:
+    for c in e_cases + [eb_case, e16]:      # row 1 also at the step's shape
         a = c["args"]
         nbytes, flops = edge_cost(*a, c["out"])
         b_ms, b_by = bound(nbytes, flops)
@@ -1755,18 +1844,26 @@ def main() -> int:
                          library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                              q, k, v, attn_mask=add_mask, scale=1.0))))
     for c in (eb_case, e16):
-        a = c["args"] + c.get("grads", ())
+        a = c["args"] + c["grads"]
         nbytes, flops = edge_bwd_cost(*a)
         b_ms, b_by = bound(nbytes, flops)
-        # the whole backward as the path runs it: kernel, inverse-neighbour
-        # sort, d_src scatter kernel, sum of the partials
-        kern = lambda a=a: em.edge_message_bwd(*a, slope=slope)
+        # the whole backward as the path runs it: kernel, d_src scatter
+        # kernel through the side's inverse list (built once per forward, 2
+        # a step, timed apart), sum of the partials
+        nbr, nsrc = a[3], a[0].shape[1]
+        inv = em.inverse_neighbors(nbr, nsrc)
+        kern = lambda a=a, inv=inv: em.edge_message_bwd(*a, slope=slope, inverse=inv)
+        raw = em.edge_message_bwd_kernel(*a, slope=slope)
         leaves = [x.detach().requires_grad_(True) for x in (*a[:3], *a[5].values())]
         plain_out = em.edge_message_plain(*leaves[:3], a[3], a[4],
                                           dict(zip(em.PARAM_NAMES, leaves[3:])), slope)
         rows.append(dict(kernel="edge_message_bwd", shape=c["shape"], ms=device_ms(kern),
                          kernel_only_ms=device_ms(
                              lambda a=a: em.edge_message_bwd_kernel(*a, slope=slope)),
+                         scatter_ms=device_ms(lambda raw=raw, nbr=nbr, nsrc=nsrc, inv=inv:
+                                              em.launch_scatter(nbr, nsrc, *raw[:2], inv)),
+                         inverse_build_ms=device_ms(
+                             lambda nbr=nbr, nsrc=nsrc: em.inverse_neighbors(nbr, nsrc)),
                          call_ms=call_ms(kern), plain_ms=backward_ms(plain_out, leaves, a[6:]),
                          bound_ms=b_ms, bound_by=b_by, library_ms=None))
     for c in ab_cases:
@@ -1854,7 +1951,9 @@ def main() -> int:
                                                  reps=3),
          timing="ms, plain_ms, library_ms: device time per call from CUDA-graph "
                 "replays; call_ms: eager back-to-back calls, host overhead included; "
-                "edge backward rows: plain_ms is the whole backward through an autograd "
+                "edge backward rows: ms is kernel + scatter (through a prebuilt inverse "
+                "list) + partial sums, inverse_build_ms the list's build (2 a step); "
+                "plain_ms is the whole backward through an autograd "
                 "graph built once, over back-to-back eager calls between CUDA events; "
                 "attention backward rows (dq, dkv): plain_ms and library_ms are the "
                 "whole backward (dq, dk and dv) as device time, forward and backward "
@@ -1875,7 +1974,7 @@ def main() -> int:
     main = {"edge_message": (row("edge_message", e_cases[1]["shape"]), edge_err),
             "cross_attention": (row("cross_attention", a_cases[1]["shape"]), att_err),
             "edge_message_bwd": (row("edge_message_bwd", eb_case["shape"]),
-                                 eb_case["check"]["max_abs_err"]),
+                                 edge_checks[len(e_cases)]["bwd"]["max_abs_err"]),
             "softmin_field": (row("softmin_field", s_cases[0]["shape"]),
                               max(c["err"] for c in s_cases)),
             "softmin_field_bwd": (row("softmin_field_bwd", s_cases[0]["shape"]),

@@ -27,7 +27,7 @@ from ..config import ModelConfig
 from ..graph import PairBatch, ProteinBatch
 from ..ops.attention import cross_attention
 from ..ops.cuda.cross_attention import cross_attention_fused
-from ..ops.cuda.edge_message import edge_message_aggregate
+from ..ops.cuda.edge_message import edge_message_aggregate, inverse_neighbors
 from ..ops.kabsch import apply_rigid, rigid_fit
 from ..ops.segment import masked_mean_over_nodes
 from .layers import Params, embedding, graph_norm, layer_norm, linear, nonlin
@@ -98,20 +98,21 @@ def edge_kernel_inputs(p: Params, x: torch.Tensor, h: torch.Tensor, he: torch.Te
 
 
 def _edge_step(p: Params, cfg: ModelConfig, side: ProteinBatch,
-               x: torch.Tensor, h: torch.Tensor, he: torch.Tensor, src=None):
-    """Per-edge messages + masked means over K for one side."""
+               x: torch.Tensor, h: torch.Tensor, he: torch.Tensor, src=None, inverse=None):
+    """Per-edge messages + masked means over K for one side; `inverse`: the
+    side's inverse neighbour list, for the backward's scatter."""
     src, dst, kparams = edge_kernel_inputs(p, x, h, he, src)
     return edge_message_aggregate(
         src, dst, he, side.nbr, side.nbr_mask, kparams,
         slope=cfg.leakyrelu_neg_slope, use_ln=cfg.layer_norm == "LN",
-        use_dist=cfg.use_dist_in_layers)
+        use_dist=cfg.use_dist_in_layers, inverse=inverse)
 
 
 def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool,
                         lig: ProteinBatch, rec: ProteinBatch,
                         x_l, h_l, x_r, h_r, orig_h_l, orig_h_r, he_l, he_r,
                         orig_x_l, orig_x_r, src_l=None, src_r=None,
-                        attend: Optional[Callable] = None):
+                        attend: Optional[Callable] = None, inv_l=None, inv_r=None):
     """One IEGMN layer on both proteins. Returns (x_l, h_l, x_r, h_r).
 
     Node-sharded (halo) mode, used by `parallel/halo.py` so that one layer
@@ -122,9 +123,13 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
       * `attend`: a cross-attention callable with the signature of
         `ops.attention.cross_attention` (the halo path passes the ring
         attention over the shards' K/V chunks); it replaces the attention
-        kernel and the fine-tune stage's attention."""
-    aggr_l, xupd_l = _edge_step(p, cfg, lig, x_l, h_l, he_l, src_l)
-    aggr_r, xupd_r = _edge_step(p, cfg, rec, x_r, h_r, he_r, src_r)
+        kernel and the fine-tune stage's attention.
+    `inv_l` / `inv_r`: each side's inverse neighbour list
+    (`inverse_neighbors(side.nbr, rows of the source)`), built once per
+    forward that records gradients by the caller and shared by its layers;
+    None builds one in each backward."""
+    aggr_l, xupd_l = _edge_step(p, cfg, lig, x_l, h_l, he_l, src_l, inv_l)
+    aggr_r, xupd_r = _edge_step(p, cfg, rec, x_r, h_r, he_r, src_r, inv_r)
 
     def qk(h, which):
         return nonlin(linear(p[which], h), cfg.nonlin, cfg.leakyrelu_neg_slope)
@@ -211,15 +216,21 @@ def trunk_inputs(p: Params, cfg: ModelConfig, lig: ProteinBatch, rec: ProteinBat
 def iegmn_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
                   x_l_in: torch.Tensor, n_lays: int, fine_tune: bool):
     """IEGMN trunk + keypoint head. Returns (R (B, 3, 3), t (B, 1, 3),
-    keypts_lig (B, H, 3), keypts_rec (B, H, 3))."""
+    keypts_lig (B, H, 3), keypts_rec (B, H, 3)). When the forward records
+    gradients, each side's inverse neighbour list (read only by the
+    backward's scatter) is built once here and shared by every layer."""
     lig, rec = batch.lig, batch.rec
     x_l, x_r = x_l_in, rec.x
     h_l, h_r, he_l, he_r = trunk_inputs(p, cfg, lig, rec)
     orig_h_l, orig_h_r = h_l, h_r
+    inv_l = inv_r = None
+    if torch.is_grad_enabled():
+        inv_l = inverse_neighbors(lig.nbr, lig.nbr.shape[1])
+        inv_r = inverse_neighbors(rec.nbr, rec.nbr.shape[1])
     for i in range(n_lays):
         x_l, h_l, x_r, h_r = iegmn_layer_forward(
             layer_params(cfg, p, i), cfg, fine_tune, i > 0, lig, rec, x_l, h_l, x_r, h_r,
-            orig_h_l, orig_h_r, he_l, he_r, x_l_in, rec.x)
+            orig_h_l, orig_h_r, he_l, he_r, x_l_in, rec.x, inv_l=inv_l, inv_r=inv_r)
     return keypoint_head(p, cfg, h_l, x_l, h_r, x_r, lig.node_mask, rec.node_mask)
 
 

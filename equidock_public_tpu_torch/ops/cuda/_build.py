@@ -31,7 +31,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("edge_message.cu", "edge_message_bwd.cu", "cross_attention.cu",
            "cross_attention_bwd.cu", "softmin_field.cu", "halo_ring.cu")
-HEADERS = ("attention_tiles.cuh",)    # included by sources; part of the hash
+HEADERS = ("attention_tiles.cuh", "edge_tiles.cuh")   # included by sources; part of the hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libequidock_kernels.so"

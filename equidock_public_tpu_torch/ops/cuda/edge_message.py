@@ -12,8 +12,16 @@ recomputes the forward from the saved inputs and gives every cotangent; a
 second kernel sums the per-edge cotangents onto the src rows in a fixed
 order (the transpose of the gather), and a sum reduces the per-block
 parameter partials, as the JAX package's `_fused_bwd_call` does. Both are
-bit-reproducible from run to run. See the kernels' sources for their design
-and bound.
+bit-reproducible from run to run. Both kernels work on tiles of whole
+destination nodes (`edge_tile_plan`); see `csrc/edge_tiles.cuh` and the
+kernels' sources for their design and bound.
+
+The scatter reads the inverse neighbour list (`inverse_neighbors`: a stable
+sort of the flat src rows). `nbr` is the same for every layer of a side, so
+the model builds the list once per side per forward that records gradients
+and passes it to `edge_message_aggregate`, which keeps it for the backward;
+a backward given none builds its own. A forward without gradients builds
+none: nothing would read it.
 
 Inputs (the JAX package's fused-kernel layout):
     src (B, Nsrc, 3+D)  [x | h @ W_a] rows the neighbor table indexes
@@ -28,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -41,14 +50,20 @@ N_RBF = len(RBF_SIGMAS)
 # The D the kernels are built for: the paper models' hidden width and the
 # small DB5 models'
 KERNEL_WIDTHS = (16, 64)
-MAX_EDGE_FEATS = 32  # largest E the backward kernel takes (the models use 27)
-BLOCK_THREADS = 256  # threads per block of both kernels: 256 / D nodes at a time
-BWD_MAX_BLOCKS = 264  # two blocks per SM of an H100 (132 SMs)
+MAX_EDGE_FEATS = 32  # largest E the kernels take (the models use 27)
+TILE_ROWS = 64       # edge rows of a kernel tile: the K in-edges of 64 // K nodes
+SMS = 132            # streaming multiprocessors of an H100 SXM
+FWD_MAX_BLOCKS = 1024
+# One backward block an SM (184 KB of shared memory at D = 64; at D = 16 one
+# an SM also beat two to four run in waves), each walking its share of the
+# kept tiles and writing one set of parameter partials.
+BWD_MAX_BLOCKS = SMS
 
 # Launches of each CUDA kernel in this process (plain-version calls excluded).
 launches = 0          # forward
 bwd_launches = 0      # backward
 scatter_launches = 0  # the backward's d_src sum, one per backward
+inverse_builds = 0    # inverse neighbour lists built (`inverse_neighbors`), any device
 
 
 def param_shapes(D: int, E: int) -> Dict[str, Tuple[int, ...]]:
@@ -111,10 +126,10 @@ def _kernel_fns():
     lib = load_library()
     fwd, bwd = lib.equidock_edge_message_fwd, lib.equidock_edge_message_bwd
     scatter = lib.equidock_edge_scatter_src
-    fwd.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    bwd.argtypes = ([ctypes.c_void_p] * 32 + [ctypes.c_int] * 6
-                    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fwd.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+                    + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    bwd.argtypes = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 6
+                    + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     scatter.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fwd.restype = bwd.restype = scatter.restype = ctypes.c_int
     return fwd, bwd, scatter
@@ -145,38 +160,87 @@ def _param_ptrs(params):
     return [params[n].data_ptr() for n in PARAM_NAMES]
 
 
-def _launch_fwd(src, dst, he, nbr, msk, params, slope, use_ln, use_dist):
+def edge_tile_plan(B: int, N: int, D: int, K: int, backward: bool = True,
+                   tile_nodes: int = 0) -> Tuple[int, int]:
+    """(destination nodes a tile, grid blocks) of the edge kernels at hidden
+    width D (the plan is the same at both widths): tiles of TILE_ROWS // K
+    whole nodes of one graph (or `tile_nodes`), B * ceil(N / nodes) of them.
+    The forward deals all tiles to at most FWD_MAX_BLOCKS blocks in turn
+    (a block a tile at the models' shapes); the backward deals the tiles
+    that keep an edge, and apart the others, to at most BWD_MAX_BLOCKS
+    blocks in turn, each writing one set of parameter partials."""
+    tn = tile_nodes or TILE_ROWS // K
+    if not 0 < tn * K <= TILE_ROWS:
+        raise ValueError(f"edge kernels: {tn} nodes of K={K} edges exceed a tile of "
+                         f"{TILE_ROWS} rows")
+    cap = BWD_MAX_BLOCKS if backward else FWD_MAX_BLOCKS
+    return tn, min(n_tiles(B, N, tn), cap)
+
+
+def n_tiles(B: int, N: int, tile_nodes: int) -> int:
+    """Tiles of tile_nodes destination nodes over B graphs of N nodes."""
+    return B * -(-N // tile_nodes)
+
+
+def _outputs(shapes, dev, out, what: str):
+    """Fresh outputs of `shapes`, or the caller's `out` after checking them."""
+    if out is None:
+        return [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
+    if len(out) != len(shapes):
+        raise ValueError(f"{what}: {len(out)} outputs given, {len(shapes)} expected")
+    for i, (t, shape) in enumerate(zip(out, shapes)):
+        check_tensor(t, f"{what} output {i}", shape, torch.float32, dev)
+    return list(out)
+
+
+def tile_keep(msk, tile_nodes: int):
+    """(B * ceil(N / tile_nodes),) uint8: 1 for each tile of tile_nodes
+    destination nodes with an edge of m != 0. Plain version of the flags the
+    forward kernel writes, which the backward kernel deals its tiles by."""
+    B, N, K = msk.shape
+    tiles = n_tiles(B, N, tile_nodes)
+    nz = F.pad((msk != 0).to(torch.uint8), (0, 0, 0, tiles // B * tile_nodes - N))
+    return nz.reshape(tiles, tile_nodes * K).amax(dim=1).contiguous()
+
+
+def _launch_fwd(src, dst, he, nbr, msk, params, slope, use_ln, use_dist, tile_nodes=0,
+                out=None, kept=None):
+    """The forward kernel; `out`: (aggr, xupd) to write into, else fresh;
+    `kept`: a (tiles,) uint8 tensor the kernel fills with `tile_keep`'s
+    flags, or None."""
     B, Nsrc, N, K, D, E = _check_inputs(src, dst, he, nbr, msk, params)
+    tn, blocks = edge_tile_plan(B, N, D, K, backward=False, tile_nodes=tile_nodes)
     dev = src.device
-    aggr = torch.empty((B, N, D), dtype=torch.float32, device=dev)
-    xupd = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
+    aggr, xupd = _outputs(((B, N, D), (B, N, 3)), dev, out, "edge_message")
+    if kept is not None:
+        check_tensor(kept, "kept", (n_tiles(B, N, tn),), torch.uint8, dev)
     with torch.cuda.device(dev):
         err = _kernel_fns()[0](
             src.data_ptr(), dst.data_ptr(), he.data_ptr(), nbr.data_ptr(),
             msk.data_ptr(), *_param_ptrs(params), aggr.data_ptr(), xupd.data_ptr(),
-            B, Nsrc, N, K, D, E, float(slope), int(use_ln), int(use_dist),
-            torch.cuda.current_stream(dev).cuda_stream)
+            None if kept is None else kept.data_ptr(), B, Nsrc, N, K, D, E, float(slope),
+            int(use_ln), int(use_dist), tn, blocks, torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "edge_message")
     global launches
     launches += 1
     return aggr, xupd
 
 
-def bwd_blocks(B: int, N: int, D: int = 64) -> int:
-    """Grid size of the backward kernel: one block per 256 / D nodes, at
-    most BWD_MAX_BLOCKS (each block writes one set of partials)."""
-    return min(-(-B * N // (BLOCK_THREADS // D)), BWD_MAX_BLOCKS)
-
-
 def inverse_neighbors(nbr, Nsrc: int):
     """(order, offsets), int32: the flat edge indices (b, i, k) sorted
     stably by their src row b * Nsrc + nbr[b, i, k], and where each of the
     B * Nsrc rows starts in `order` (offsets[-1] = B * N * K). A stable sort
-    and a binary search: both deterministic, no atomics."""
-    B = nbr.shape[0]
-    rows = (nbr.long() + Nsrc * torch.arange(B, device=nbr.device)[:, None, None]).reshape(-1)
+    and a binary search: both deterministic, no atomics. Counted in
+    `inverse_builds` on every device."""
+    global inverse_builds
+    inverse_builds += 1
+    B, dev = nbr.shape[0], nbr.device
+    # 32-bit keys (B * Nsrc rows fit): half the radix passes of 64-bit ones
+    rows = (nbr.to(torch.int32)
+            + Nsrc * torch.arange(B, device=dev, dtype=torch.int32)[:, None, None]).reshape(-1)
     sorted_rows, order = torch.sort(rows, stable=True)
-    offsets = torch.searchsorted(sorted_rows, torch.arange(B * Nsrc + 1, device=nbr.device))
+    offsets = torch.searchsorted(sorted_rows,
+                                 torch.arange(B * Nsrc + 1, device=dev, dtype=torch.int32))
     return order.to(torch.int32), offsets.to(torch.int32)
 
 
@@ -192,12 +256,23 @@ def scatter_src_plain(nbr, Nsrc: int, dgx, dgh):
     return d_src.reshape(B, Nsrc, C)
 
 
-def launch_scatter(nbr, Nsrc: int, dgx, dgh):
+def _check_inverse(inverse, nbr, Nsrc: int):
+    order, offsets = inverse
+    dev = nbr.device
+    check_tensor(order, "inverse order", (nbr.numel(),), torch.int32, dev)
+    check_tensor(offsets, "inverse offsets", (nbr.shape[0] * Nsrc + 1,), torch.int32, dev)
+    return order, offsets
+
+
+def launch_scatter(nbr, Nsrc: int, dgx, dgh, inverse=None):
     """The scatter kernel on contiguous CUDA operands, not counted (each
     caller counts its own launches): d_src (B, Nsrc, 3 + D) with each row's
-    edges summed in ascending edge order, the same bits from run to run."""
+    edges summed in ascending edge order, the same bits from run to run.
+    `inverse`: nbr's (order, offsets) from `inverse_neighbors`, built here
+    when None."""
     B, D = nbr.shape[0], dgh.shape[-1]
-    order, offsets = inverse_neighbors(nbr, Nsrc)
+    order, offsets = (inverse_neighbors(nbr, Nsrc) if inverse is None
+                      else _check_inverse(inverse, nbr, Nsrc))
     d_src = torch.empty((B, Nsrc, 3 + D), dtype=torch.float32, device=dgh.device)
     with torch.cuda.device(dgh.device):
         err = _kernel_fns()[2](order.data_ptr(), offsets.data_ptr(), dgx.data_ptr(),
@@ -207,104 +282,145 @@ def launch_scatter(nbr, Nsrc: int, dgx, dgh):
     return d_src
 
 
-def scatter_src(nbr, Nsrc: int, dgx, dgh):
+def scatter_src(nbr, Nsrc: int, dgx, dgh, inverse=None):
     """d_src (B, Nsrc, 3 + D): the per-edge cotangents [dgx | dgh] summed
     onto their src rows. CUDA tensors launch the scatter kernel, which sums
-    each row's edges in ascending edge order, so the sums are the same from
-    run to run; CPU tensors take the plain version."""
+    each row's edges in ascending edge order (through `inverse`, or a list
+    built here), so the sums are the same from run to run; CPU tensors take
+    the plain version."""
     if dgh.device.type == "cpu":
         return scatter_src_plain(nbr, Nsrc, dgx, dgh)
-    d_src = launch_scatter(nbr, Nsrc, dgx, dgh)
+    d_src = launch_scatter(nbr, Nsrc, dgx, dgh, inverse)
     global scatter_launches
     scatter_launches += 1
     return d_src
 
 
-def assemble_bwd(nbr, Nsrc: int, dgx, dgh, dhe, ddx, ddh, partials: Dict[str, torch.Tensor]):
+def partial_layout(D: int, E: int) -> Dict[str, Tuple[int, int]]:
+    """(offset, size) of each parameter's flat gradient in a row of the
+    backward kernel's partials, in PARAM_NAMES order (as the kernel writes
+    them)."""
+    out, o = {}, 0
+    for n in PARAM_NAMES:
+        size = math.prod(param_shapes(D, E)[n])
+        out[n] = (o, size)
+        o += size
+    return out
+
+
+def assemble_bwd(nbr, Nsrc: int, dgx, dgh, dhe, d_dst, part, inverse=None):
     """The backward kernel's outputs -> (d_src, d_dst, d_he, d_params): the
     per-edge cotangents [dgx | dgh] go onto their src rows through
     `scatter_src` (the transpose of the gather), and the per-block parameter
-    partials (blocks, *shape) are summed, as the JAX package does outside its
-    kernel. Every sum runs in a fixed order, so all of it is bit-reproducible
-    from run to run."""
+    partials (blocks, partial floats) are summed over the blocks in one
+    reduction, as the JAX package sums its partials outside its kernel. Every
+    sum runs in a fixed order, so all of it is bit-reproducible from run to
+    run."""
     B, N, K = nbr.shape
-    shapes = param_shapes(dgh.shape[-1], dhe.shape[-1])
-    d_params = {n: partials[n].sum(dim=0).reshape(shapes[n]) for n in PARAM_NAMES}
-    return (scatter_src(nbr, Nsrc, dgx, dgh), torch.cat([ddx, ddh], dim=-1),
-            dhe.reshape(B, N, K, dhe.shape[-1]), d_params)
+    D, E = dgh.shape[-1], dhe.shape[-1]
+    total = part.sum(dim=0)
+    d_params = {n: total[o:o + size].reshape(param_shapes(D, E)[n])
+                for n, (o, size) in partial_layout(D, E).items()}
+    return (scatter_src(nbr, Nsrc, dgx, dgh, inverse), d_dst,
+            dhe.reshape(B, N, K, E), d_params)
+
+
+def bwd_output_shapes(B: int, N: int, K: int, D: int, E: int, blocks: int):
+    """Shapes of the backward kernel's outputs: dgx, dgh, dhe, d_dst and the
+    per-block partials (a row of `partial_layout` a block)."""
+    floats = sum(size for _, size in partial_layout(D, E).values())
+    return [(B, N * K, 3), (B, N * K, D), (B, N * K, E), (B, N, 3 + D), (blocks, floats)]
 
 
 def edge_message_bwd_kernel(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
-                            slope: float = 0.01, use_ln: bool = True, use_dist: bool = True):
+                            slope: float = 0.01, use_ln: bool = True, use_dist: bool = True,
+                            tile_nodes: int = 0, out=None, kept=None):
     """Launch the backward kernel on CUDA operands; its raw outputs
-    (dgx, dgh, dhe, ddx, ddh, per-block partials by parameter name)."""
+    (dgx, dgh, dhe, d_dst, per-block partials (blocks, floats)).
+    `out`: tensors of `bwd_output_shapes` to write into, else fresh; `kept`:
+    the forward's tile flags, else `tile_keep`'s."""
     B, Nsrc, N, K, D, E = _check_inputs(src, dst, he, nbr, msk, params)
     dev, f32 = src.device, torch.float32
     check_tensor(g_aggr, "g_aggr", (B, N, D), f32, dev)
     check_tensor(g_xupd, "g_xupd", (B, N, 3), f32, dev)
-    blocks = bwd_blocks(B, N, D)
-    new = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
-    dgx, dgh, dhe = new(B, N * K, 3), new(B, N * K, D), new(B, N * K, E)
-    ddx, ddh = new(B, N, 3), new(B, N, D)
-    partials = {n: new(blocks, *s) for n, s in param_shapes(D, E).items()}
-    partials["W2c"] = new(blocks, D)
-    partials["b2c"] = new(blocks)
+    tn, blocks = edge_tile_plan(B, N, D, K, tile_nodes=tile_nodes)
+    if kept is None:
+        kept = tile_keep(msk, tn)
+    check_tensor(kept, "kept", (n_tiles(B, N, tn),), torch.uint8, dev)
+    outs = _outputs(bwd_output_shapes(B, N, K, D, E, blocks), dev, out, "edge_message bwd")
     with torch.cuda.device(dev):
         err = _kernel_fns()[1](
             src.data_ptr(), dst.data_ptr(), he.data_ptr(), nbr.data_ptr(),
             msk.data_ptr(), *_param_ptrs(params), g_aggr.data_ptr(), g_xupd.data_ptr(),
-            dgx.data_ptr(), dgh.data_ptr(), dhe.data_ptr(), ddx.data_ptr(), ddh.data_ptr(),
-            *_param_ptrs(partials), B, Nsrc, N, K, D, E, float(slope), int(use_ln),
-            int(use_dist), blocks, torch.cuda.current_stream(dev).cuda_stream)
+            kept.data_ptr(), *(t.data_ptr() for t in outs), B, Nsrc, N, K, D, E,
+            float(slope), int(use_ln), int(use_dist), blocks, tn,
+            torch.cuda.current_stream(dev).cuda_stream)
     check_launch(err, "edge_message bwd")
     global bwd_launches
     bwd_launches += 1
-    return dgx, dgh, dhe, ddx, ddh, partials
+    return tuple(outs)
 
 
 def edge_message_bwd(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
-                     slope: float = 0.01, use_ln: bool = True, use_dist: bool = True):
+                     slope: float = 0.01, use_ln: bool = True, use_dist: bool = True,
+                     inverse=None, kept=None):
     """(d_src, d_dst, d_he, d_params) of the forward for the cotangents
     g_aggr (B, N, D) and g_xupd (B, N, 3). CPU tensors take the plain
-    version; CUDA tensors launch the backward kernel or raise."""
+    version (and ignore `inverse` and `kept`); CUDA tensors launch the
+    backward kernel (its tiles dealt by `kept`, the forward's tile flags, or
+    `tile_keep`'s) and the scatter, through `inverse` (nbr's inverse
+    neighbour list) or one built here, or raise."""
     if src.device.type == "cpu":
         return edge_message_bwd_plain(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
                                       slope, use_ln, use_dist)
     out = edge_message_bwd_kernel(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
-                                  slope, use_ln, use_dist)
-    return assemble_bwd(nbr, src.shape[1], *out)
+                                  slope, use_ln, use_dist, kept=kept)
+    return assemble_bwd(nbr, src.shape[1], *out, inverse=inverse)
 
 
 class _EdgeMessage(torch.autograd.Function):
     """Forward kernel; backward through the backward kernel, which recomputes
-    the forward from the saved inputs (nothing per edge is kept)."""
+    the forward from the saved inputs (nothing per edge is kept) on the tiles
+    the forward flagged, and the scatter through the inverse neighbour list
+    given to the forward."""
 
     @staticmethod
-    def forward(ctx, src, dst, he, nbr, msk, slope, use_ln, use_dist, *pvals):
+    def forward(ctx, src, dst, he, nbr, msk, order, offsets, slope, use_ln, use_dist,
+                *pvals):
         params = dict(zip(PARAM_NAMES, pvals))
-        ctx.save_for_backward(src, dst, he, nbr, msk, *pvals)
+        B, N, K = nbr.shape
+        tn = edge_tile_plan(B, N, src.shape[-1] - 3, K)[0]
+        kept = torch.empty(n_tiles(B, N, tn), dtype=torch.uint8, device=src.device)
+        out = _launch_fwd(src, dst, he, nbr, msk, params, slope, use_ln, use_dist, kept=kept)
+        ctx.save_for_backward(src, dst, he, nbr, msk, order, offsets, kept, *pvals)
         ctx.options = (slope, use_ln, use_dist)
-        return _launch_fwd(src, dst, he, nbr, msk, params, slope, use_ln, use_dist)
+        return out
 
     @staticmethod
     def backward(ctx, g_aggr, g_xupd):
-        src, dst, he, nbr, msk, *pvals = ctx.saved_tensors
+        src, dst, he, nbr, msk, order, offsets, kept, *pvals = ctx.saved_tensors
         d_src, d_dst, d_he, dp = edge_message_bwd(
             src, dst, he, nbr, msk, dict(zip(PARAM_NAMES, pvals)), g_aggr.contiguous(),
-            g_xupd.contiguous(), *ctx.options)
-        return (d_src, d_dst, d_he, None, None, None, None, None,
+            g_xupd.contiguous(), *ctx.options,
+            inverse=None if order is None else (order, offsets), kept=kept)
+        return (d_src, d_dst, d_he, None, None, None, None, None, None, None,
                 *(dp[n] for n in PARAM_NAMES))
 
 
 def edge_message_aggregate(src, dst, he, nbr, msk, params, slope: float = 0.01,
-                           use_ln: bool = True, use_dist: bool = True):
+                           use_ln: bool = True, use_dist: bool = True, inverse=None):
     """(aggr (B, N, D), x_upd (B, N, 3)), differentiable in src, dst, he and
-    the params. CPU tensors take the plain version; CUDA tensors launch the
-    kernels or raise."""
+    the params. CPU tensors take the plain version (`inverse` unused); CUDA
+    tensors launch the kernels or raise. `inverse`: (order, offsets) of nbr
+    from `inverse_neighbors(nbr, src.shape[1])`, kept for the backward's
+    scatter, which builds its own when it is None."""
     if src.device.type == "cpu":
         return edge_message_plain(src, dst, he, nbr, msk, params, slope,
                                   use_ln, use_dist)
     if src.device.type != "cuda":
         raise ValueError(f"edge_message: unsupported device {src.device}")
-    return _EdgeMessage.apply(src, dst, he, nbr, msk, float(slope), bool(use_ln),
-                              bool(use_dist), *(params[n] for n in PARAM_NAMES))
+    order, offsets = (None, None) if inverse is None else _check_inverse(inverse, nbr,
+                                                                        src.shape[1])
+    return _EdgeMessage.apply(src, dst, he, nbr, msk, order, offsets, float(slope),
+                              bool(use_ln), bool(use_dist),
+                              *(params[n] for n in PARAM_NAMES))

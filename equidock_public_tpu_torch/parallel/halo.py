@@ -41,6 +41,7 @@ from ..config import Config, ModelConfig
 from ..graph import PairBatch, ProteinBatch
 from ..models.iegmn import (check_supported, iegmn_layer_forward, keypoint_head,
                             layer_params, trunk_inputs)
+from ..ops.cuda.edge_message import inverse_neighbors
 from ..ops.cuda.halo_ring import ring_exchange, ring_ship, take_rows
 from ..ops.kabsch import apply_rigid
 from ..params import flatten
@@ -458,13 +459,17 @@ def _trunk(p, cfg: ModelConfig, mesh: ParallelMesh, n_lays: int, fine_tune: bool
     h_l, h_r, he_l, he_r = trunk_inputs(p, cfg, lig, rec)
     orig_h_l, orig_h_r = h_l, h_r
     attend = _ring_attend(mesh)
+    inv_l = inv_r = None
     for i in range(n_lays):
         src_l = halo_exchange(x_l, h_l, plan_l, mesh)
         src_r = halo_exchange(x_r, h_r, plan_r, mesh)
+        if i == 0 and torch.is_grad_enabled():   # the remapped nbr's inverse lists
+            inv_l = inverse_neighbors(lig.nbr, src_l[0].shape[1])
+            inv_r = inverse_neighbors(rec.nbr, src_r[0].shape[1])
         x_l, h_l, x_r, h_r = iegmn_layer_forward(
             layer_params(cfg, p, i), cfg, fine_tune, i > 0, lig, rec, x_l, h_l, x_r, h_r,
             orig_h_l, orig_h_r, he_l, he_r, x_l_in, rec.x, src_l=src_l, src_r=src_r,
-            attend=attend)
+            attend=attend, inv_l=inv_l, inv_r=inv_r)
     return tuple(mesh.gather(a) for a in (x_l, h_l, x_r, h_r))
 
 

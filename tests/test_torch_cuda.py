@@ -343,6 +343,75 @@ def test_edge_bwd_is_bit_reproducible(cuda, D):
         assert torch.equal(a, b)
 
 
+def _tile_edge_inputs(rng, dev, D, B=3, N=300, nsrc=337, n_valid=(250, 0, 131)):
+    """The edges of the kernels' tiles of 64 // K nodes: N not a multiple of
+    6, graph 1 all padded, a source wider than the destinations."""
+    src, dst, he, nbr, msk, prm = _edge_inputs(rng, dev, B=B, N=N, D=D, n_valid=N)
+    for b, n in enumerate(n_valid):
+        msk[b, n:] = 0
+    he = he * msk[..., None]
+    src = torch.cat([src, torch.randn(B, nsrc - N, 3 + D, device=dev)], dim=1).contiguous()
+    nbr = torch.randint(0, nsrc, nbr.shape, device=dev, dtype=torch.int32)
+    gen = torch.Generator().manual_seed(D)
+    grads = (torch.randn(B, N, D, generator=gen).to(dev),
+             torch.randn(B, N, 3, generator=gen).to(dev))
+    return (src, dst, he, nbr, msk, prm), grads
+
+
+@pytest.mark.parametrize("D", [64, 16])
+def test_edge_kernels_at_the_edges_of_their_tiles_match_plain(cuda, D):
+    """N = 300, an all-padded graph, Nsrc != N: the forward to TOL, the
+    backward norm-wise (1e-3, as at Nsrc != N above), the padded graph's
+    outputs exactly 0, both kernels bit-equal on two launches."""
+    args, grads = _tile_edge_inputs(np.random.default_rng(300), cuda, D)
+    got = em.edge_message_aggregate(*args)
+    want = em.edge_message_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+        assert (g[1] == 0).all()
+    assert all(torch.equal(a, b) for a, b in zip(got, em.edge_message_aggregate(*args)))
+    flat = lambda r: [*r[:3], *(r[3][n] for n in em.PARAM_NAMES)]
+    got = em.edge_message_bwd(*args, *grads)
+    want = em.edge_message_bwd_plain(*args, *grads)
+    torch.cuda.synchronize()
+    names = ["d_src", "d_dst", "d_he"] + list(em.PARAM_NAMES)
+    _assert_grads_close(flat(got), flat(want), names, rel=1e-3)
+    assert (got[1][1] == 0).all() and (got[2][1] == 0).all()
+    again = em.edge_message_bwd(*args, *grads)
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+
+
+@pytest.mark.parametrize("D", [64, 16])
+def test_edge_forward_is_bit_reproducible(cuda, D):
+    """Two forward launches on the same inputs give the same bits (the
+    masked means have one owner a (node, channel), edges in order)."""
+    args = _edge_inputs(np.random.default_rng(4), cuda, B=3, N=512, D=D)
+    before = em.launches
+    runs = [em.edge_message_aggregate(*args) for _ in range(2)]
+    assert em.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_a_forward_builds_one_inverse_list_per_side(cuda):
+    """The model builds each side's inverse neighbour list once per forward
+    that records gradients; the backward's scatters read those lists and
+    build none; a forward without gradients builds none."""
+    from equidock_public_tpu_torch.params import flatten, unflatten
+
+    cfg = ModelConfig(residue_emb_dim=16, iegmn_lay_hid_dim=64, iegmn_n_lays=3,
+                      shared_layers=True, num_att_heads=8)
+    flat = {k: v.requires_grad_(True) for k, v in flatten(init_params(cfg, 0, cuda)).items()}
+    builds, scatters = em.inverse_builds, em.scatter_launches
+    out = docking_forward(unflatten(flat), cfg, _batch(np.random.default_rng(1), cuda))
+    assert em.inverse_builds == builds + 2
+    out["ligand_coords"].sum().backward()
+    assert em.inverse_builds == builds + 2 and em.scatter_launches == scatters + 6
+    with torch.no_grad():
+        docking_forward(unflatten(flat), cfg, _batch(np.random.default_rng(1), cuda))
+    assert em.inverse_builds == builds + 2
+
+
 def _softmin_inputs(rng, dev, B, M, N):
     x = torch.from_numpy((rng.standard_normal((B, M, 3)) * 12).astype(np.float32))
     a = torch.from_numpy((rng.standard_normal((B, N, 3)) * 12 + 3).astype(np.float32))

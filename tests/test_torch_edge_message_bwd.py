@@ -60,7 +60,7 @@ def test_assembly_of_kernel_outputs(rng):
     """Per-edge cotangents come from the same function on a source table
     with one row per edge (src'[b, i*K + k] = src[b, nbr[b, i, k]]), whose
     gradient IS the per-edge cotangent; the parameter gradients arrive split
-    over three blocks."""
+    over three blocks, each a row of `partial_layout`."""
     B, N, K, D, E = 2, 9, 10, 16, 27
     src, dst, he, nbr, msk, prm = _inputs(rng, B=B, N=N, D=D, Nsrc=13)
     ga, gx = _cotangents(rng, B, N, D)
@@ -69,15 +69,14 @@ def test_assembly_of_kernel_outputs(rng):
     per_edge_nbr = np.arange(N * K, dtype=np.int32).reshape(1, N, K).repeat(B, 0)
     g_edge, d_dst, d_he, d_prm = _port_bwd(per_edge_src, dst, he, per_edge_nbr, msk, prm,
                                            ga, gx)
-    parts = {}
-    for name, g in d_prm.items():
+    layout = tem.partial_layout(D, E)
+    parts = torch.zeros(3, sum(size for _, size in layout.values()))
+    for name, (o, size) in layout.items():
         split = torch.from_numpy(rng.uniform(size=3).astype(np.float32))
-        parts[name] = (split / split.sum()).reshape(3, *([1] * g.dim())) * g
-    parts["W2c"] = parts["W2c"].reshape(3, D)
-    parts["b2c"] = parts["b2c"].reshape(3)
+        parts[:, o:o + size] = (split / split.sum())[:, None] * d_prm[name].reshape(1, size)
     got = tem.assemble_bwd(t(nbr), 13, g_edge[..., :3].contiguous(),
                            g_edge[..., 3:].contiguous(), d_he.reshape(B, N * K, E),
-                           d_dst[..., :3], d_dst[..., 3:], parts)
+                           d_dst, parts)
     for g, w, name in zip(got[:3], want[:3], ("src", "dst", "he")):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
     for name in tem.PARAM_NAMES:
@@ -110,13 +109,23 @@ def test_bwd_on_other_devices_raises(rng):
 
 
 def test_bwd_blocks_cover_every_node_within_the_cap():
-    assert tem.bwd_blocks(10, 512) == tem.BWD_MAX_BLOCKS
-    assert tem.bwd_blocks(1, 9) == 3
+    """The backward's tile plan: tiles of 64 // K whole nodes cover every
+    node of every graph once; the grid is one block an SM, or a block a tile
+    when there are fewer tiles."""
+    for B, N, K in ((10, 512, 10), (1, 9, 10), (3, 300, 10), (2, 40, 16)):
+        tn, blocks = tem.edge_tile_plan(B, N, 64, K)
+        tiles = B * -(-N // tn)
+        assert tn == tem.TILE_ROWS // K and tn * (-(-N // tn)) >= N > tn * (-(-N // tn) - 1)
+        assert blocks == min(tiles, tem.BWD_MAX_BLOCKS)
+    assert tem.edge_tile_plan(10, 512, 64, 10) == (6, tem.SMS)
+    assert tem.edge_tile_plan(1, 9, 64, 10) == (6, 2)
 
 
 def test_bwd_blocks_at_width_16():
-    """256 threads a block: 16 nodes of 16 channels."""
-    assert tem.bwd_blocks(1, 40, 16) == 3 and tem.bwd_blocks(10, 512, 16) == tem.BWD_MAX_BLOCKS
+    """At D = 16 the plan is D = 64's: one block an SM (two to four run in
+    waves were slower on the card), a block a tile below that."""
+    assert tem.edge_tile_plan(1, 40, 16, 10) == (6, 7) == tem.edge_tile_plan(1, 40, 64, 10)
+    assert tem.edge_tile_plan(10, 512, 16, 10) == (6, tem.SMS)
 
 
 def test_inverse_neighbors_give_the_transpose_of_the_gather(rng):
