@@ -18,19 +18,22 @@ non-zero without printing a result.
            with a source wider than the destinations (the halo layer
            body's Nsrc = S + 2 Hr + gp Hres) and at the edges of their
            tiles (N = 300, a graph whose nodes are all padded, Nsrc != N,
-           D 64 and 16), each edge launch writing into outputs inside NaN
-           guard regions that must stay untouched, the attention forward also at
-           the training batch and at the edges of its 64-row tiles (300 x
-           1000, a complex of padded query rows, tags that meet no key,
+           D 64 and 16), each edge and soft-min launch writing into outputs
+           inside NaN guard regions that must stay untouched, the attention
+           forward also at the training batch and at the edges of its 64-row
+           tiles (300 x 1000, a complex of padded query rows, tags that meet no key,
            kept logits below -896; rows that keep no key must average all
            M values with lse = -1000 + log M), attention dQ also at all
            those shapes and at D 16, 32 and 96, the combine passes of the
            attention rows at their main-path shapes, the soft-min field
            sums and their backward at the training, a ragged and the
-           largest bucket's shapes, with the stated tolerances; the halo ring
-           kernels (rows 8, 9) bit-equal to their plain versions at the
-           halo path's shapes; and two launches of each backward, ring,
-           edge and attention kernel on the same inputs give the same bits.
+           largest bucket's shapes and at the edges of their tiles (masks
+           with holes, a complex whose keys are all masked, a cotangent all
+           0, M = 1, N below one key tile), with the stated tolerances; the
+           halo ring kernels (rows 8, 9) bit-equal to their plain versions at
+           the halo path's shapes; and two launches of each backward, ring,
+           edge, attention and soft-min kernel on the same inputs give the
+           same bits.
            Each kernel's first launch is synchronised at once, so a fault
            names its kernel
   serve    the DB5 paper model (committed weights) warms up buckets 512 and
@@ -813,28 +816,76 @@ def edge16_case(dev, B=10, N=512):
                 grads=(R(B, N, 16), R(B, N, 3)))
 
 
+def softmin_masks(rng, B, n, keep=0.6):
+    """0/1 masks with holes: whole 32-point tiles dropped at random, single
+    points dropped inside the others."""
+    tiles = rng.uniform(size=(B, -(-n // 32))) < keep
+    return (np.repeat(tiles, 32, axis=1)[:, :n]
+            & (rng.uniform(size=(B, n)) > 0.3)).astype(np.float32)
+
+
 def softmin_cases(dev):
     """(x, a, a_mask) and a cotangent c of S: the training shape (bs 10,
     512 x 512, masks of split-chain halves), a ragged one (70 x 130, not a
-    multiple of the block) and the largest node bucket (3072 x 3072)."""
+    multiple of a tile), the largest node bucket (3072 x 3072); then the
+    edges of the kernels' tiles: masks with holes (whole key tiles and single
+    points) at M != N, with one complex whose keys are all masked and one
+    whose cotangent is all 0; a cotangent all 0; M = 1; N below one key
+    tile."""
     rng = np.random.default_rng(6)
     cases = []
-    for B, M, N in ((10, 512, 512), (2, 70, 130), (2, 3072, 3072)):
+    for B, M, N, kind in ((10, 512, 512, "split-chain halves"), (2, 70, 130, "80% / 90% valid"),
+                          (2, 3072, 3072, "80% / 90% valid"),
+                          (3, 300, 700, "holes; complex 1 all keys masked, 2 no cotangent"),
+                          (2, 200, 90, "80% / 90% valid, cotangent all 0"),
+                          (2, 1, 200, "80% / 90% valid"), (2, 100, 20, "80% / 90% valid")):
         x = rng.standard_normal((B, M, 3)).astype(np.float32) * 15
         a = rng.standard_normal((B, N, 3)).astype(np.float32) * 15 + 5
         if M == 512:
             qm, am = training_tags(rng, B, M), training_tags(rng, B, N)
+        elif kind.startswith("holes"):
+            qm, am = softmin_masks(rng, B, M), softmin_masks(rng, B, N)
+            am[1], qm[2] = 0, 0
         else:
             qm, am = torch.ones(B, M), torch.ones(B, N)
-            qm[:, int(0.8 * M):] = 0
-            am[:, int(0.9 * N):] = 0
+            qm[:, max(1, int(0.8 * M)):] = 0
+            am[:, max(1, int(0.9 * N)):] = 0
         c = torch.from_numpy(rng.standard_normal((B, M)).astype(np.float32)) * qm
+        if "cotangent all 0" in kind:
+            c.zero_()
         T = lambda v: (v if isinstance(v, torch.Tensor) else torch.from_numpy(v)).to(dev)
-        valid = "split-chain halves" if M == 512 else "80% / 90% valid"
-        cases.append(dict(shape=f"B={B} M={M} N={N} ({valid})",
+        cases.append(dict(shape=f"B={B} M={M} N={N} ({kind})",
                           args=(T(x).contiguous(), T(a).contiguous(), T(am).contiguous()),
                           c=T(c).contiguous()))
     return cases
+
+
+def check_softmin_case(c) -> None:
+    """Rows 6 and 7 at one case against their plain versions (S at
+    SOFTMIN_TOL, dx and dA norm-wise); each kernel's launch into guarded
+    outputs, and two launches bit-equal. Fills c["err"] and c["check"]."""
+    from equidock_public_tpu_torch.ops import softmin_field as sf
+    from equidock_public_tpu_torch.ops.cuda import softmin_field as ksf
+
+    (x, a, am), name = c["args"], c["shape"]
+    B, M, N = x.shape[0], x.shape[1], a.shape[1]
+    bufs, views = guarded([(B, M)], x.device)
+    got = ksf.softmin_field_fwd(x, a, am, SIGMA, out=views)
+    synced(f"softmin_field {name}")
+    require_guards(f"softmin_field {name}", bufs)
+    want = sf.softmin_field_sums_plain(x, a, am, SIGMA)
+    c["err"] = check_close(f"softmin_field {name}", [got], [want], SOFTMIN_TOL)
+    require(torch.equal(got, ksf.softmin_field_fwd(x, a, am, SIGMA)),
+            f"softmin_field {name}: two launches on the same inputs differ")
+    bufs, views = guarded([(B, M, 3), (B, N, 3)], x.device)
+    got = ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA, out=views)
+    synced(f"softmin_field_bwd {name}")
+    require_guards(f"softmin_field_bwd {name}", bufs)
+    want = sf.softmin_field_bwd_plain(x, a, am, c["c"], SIGMA)
+    c["check"] = check_grads("softmin_field_bwd", name, got, want)
+    again = ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA)
+    require(all(torch.equal(g, h) for g, h in zip(got, again)),
+            f"softmin_field_bwd {name}: two launches on the same inputs differ")
 
 
 def softmin_cost(x, a, am, c=None):
@@ -1700,18 +1751,7 @@ def main() -> int:
     # rows 6 and 7: the soft-min field sums and their backward
     s_cases = softmin_cases(dev)
     for c in s_cases:
-        x, a, am = c["args"]
-        got = ksf.softmin_field_fwd(x, a, am, SIGMA)
-        synced("softmin_field")
-        want = sf.softmin_field_sums_plain(x, a, am, SIGMA)
-        c["err"] = check_close("softmin_field " + c["shape"], [got], [want], SOFTMIN_TOL)
-        got = ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA)
-        synced("softmin_field_bwd")
-        want = sf.softmin_field_bwd_plain(x, a, am, c["c"], SIGMA)
-        c["check"] = check_grads("softmin_field_bwd", c["shape"], got, want)
-        again = ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA)
-        require(all(torch.equal(g, h) for g, h in zip(got, again)),
-                f"softmin_field_bwd {c['shape']}: two launches on the same inputs differ")
+        check_softmin_case(c)
     # rows 8 and 9, and the edge kernels at Nsrc != N, at the halo path's shapes
     requests = served_requests(cfg, dev)
     train_golden = training_golden(dev)
@@ -1728,15 +1768,15 @@ def main() -> int:
          softmin_field_bwd=[{"shape": c["shape"], **c["check"]} for c in s_cases],
          bit_equal=[f"edge_message and edge_message_bwd ({len(edge_checks)} and "
                     f"{sum('bwd' in c for c in edge_checks)} shapes, Nsrc != N included)",
-                              "softmin_field_bwd (3 shapes)",
+                              f"softmin_field and softmin_field_bwd ({len(s_cases)} shapes)",
                               "cross_attention_dq and _dkv (2 shapes)",
                               f"cross_attention_dq ({len(dq_cases)} more shapes)",
                               f"cross_attention forward ({len(a_cases)} shapes)"],
          combines={n: {"shape": c["shape"], "max_abs_err": c["err"]}
                    for n, c in combines.items()},
          bit_equal_to_plain=["halo_ring_exchange", "halo_ring_ship2"],
-         guarded_outputs=f"edge_message, edge_message_bwd: {GUARD} NaN floats before and "
-                         "after each output, untouched",
+         guarded_outputs=f"edge_message, edge_message_bwd, softmin_field, softmin_field_bwd: "
+                         f"{GUARD} NaN floats before and after each output, untouched",
          tolerance={"edge_message": EDGE_TOL, "cross_attention": ATT_TOL,
                     "softmin_field": SOFTMIN_TOL, "backward_relative_norm": BWD_REL_TOL})
 
@@ -1896,7 +1936,7 @@ def main() -> int:
                              whole_backward_device_ms=device_bwd))
     no_library = ("none: no single PyTorch call computes the soft-min field sums "
                   "(torch.cdist gives only the distances)")
-    for c in s_cases:
+    for c in s_cases[:3]:      # the training, ragged and largest shapes
         x, a, am = c["args"]
         for name in ("softmin_field", "softmin_field_bwd"):
             bwd = name.endswith("bwd")

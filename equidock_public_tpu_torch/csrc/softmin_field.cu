@@ -12,144 +12,308 @@
 // loss turns S into G = -sigma log(1e-3 + S) outside, in PyTorch.
 //
 // Design. The TPU kernel holds the whole other protein in VMEM and expands
-// |x - a|^2 = |x|^2 + |a|^2 - 2 x.a to use one thin MXU product. Here one
-// thread owns one point and the other set streams through shared memory in
-// tiles of 1024 points packed as float4 (16 KB), every block of the batch
-// element reading the same tiles. The difference x - a is taken directly:
-// on coordinates of tens of A the expanded form cancels about 1e-3 A^2 in
-// f32, the direct one does not. Keys with mask 0 add exactly 0 and are
-// skipped (the test is the same for all threads of a warp). `expf` and an
-// IEEE division, as the plain version computes them; no fast-math
-// intrinsics.
+// |x - a|^2 = |x|^2 + |a|^2 - 2 x.a to use one thin MXU product. Here the
+// difference x - a is taken directly: on coordinates of tens of A the
+// expanded form cancels about 1e-3 A^2 in f32, the direct one does not.
 //
-// The TPU backward accumulates dA across query blocks in one output block
-// (the grid runs in order on one core). Blocks on the card run in no order,
-// so dA is not summed across blocks: the backward is ONE launch whose grid
-// holds two kinds of block, independent of each other. A query block (one
-// thread per query m) recomputes w over all keys and writes dx_m; a key
-// block (one thread per key n) recomputes w over all queries and writes
-// dA_n. Every output has one owner that sums in a fixed order: no atomics,
-// bit-reproducible. Queries with c = 0 (padded or masked rows) add nothing
-// and are skipped in the key blocks.
+// Both kernels are one template over a "role": own points p with weights
+// pw (or none), the other set q with weights qw, and D sums a point:
+//   forward   own x (no weight), other a with a_mask, D = 1: S_m
+//   backward  own x with c, other a with a_mask, D = 3: dx_m
+//             own a with a_mask, other x with c, D = 3: dA_n
+// (with d = p - q, dA_n = (2/sigma) mask_n sum_m c_m e (x_m - a_n)
+// = (-2/sigma) mask_n sum_m c_m e d, so both backward roles scale the same
+// sum by -2/sigma times the own weight). The backward is one launch whose
+// grid holds the clusters of both roles.
 //
-// Bound on an H100 at the training batch (B = 10, M = N = 512, about 170
-// of 512 points valid a side): forward about 12 f32 operations a (query,
-// valid key) pair, one of them the exponential, so 10 x 512 x 170 pairs
-// x 12 = 10 MFLOP, 0.16 us at 67 TFLOP/s; the bytes (x, a, a_mask in, S
-// out: about 0.2 MB) take 0.06 us at 3.35 TB/s. The backward recomputes w
-// twice and adds three multiply-adds a pair in each pass: about 34
-// operations a pair, 0.45 us. Both are bound by operations; at that size
-// a launch (a few us) costs more than the arithmetic.
+//  - Own tiles: 32 LP own points, LP a lane of every warp (lanes on
+//    consecutive points). A CLUSTER of `splits` blocks owns one tile; each
+//    block holds W warps, each warp one KEY RANGE of the same own tile, so a
+//    tile has R = splits x W key ranges. A thread keeps LP x D sums; the
+//    key loop is unrolled 8 deep, so 8 LP exponentials are in flight. The
+//    wrapper (ops/cuda/softmin_field.py::softmin_tile_plan) picks LP = 1,
+//    W = 8 and splits giving each range about 6 of the other set's tiles:
+//    1 at the training batch, 2 at 3072 x 3072 (a sweep on an H100,
+//    scripts/softmin_tiles_check.py); the kernel is built for LP 1, 2, 4
+//    and W 4, 8, 16, at most 128 registers a thread (ptxas at the defaults:
+//    68 forward, 80 backward, no spills).
+//  - Other-set tiles of 32 points, one a lane. Each block first reads the
+//    other set's weights of its batch element (all loads in flight at once)
+//    and flags each tile that holds a weight != 0. The kept tiles, in order,
+//    are dealt to the R key ranges in turn: kept tile k goes to range
+//    k mod R (range = rank x W + warp), so a batch element with many valid
+//    points spreads over every range instead of lengthening one. A tile
+//    whose weights are all 0 is neither loaded nor visited.
+//  - A warp stages its tile's 32 points (float4: x, y, z, weight) in its
+//    own slot of shared memory, prefetching the next tile's into registers
+//    while it walks the 32 points for its LP own points; points past the
+//    set carry weight 0 and add exactly 0.
+//  - Backward: an own tile whose own weights (c, or a_mask) are all 0 writes
+//    zeros and stages nothing (its output is exactly 0).
+//  - Combine, in a fixed order, without atomics: each warp writes its
+//    partial sums to shared memory; the block adds its W warps' partials in
+//    warp order; after a cluster barrier each block of the cluster takes a
+//    slice of the tile's outputs and adds the `splits` blocks' partials in
+//    rank order through distributed shared memory, scales and writes them.
+//    Every output has one owner; two launches give the same bits.
+// Arithmetic a pair: 3 differences, the squared norm (a multiply and two
+// FMAs), one multiply by -1/sigma folded in before `expf` (no division),
+// then one FMA into S (forward) or a multiply and 3 FMAs (backward). `expf`
+// is the accurate one; no fast-math intrinsics.
+//
+// Bound on an H100 at the training batch (B = 10, M = N = 512, 70 to 274
+// of 512 points valid a side; chip_smoke.py::softmin_cost): the forward does
+// 12 f32 operations a (query, valid key) pair, one of them the exponential:
+// 10 x 512 x about 170 pairs x 12 = 10 MFLOP, 0.15 us at 67 TFLOP/s; its
+// bytes (x, a, a_mask in, S out: about 0.1 MB) take 0.04 us at 3.35 TB/s.
+// The backward recomputes the weight in both roles and adds three
+// multiply-adds: 17 operations a (query with c != 0, valid key) pair in each
+// role, 34 a pair, about 0.15 us. Both are bound by operations; at that size
+// a launch and two dependent load latencies (weights, then points) cost
+// more than the arithmetic. At 3072 x 3072 (B = 2, 80% / 90% valid) the
+// forward's 17 M pairs are 3.0 us of operations, the backward's 2 x 13.6 M
+// pairs 6.9 us.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;   // points per block, one a thread
-constexpr int kTile = 1024;     // points of the other set per shared-memory tile
+constexpr int kKeyTile = 32;      // points of the other set a tile, one a lane
+constexpr int kMaxSplits = 8;     // blocks of a cluster (the portable cluster size)
+constexpr int kFlagLoads = 16;    // weight loads a thread keeps in flight for the flags
+constexpr int kMaxFlagBytes = 160 * 1024;   // kept flags, one byte an other-set tile
 
-// Copy points [t0, t0 + n) of p (n, 3) with their weights w (n) into tile.
-__device__ __forceinline__ void load_tile(float4* tile, const float* __restrict__ p,
-                                          const float* __restrict__ w, int t0, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float* q = p + (size_t)(t0 + i) * 3;
-    tile[i] = make_float4(q[0], q[1], q[2], w[t0 + i]);
-  }
+struct Role {
+  const float* own_p;   // (B, n_own, 3)
+  const float* own_w;   // (B, n_own), or nullptr: every own point counts
+  const float* oth_p;   // (B, n_oth, 3)
+  const float* oth_w;   // (B, n_oth)
+  float* out;           // (B, n_own, D)
+  int n_own, n_oth;
+};
+
+__device__ __forceinline__ float4 load_point(const float* __restrict__ p,
+                                             const float* __restrict__ w, int t, int lane,
+                                             int n) {
+  const int j = t * kKeyTile + lane;
+  if (t < 0 || j >= n) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* q = p + (size_t)j * 3;
+  return make_float4(q[0], q[1], q[2], w[j]);
 }
 
-__global__ void __launch_bounds__(kThreads)
-softmin_field_fwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                         const float* __restrict__ am, float* __restrict__ S, int M,
-                         int N, float sigma) {
-  __shared__ float4 tile[kTile];
-  const int b = blockIdx.y;
-  const int m = blockIdx.x * kThreads + threadIdx.x;
-  const bool valid = m < M;
-  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
-  if (valid) {
-    const float* xr = x + ((size_t)b * M + m) * 3;
-    x0 = xr[0];
-    x1 = xr[1];
-    x2 = xr[2];
+// 16 / W blocks of 32 W threads an SM: at most 128 registers a thread at
+// every block width.
+template <int D, int LP, int W>
+__global__ void __launch_bounds__(32 * W, 16 / W)
+softmin_tiles_kernel(Role r0, Role r1, int clusters0, float neg_inv_sigma, float sigma) {
+  constexpr int kThreads = 32 * W;
+  constexpr int kOwn = 32 * LP;
+  constexpr int kOut = kOwn * D;
+  extern __shared__ uint8_t kept[];                 // a flag an other-set tile
+  __shared__ float4 stage[W][kKeyTile];
+  __shared__ float part[W][kOut];
+  __shared__ float blk[kOut];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int cid = (int)blockIdx.x / splits;
+  const bool second = cid >= clusters0;
+  const Role r = second ? r1 : r0;
+  const int tile = second ? cid - clusters0 : cid;
+  const int own_tiles = (r.n_own + kOwn - 1) / kOwn;
+  const int b = tile / own_tiles;
+  const int own0 = (tile - b * own_tiles) * kOwn;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_own = r.n_own, n_oth = r.n_oth;
+
+  // own points, the own tile's weights and the other set's weights: all
+  // loads issued before the first wait
+  float p[LP][3];
+#pragma unroll
+  for (int i = 0; i < LP; ++i) {
+    const int m = own0 + lane + 32 * i;
+    const float* q = r.own_p + ((size_t)b * n_own + m) * 3;
+    p[i][0] = m < n_own ? q[0] : 0.f;
+    p[i][1] = m < n_own ? q[1] : 0.f;
+    p[i][2] = m < n_own ? q[2] : 0.f;
   }
-  const float* ab = a + (size_t)b * N * 3;
-  const float* mb = am + (size_t)b * N;
-  float total = 0.f;
-  for (int t0 = 0; t0 < N; t0 += kTile) {
-    const int n = min(kTile, N - t0);
-    __syncthreads();                  // the previous tile's readers are done
-    load_tile(tile, ab, mb, t0, n);
-    __syncthreads();
-    float part = 0.f;                 // per-tile partial: shorter f32 sums
-    for (int i = 0; i < n; ++i) {
-      const float4 p = tile[i];
-      if (p.w == 0.f) continue;
-      const float d0 = x0 - p.x, d1 = x1 - p.y, d2 = x2 - p.z;
-      part += p.w * expf(-(d0 * d0 + d1 * d1 + d2 * d2) / sigma);
+  int own_nz = r.own_w == nullptr;
+  if (!own_nz) {
+    for (int f = threadIdx.x; f < kOwn; f += kThreads) {
+      const int m = own0 + f;
+      own_nz |= m < n_own && r.own_w[(size_t)b * n_own + m] != 0.f;
     }
-    total += part;
   }
-  if (valid) S[(size_t)b * M + m] = total;
+  const float* qp = r.oth_p + (size_t)b * n_oth * 3;
+  const float* qw = r.oth_w + (size_t)b * n_oth;
+  const int oth_tiles = (n_oth + kKeyTile - 1) / kKeyTile;
+  for (int e0 = 0; e0 < oth_tiles * kKeyTile; e0 += kFlagLoads * kThreads) {
+    float v[kFlagLoads];
+#pragma unroll
+    for (int u = 0; u < kFlagLoads; ++u) {
+      const int e = e0 + u * kThreads + threadIdx.x;
+      v[u] = e < n_oth ? qw[e] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kFlagLoads; ++u) {
+      const int t = (e0 + u * kThreads) / kKeyTile + warp;   // this warp's tile
+      const bool any = __any_sync(0xffffffffu, v[u] != 0.f);
+      if (lane == 0 && t < oth_tiles) kept[t] = any;
+    }
+  }
+  const bool own_kept = __syncthreads_or(own_nz);   // also publishes the flags
+
+  // the slice of the tile's outputs this block of the cluster writes
+  const int chunk = (kOut + splits - 1) / splits;
+  const int f0 = rank * chunk, f1 = min(kOut, f0 + chunk);
+  if (!own_kept) {   // the whole cluster sees the same weights: no cluster barrier
+    for (int f = f0 + threadIdx.x; f < f1; f += kThreads) {
+      const int m = own0 + f / D;
+      if (m < n_own) r.out[((size_t)b * n_own + own0) * D + f] = 0.f;
+    }
+    return;
+  }
+
+  // this warp's key range and its walk over the kept tiles, in order
+  const int range = rank * W + warp, ranges = splits * W;
+  int chunk_tiles = 0, next_chunk = 0, kept_before = 0;
+  unsigned mine = 0;
+  auto next_tile = [&]() -> int {
+    while (mine == 0) {
+      if (next_chunk >= oth_tiles) return -1;
+      const int t = next_chunk + lane;
+      const bool f = t < oth_tiles && kept[t] != 0;
+      const unsigned word = __ballot_sync(0xffffffffu, f);
+      const int k = kept_before + __popc(word & ((1u << lane) - 1u));
+      mine = __ballot_sync(0xffffffffu, f && k % ranges == range);
+      kept_before += __popc(word);
+      chunk_tiles = next_chunk;
+      next_chunk += 32;
+    }
+    const int bit = __ffs(mine) - 1;
+    mine &= mine - 1u;
+    return chunk_tiles + bit;
+  };
+
+  float acc[LP][D];
+#pragma unroll
+  for (int i = 0; i < LP; ++i)
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[i][d] = 0.f;
+  int t = next_tile();
+  float4 ahead = load_point(qp, qw, t, lane, n_oth);
+  while (t >= 0) {
+    stage[warp][lane] = ahead;
+    __syncwarp();
+    t = next_tile();
+    ahead = load_point(qp, qw, t, lane, n_oth);   // the next tile, in flight
+#pragma unroll 8
+    for (int j = 0; j < kKeyTile; ++j) {
+      const float4 q = stage[warp][j];
+#pragma unroll
+      for (int i = 0; i < LP; ++i) {
+        const float d0 = p[i][0] - q.x, d1 = p[i][1] - q.y, d2 = p[i][2] - q.z;
+        const float e = expf((d0 * d0 + d1 * d1 + d2 * d2) * neg_inv_sigma);
+        if constexpr (D == 1) {
+          acc[i][0] = fmaf(q.w, e, acc[i][0]);
+        } else {
+          const float we = q.w * e;
+          acc[i][0] = fmaf(we, d0, acc[i][0]);
+          acc[i][1] = fmaf(we, d1, acc[i][1]);
+          acc[i][2] = fmaf(we, d2, acc[i][2]);
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+  // partials: warps in order within the block, then blocks in rank order
+#pragma unroll
+  for (int i = 0; i < LP; ++i)
+#pragma unroll
+    for (int d = 0; d < D; ++d) part[warp][(lane + 32 * i) * D + d] = acc[i][d];
+  __syncthreads();
+  for (int f = threadIdx.x; f < kOut; f += kThreads) {
+    float v = part[0][f];
+#pragma unroll
+    for (int w = 1; w < W; ++w) v += part[w][f];
+    blk[f] = v;
+  }
+  cluster.sync();
+  for (int f = f0 + threadIdx.x; f < f1; f += kThreads) {
+    float v = *cluster.map_shared_rank(&blk[f], 0);
+    for (int s = 1; s < splits; ++s) v += *cluster.map_shared_rank(&blk[f], s);
+    const int m = own0 + f / D;
+    if (m < n_own) {
+      const size_t row = (size_t)b * n_own + m;
+      if constexpr (D == 1) {
+        r.out[row] = v;
+      } else {
+        const float scale = -2.f / sigma * r.own_w[row];
+        r.out[row * D + f % D] = scale * v;
+      }
+    }
+  }
+  cluster.sync();   // the other blocks' partials stay until every block has read them
 }
 
-// Blocks [0, qblocks) of grid.x: queries -> dx. Blocks [qblocks, ...): keys -> dA.
-__global__ void __launch_bounds__(kThreads)
-softmin_field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                         const float* __restrict__ am, const float* __restrict__ c,
-                         float* __restrict__ dx, float* __restrict__ dA, int M, int N,
-                         float sigma, int qblocks) {
-  __shared__ float4 tile[kTile];
-  const int b = blockIdx.y;
-  const bool query_role = (int)blockIdx.x < qblocks;
-  // own point p (x_m with c_m, or a_n with a_mask_n); the other set q streams
-  const int own = (query_role ? blockIdx.x : blockIdx.x - qblocks) * kThreads + threadIdx.x;
-  const int n_own = query_role ? M : N;
-  const int n_other = query_role ? N : M;
-  const float* own_p = query_role ? x + (size_t)b * M * 3 : a + (size_t)b * N * 3;
-  const float* own_w = query_role ? c + (size_t)b * M : am + (size_t)b * N;
-  const float* oth_p = query_role ? a + (size_t)b * N * 3 : x + (size_t)b * M * 3;
-  const float* oth_w = query_role ? am + (size_t)b * N : c + (size_t)b * M;
-  const bool valid = own < n_own;
-  float p0 = 0.f, p1 = 0.f, p2 = 0.f, pw = 0.f;
-  if (valid) {
-    p0 = own_p[(size_t)own * 3 + 0];
-    p1 = own_p[(size_t)own * 3 + 1];
-    p2 = own_p[(size_t)own * 3 + 2];
-    pw = own_w[own];
+template <int D, int LP, int W>
+int launch_tiles(const Role& r0, const Role& r1, int clusters0, int clusters, int splits,
+                 float sigma, cudaStream_t stream) {
+  const int n_oth = clusters > clusters0 && r1.n_oth > r0.n_oth ? r1.n_oth : r0.n_oth;
+  const int flag_bytes = (n_oth + kKeyTile - 1) / kKeyTile;
+  if (flag_bytes > kMaxFlagBytes) return (int)cudaErrorInvalidValue;
+  auto kernel = softmin_tiles_kernel<D, LP, W>;
+  if (flag_bytes > 8 * 1024) {   // past 48 KB with the largest tiles' static 34 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, flag_bytes);
+    if (err != cudaSuccess) return (int)err;
   }
-  // sum over the other set of weight_q exp(-d^2 / sigma) (x_m - a_n), with
-  // weight_q the key's mask (query role) or the query's cotangent (key role)
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int t0 = 0; t0 < n_other; t0 += kTile) {
-    const int n = min(kTile, n_other - t0);
-    __syncthreads();
-    load_tile(tile, oth_p, oth_w, t0, n);
-    __syncthreads();
-    if (pw == 0.f) continue;          // this thread's output is 0 (still loads tiles)
-    float u0 = 0.f, u1 = 0.f, u2 = 0.f;
-    for (int i = 0; i < n; ++i) {
-      const float4 q = tile[i];
-      if (q.w == 0.f) continue;
-      const float d0 = p0 - q.x, d1 = p1 - q.y, d2 = p2 - q.z;
-      const float w = q.w * expf(-(d0 * d0 + d1 * d1 + d2 * d2) / sigma);
-      u0 = fmaf(w, d0, u0);
-      u1 = fmaf(w, d1, u1);
-      u2 = fmaf(w, d2, u2);
-    }
-    s0 += u0;
-    s1 += u1;
-    s2 += u2;
-  }
-  if (!valid) return;
-  // d = own - other. Query role, own x_m: dx_m = (-2/sigma) c_m s. Key role,
-  // own a_n, d = a_n - x_m: dA_n = (2/sigma) mask_n sum_m c_m e (x_m - a_n)
-  // = (-2/sigma) mask_n s. So both scale s by -2/sigma times their weight.
-  const float f = -2.f / sigma * pw;
-  float* out = (query_role ? dx + (size_t)b * M * 3 : dA + (size_t)b * N * 3) + (size_t)own * 3;
-  out[0] = f * s0;
-  out[1] = f * s1;
-  out[2] = f * s2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)clusters * (unsigned)splits);
+  cfg.blockDim = dim3(32 * W);
+  cfg.dynamicSmemBytes = (size_t)flag_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, r0, r1, clusters0, -1.f / sigma,
+                                             sigma);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The (lane points, warps) pairs the kernels are built for: 32, 64 or 128
+// own points a tile, 4, 8 or 16 key ranges a block.
+template <int D>
+int dispatch(int lane_points, int warps, const Role& r0, const Role& r1, int clusters0,
+             int clusters, int splits, float sigma, cudaStream_t stream) {
+#define SOFTMIN_CASE(LP, W)                                                              \
+  if (lane_points == LP && warps == W)                                                   \
+    return launch_tiles<D, LP, W>(r0, r1, clusters0, clusters, splits, sigma, stream);
+  SOFTMIN_CASE(1, 4) SOFTMIN_CASE(1, 8) SOFTMIN_CASE(1, 16)
+  SOFTMIN_CASE(2, 4) SOFTMIN_CASE(2, 8) SOFTMIN_CASE(2, 16)
+  SOFTMIN_CASE(4, 4) SOFTMIN_CASE(4, 8) SOFTMIN_CASE(4, 16)
+#undef SOFTMIN_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+bool bad_args(int B, int M, int N, float sigma, int lane_points, int splits) {
+  if (B <= 0 || M <= 0 || N <= 0 || !(sigma > 0.f) || splits < 1 || splits > kMaxSplits ||
+      lane_points < 1)
+    return true;
+  // own tiles x splits blocks must fit in grid.x
+  const long long tiles = (long long)B * ((M + 31) / 32 + (N + 31) / 32);
+  return tiles * splits > 0x7fffffffLL;
 }
 
 }  // namespace
@@ -157,31 +321,37 @@ softmin_field_bwd_kernel(const float* __restrict__ x, const float* __restrict__ 
 extern "C" {
 
 // Device pointers to contiguous f32 arrays: x (B, M, 3), a (B, N, 3),
-// a_mask (B, N); output S (B, M). Returns the cudaError_t of the launch.
+// a_mask (B, N); output S (B, M). `lane_points` x 32 own points a tile,
+// `warps` key ranges a block, `splits` blocks a cluster (one own tile).
+// Returns the cudaError_t of the launch.
 int equidock_softmin_field_fwd(const void* x, const void* a, const void* a_mask, void* S,
-                               int B, int M, int N, float sigma, void* stream) {
-  if (B <= 0 || M <= 0 || N <= 0 || B > 65535 || !(sigma > 0.f))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + kThreads - 1) / kThreads, B);
-  softmin_field_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)a, (const float*)a_mask, (float*)S, M, N, sigma);
-  return (int)cudaGetLastError();
+                               int B, int M, int N, float sigma, int lane_points, int warps,
+                               int splits, void* stream) {
+  if (bad_args(B, M, N, sigma, lane_points, splits)) return (int)cudaErrorInvalidValue;
+  const Role r{(const float*)x, nullptr, (const float*)a, (const float*)a_mask, (float*)S,
+               M, N};
+  const int clusters = B * ((M + 32 * lane_points - 1) / (32 * lane_points));
+  return dispatch<1>(lane_points, warps, r, r, clusters, clusters, splits, sigma,
+                     (cudaStream_t)stream);
 }
 
 // As above plus the cotangent c (B, M) of S; outputs dx (B, M, 3) and
-// dA (B, N, 3). One launch: query blocks and key blocks side by side.
+// dA (B, N, 3). One launch: the clusters of the dx role (own tiles of x),
+// then those of the dA role (own tiles of a).
 int equidock_softmin_field_bwd(const void* x, const void* a, const void* a_mask,
                                const void* c, void* dx, void* dA, int B, int M, int N,
-                               float sigma, void* stream) {
-  if (B <= 0 || M <= 0 || N <= 0 || B > 65535 || !(sigma > 0.f))
-    return (int)cudaErrorInvalidValue;
-  const int qblocks = (M + kThreads - 1) / kThreads;
-  const int kblocks = (N + kThreads - 1) / kThreads;
-  const dim3 grid(qblocks + kblocks, B);
-  softmin_field_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)a, (const float*)a_mask, (const float*)c, (float*)dx,
-      (float*)dA, M, N, sigma, qblocks);
-  return (int)cudaGetLastError();
+                               float sigma, int lane_points, int warps, int splits,
+                               void* stream) {
+  if (bad_args(B, M, N, sigma, lane_points, splits)) return (int)cudaErrorInvalidValue;
+  const Role rx{(const float*)x, (const float*)c, (const float*)a, (const float*)a_mask,
+                (float*)dx, M, N};
+  const Role ra{(const float*)a, (const float*)a_mask, (const float*)x, (const float*)c,
+                (float*)dA, N, M};
+  const int own = 32 * lane_points;
+  const int clusters0 = B * ((M + own - 1) / own);
+  const int clusters = clusters0 + B * ((N + own - 1) / own);
+  return dispatch<3>(lane_points, warps, rx, ra, clusters0, clusters, splits, sigma,
+                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

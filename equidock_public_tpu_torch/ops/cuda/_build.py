@@ -122,3 +122,16 @@ def check_launch(err: int, name: str) -> None:
     """A refused launch never runs and no later synchronize reports it."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def outputs(shapes, dev, out, what: str):
+    """Fresh f32 outputs of `shapes`, or the caller's `out` after checking
+    them (a kernel writes into preallocated outputs, e.g. inside guard
+    regions)."""
+    if out is None:
+        return [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
+    if len(out) != len(shapes):
+        raise ValueError(f"{what}: {len(out)} outputs given, {len(shapes)} expected")
+    for i, (t, shape) in enumerate(zip(out, shapes)):
+        check_tensor(t, f"{what} output {i}", shape, torch.float32, dev)
+    return list(out)

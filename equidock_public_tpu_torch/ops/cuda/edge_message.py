@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.segment import gather_neighbors
-from ._build import check_launch, check_tensor, load_library
+from ._build import check_launch, check_tensor, load_library, outputs
 
 RBF_SIGMAS = tuple(1.5 ** x for x in range(15))
 N_RBF = len(RBF_SIGMAS)
@@ -182,17 +182,6 @@ def n_tiles(B: int, N: int, tile_nodes: int) -> int:
     return B * -(-N // tile_nodes)
 
 
-def _outputs(shapes, dev, out, what: str):
-    """Fresh outputs of `shapes`, or the caller's `out` after checking them."""
-    if out is None:
-        return [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
-    if len(out) != len(shapes):
-        raise ValueError(f"{what}: {len(out)} outputs given, {len(shapes)} expected")
-    for i, (t, shape) in enumerate(zip(out, shapes)):
-        check_tensor(t, f"{what} output {i}", shape, torch.float32, dev)
-    return list(out)
-
-
 def tile_keep(msk, tile_nodes: int):
     """(B * ceil(N / tile_nodes),) uint8: 1 for each tile of tile_nodes
     destination nodes with an edge of m != 0. Plain version of the flags the
@@ -211,7 +200,7 @@ def _launch_fwd(src, dst, he, nbr, msk, params, slope, use_ln, use_dist, tile_no
     B, Nsrc, N, K, D, E = _check_inputs(src, dst, he, nbr, msk, params)
     tn, blocks = edge_tile_plan(B, N, D, K, backward=False, tile_nodes=tile_nodes)
     dev = src.device
-    aggr, xupd = _outputs(((B, N, D), (B, N, 3)), dev, out, "edge_message")
+    aggr, xupd = outputs(((B, N, D), (B, N, 3)), dev, out, "edge_message")
     if kept is not None:
         check_tensor(kept, "kept", (n_tiles(B, N, tn),), torch.uint8, dev)
     with torch.cuda.device(dev):
@@ -347,7 +336,7 @@ def edge_message_bwd_kernel(src, dst, he, nbr, msk, params, g_aggr, g_xupd,
     if kept is None:
         kept = tile_keep(msk, tn)
     check_tensor(kept, "kept", (n_tiles(B, N, tn),), torch.uint8, dev)
-    outs = _outputs(bwd_output_shapes(B, N, K, D, E, blocks), dev, out, "edge_message bwd")
+    outs = outputs(bwd_output_shapes(B, N, K, D, E, blocks), dev, out, "edge_message bwd")
     with torch.cuda.device(dev):
         err = _kernel_fns()[1](
             src.data_ptr(), dst.data_ptr(), he.data_ptr(), nbr.data_ptr(),

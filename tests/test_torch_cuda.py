@@ -421,7 +421,8 @@ def _softmin_inputs(rng, dev, B, M, N):
     return [t.to(dev) for t in (x, a, am, c)]
 
 
-@pytest.mark.parametrize("B,M,N", [(2, 70, 130), (10, 512, 512), (1, 3072, 3072)])
+@pytest.mark.parametrize("B,M,N", [(2, 70, 130), (10, 512, 512), (1, 3072, 3072),
+                                   (3, 300, 700), (2, 1, 200), (2, 100, 20), (1, 40, 300000)])
 def test_softmin_field_kernels_match_plain(cuda, B, M, N):
     from equidock_public_tpu_torch.ops import softmin_field as sf
     from equidock_public_tpu_torch.ops.cuda import softmin_field as ksf
@@ -438,6 +439,30 @@ def test_softmin_field_kernels_match_plain(cuda, B, M, N):
     _assert_grads_close([dx, da], [wdx, wda], ["dx", "dA"], rel=1e-5)
     again = ksf.softmin_field_bwd(x, a, am, c, 25.0)
     assert torch.equal(again[0], dx) and torch.equal(again[1], da)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("lane_points,warps", [(lp, w) for lp in (1, 2, 4) for w in (4, 8, 16)])
+def test_softmin_field_kernels_on_every_built_tiling(cuda, lane_points, warps, splits):
+    """Every (lane points, warps) pair the kernels are built for, at 1 to 8
+    blocks a cluster, on masks with holes; complex 1 has every key masked
+    (S and dA exactly 0), complex 2 no cotangent (dx and dA exactly 0)."""
+    from equidock_public_tpu_torch.ops import softmin_field as sf
+    from equidock_public_tpu_torch.ops.cuda import softmin_field as ksf
+
+    x, a, am, c = _softmin_inputs(np.random.default_rng(splits), cuda, 3, 300, 700)
+    am[1], c[2] = 0, 0
+    fwd = ksf.softmin_tile_plan(3, 300, 700, False, lane_points, warps, splits)
+    bwd = ksf.softmin_tile_plan(3, 300, 700, True, lane_points, warps, splits)
+    got = ksf.softmin_field_fwd(x, a, am, 25.0, plan=fwd)
+    dx, da = ksf.softmin_field_bwd(x, a, am, c, 25.0, plan=bwd)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, sf.softmin_field_sums_plain(x, a, am, 25.0),
+                               rtol=1e-5, atol=1e-4)
+    _assert_grads_close([dx, da], list(sf.softmin_field_bwd_plain(x, a, am, c, 25.0)),
+                        ["dx", "dA"], rel=1e-5)
+    assert (got[1] == 0).all() and (da[1] == 0).all()
+    assert (dx[2] == 0).all() and (da[2] == 0).all()
 
 
 def test_fused_intersection_step_matches_the_unfused_one(cuda):
