@@ -30,10 +30,14 @@ non-zero without printing a result.
            largest bucket's shapes and at the edges of their tiles (masks
            with holes, a complex whose keys are all masked, a cotangent all
            0, M = 1, N below one key tile), with the stated tolerances; the
-           halo ring kernels (rows 8, 9) bit-equal to their plain versions at
-           the halo path's shapes; and two launches of each backward, ring,
-           edge, attention and soft-min kernel on the same inputs give the
-           same bits.
+           halo exchange kernels (rows 8, 9), both sides a launch, at the
+           served request's three plans and at the training batch (dp 1
+           and 2, D 64 and 16): row 8 bit-equal to the table's index_select
+           and to the ring composition, row 9 bit-equal to the sequential
+           index_add_ of the table on the CPU and within 1e-6 of autograd
+           through the composition, both into guarded outputs; and two
+           launches of each backward, halo, edge, attention and soft-min
+           kernel on the same inputs give the same bits.
            Each kernel's first launch is synchronised at once, so a fault
            names its kernel
   serve    the DB5 paper model (committed weights) warms up buckets 512 and
@@ -69,14 +73,16 @@ non-zero without printing a result.
   halo     the halo graph-parallel path (shards stacked on the card): the
            4 served requests through `make_halo_forward` at padded gp=2,
            ragged gp=4 and gp=4 with a forced residual tier, each against
-           the serving golden file through the node permutation, the ring
-           tier's kernel (row 8 padded, row 9 ragged) and the edge forward
-           launching exactly 10 times a forward; 3 `make_halo_train_step`
-           steps at gp=2 on the training batch against the training golden
-           file, rows 8 and 9 launching 10 times a step each, two steps
+           the serving golden file through the node permutation, row 8
+           launching exactly 5 times a forward (both sides of a layer in
+           one launch, every plan), row 9 never and the edge forward 10
+           times; 3 `make_halo_train_step` steps at gp=2 on the training
+           batch against the training golden file, rows 8 and 9 launching
+           5 times a step each, 2 inverse neighbour lists a step and no
+           exchange table built (they are built once a batch), two steps
            from one state bit-equal; the halo forward's and step's times
-           beside the dense ones in turns, and the halo bytes a layer
-           against a full gather
+           beside the dense ones in turns, a device profile of each, and the
+           halo bytes a layer against a full gather
   times    each kernel's device time (CUDA-graph replays between CUDA
            events) beside its plain version, its bound and a PyTorch library
            call where one exists, and its eager per-call time (the attention
@@ -134,6 +140,10 @@ SIGMA = 25.0            # the DB5 model's intersection_sigma
 FUSED_RTOL = 1e-4
 TRAIN_STEPS = 3         # checked against the training golden file
 TIMED_STEPS = 10        # after 2 warm-up steps
+# Row 9 against autograd through the ring composition on the card (its
+# gather transposes add with atomics): f32 sums of a few terms in another
+# order, norm-wise per tensor.
+HALO_BWD_REL_TOL = 1e-6
 # Served outputs vs the JAX package on the CPU (tests/test_torch_serve.py
 # holds the port's CPU path to the same numbers): R unitless, t and CA in A.
 GOLDEN_ATOL = {"R": 1e-3, "t": 1e-2, "ca": 1e-2}
@@ -425,22 +435,22 @@ KERNELS = (
      "ops/pallas/softmin_field.py:26", "epoch"),
     ("softmin_field_bwd", "softmin_field", "bwd_launches", "csrc/softmin_field.cu",
      "ops/pallas/softmin_field.py:38", "epoch"),
-    ("halo_ring_exchange", "halo_ring", "launches", "csrc/halo_ring.cu",
+    ("halo_exchange", "halo_ring", "launches", "csrc/halo_ring.cu",
      "parallel/pallas_halo.py:122", "halo_train"),
-    ("halo_ring_ship2", "halo_ring", "ship_launches", "csrc/halo_ring.cu",
+    ("halo_exchange_bwd", "halo_ring", "bwd_launches", "csrc/halo_ring.cu",
      "parallel/pallas_halo.py:133", "halo_train"),
 )
 # The edge backward's second kernel (d_src in a fixed order, csrc/
 # edge_message_bwd.cu), launched once with each backward: counted apart and
-# required to match row 2's launches on every path. The halo path launches
-# it also as the transpose of its send-row gathers, counted apart again.
+# required to match row 2's launches on every path.
 SCATTER = ("edge_message", "scatter_launches")
-TAKE_SCATTER = ("halo_ring", "take_launches")
 # Inverse neighbour lists built (ops/cuda/edge_message.py, any device): one
 # per side per forward that records gradients, on every path (the model
 # shares each across its layers and the backward's scatters), none in a
-# forward without gradients; the halo path's take scatter builds its own.
+# forward without gradients. The halo exchange's own tables and their
+# inverses are built on the host once per batch (`halo_tables`).
 INVERSE = ("edge_message", "inverse_builds", "edge_inverse_builds")
+HALO_TABLES = ("halo", "table_builds", "halo_tables")
 PER_STEP_INVERSE = SIDES
 # The second passes of rows 3-5 (csrc/cross_attention.cu,
 # csrc/cross_attention_bwd.cu): the merges of their splits, launched once
@@ -463,12 +473,14 @@ PER_EVAL_FUSED = {"edge_message": 10, "cross_attention": 10, "softmin_field": 2}
 
 def kernel_counters():
     """(module, launch-counter attribute, kernel name) of every kernel, of
-    the edge backward's scatter and of the attention kernels' combine passes."""
+    the edge backward's scatter, of the inverse lists and halo tables built
+    and of the attention kernels' combine passes."""
     mod = lambda name: importlib.import_module(f"equidock_public_tpu_torch.ops.cuda.{name}")
+    halo = importlib.import_module("equidock_public_tpu_torch.parallel.halo")
     return (tuple((mod(m), attr, name) for name, m, attr, *_ in KERNELS)
             + ((mod(SCATTER[0]), SCATTER[1], "edge_message_scatter"),
-               (mod(TAKE_SCATTER[0]), TAKE_SCATTER[1], "halo_take_scatter"),
-               (mod(INVERSE[0]), INVERSE[1], INVERSE[2]))
+               (mod(INVERSE[0]), INVERSE[1], INVERSE[2]),
+               (halo, HALO_TABLES[1], HALO_TABLES[2]))
             + tuple((mod(m), attr, name) for m, attr, name, _ in COMBINES))
 
 
@@ -502,8 +514,7 @@ def expect_counts(what: str, counts: dict, steps: int, evals: int, fused: bool) 
     require(counts["edge_message_scatter"] == counts["edge_message_bwd"],
             f"{what}: the edge backward's scatter launched {counts['edge_message_scatter']} "
             f"times for {counts['edge_message_bwd']} backwards")
-    require(counts["halo_take_scatter"] == 0,
-            f"{what}: the halo path's take scatter launched on a dense path")
+    require(counts[HALO_TABLES[2]] == 0, f"{what}: halo exchange tables built on a dense path")
     want = PER_STEP_INVERSE * steps
     require(counts[INVERSE[2]] == want, f"{what}: {counts[INVERSE[2]]} inverse neighbour "
                                         f"lists built, expected {want}")
@@ -704,14 +715,40 @@ def nbytes_of(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def ring_nbytes(args, outs) -> int:
-    """Bytes a ring call (rows 8, 9) must move: each output once, the local
-    block (row 8) once, and of the two send buffers (snd_next/snd_prev, or
-    a/b) only the shards that some shard reads: the chain ends receive
-    zeros, so the first buffer of shard P-1 and the second of shard 0 are
-    never read."""
-    *local, first, second = args
-    return nbytes_of(*local, first[:, :-1], second[:, 1:], *outs)
+def exchange_nbytes(sides, outs, backward: bool) -> int:
+    """Bytes one launch of row 8 or 9 must move over its sides, each output
+    once and each input once. Forward: x, h and the table. Backward: the
+    inverse (order, offsets) and only the cotangent rows some slot reads
+    (one a listed slot; the chain ends' zero slots are never read)."""
+    total = nbytes_of(*(a for o in outs for a in o))
+    for a, b, t in sides:
+        if backward:
+            row = (a.shape[-1] + b.shape[-1]) * a.element_size()
+            total += t.order.numel() * row + nbytes_of(t.order, t.offsets)
+        else:
+            total += nbytes_of(a, b, t.src_row)
+    return total
+
+
+def library_gathers(sides, grads):
+    """The library yardsticks of rows 8 and 9 on the same inputs: (forward,
+    backward) callables, `index_select` of each of the 4 tensors (x and h
+    of both sides) over its rows with a zero row appended beforehand, and
+    `torch.zeros` + `index_add_` (atomics) of the 4 cotangents, by the
+    folded index of the tables."""
+    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+
+    fwd, bwd = [], []
+    for (x, h, t), (gx, gh, _) in zip(sides, grads):
+        Bp, S, _, Ssrc, gp, _ = t.dims
+        idx = hr._table_to_folded(hr.gather_index(t).reshape(Bp // gp, gp, Ssrc), t).reshape(-1)
+        for a, g in ((x, gx), (h, gh)):
+            ext = torch.cat([a.reshape(Bp * S, -1), a.new_zeros(1, a.shape[-1])])
+            fwd.append((ext, idx))
+            bwd.append((g.reshape(Bp * Ssrc, -1), idx, Bp * S + 1))
+    return (lambda: [ext.index_select(0, idx) for ext, idx in fwd],
+            lambda: [torch.zeros(n, g.shape[-1], device=g.device).index_add_(0, idx, g)
+                     for g, idx, n in bwd])
 
 
 def edge_bwd_cost(src, dst, he, nbr, msk, kp, ga, gx):
@@ -1407,106 +1444,137 @@ def halo_plans(pair):
             ("residual_gp4", dict(gp=4, spatial=False, hmax=hmax), 1, 4))
 
 
-def ring_inputs(pair, kw, dp, gp, side, dev, seed=0):
-    """(mesh, the side's folded ProteinBatch, its plan in the folded layout,
-    a random 64-wide h for its rows) of a request or batch planned with
-    `kw`."""
-    from equidock_public_tpu_torch.parallel.halo import build_halo_batch, shard_plan
+def halo_sides(pair, kw, dp, gp, dev, D=64, seed=0):
+    """(mesh, the two sides' HaloPlans (on the host, for the ring
+    composition), their folded ProteinBatches, [(x, h, ExchangeTable on the
+    mesh)] of both sides with a random D-wide h) of a request or batch
+    planned with `kw`."""
+    from equidock_public_tpu_torch.parallel.halo import build_halo_batch, mesh_table
     from equidock_public_tpu_torch.parallel.mesh import ParallelMesh
 
     hb, _, _, _ = build_halo_batch(pair, **kw)
     mesh = ParallelMesh(dp, gp, dev)
-    prot = mesh.shard_protein(getattr(hb.pair, side))
-    plan = shard_plan(getattr(hb, "plan_" + side[:3]), mesh)
     gen = torch.Generator().manual_seed(seed)
-    h = torch.randn(prot.x.shape[:2] + (64,), generator=gen).to(dev)
-    return mesh, prot, plan, h
+    plans, prots, sides = [], [], []
+    for side in ("lig", "rec"):
+        prot = mesh.shard_protein(getattr(hb.pair, side))
+        h = torch.randn(prot.x.shape[:2] + (D,), generator=gen).to(dev)
+        plans.append(getattr(hb, "plan_" + side))
+        prots.append(prot)
+        sides.append((prot.x.contiguous(), h, mesh_table(getattr(hb, "table_" + side), mesh)))
+    return mesh, plans, prots, sides
 
 
 def halo_kernel_cases(params, requests, train_batch, dev):
-    """Rows 8 and 9 at the main path's shapes: the 512 x 1024 request's
-    receptor (padded plan, gp=2) and its ragged plan (gp=4), the training
-    batch's ligand at gp=2 and the shapes its backward ships; the edge
-    kernels at Nsrc != N: the same receptor's layer-body inputs at gp=2
-    and at gp=4 with the residual tier forced."""
+    """Rows 8 and 9 at the main path's shapes, both sides a launch: the
+    512 x 1024 request at padded gp=2, ragged gp=4 and gp=4 with a forced
+    residual tier; the training batch at padded gp=2 (dp 1 and 2) and
+    ragged gp=2 at dp=2 with D = 16; random cotangents for row 9. The edge
+    kernels at Nsrc != N: the request's receptor layer-body inputs at gp=2
+    and at the forced residual tier."""
     from equidock_public_tpu_torch.models.iegmn import edge_kernel_inputs
-    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
     from equidock_public_tpu_torch.parallel.halo import halo_exchange
 
     pair = requests[0][1].batch
     require(tuple(pair.rec.x.shape[:2]) == (1, 1024), "request 0 is not 512 x 1024")
     plans = {name: (kw, dp, gp) for name, kw, dp, gp in halo_plans(pair)}
-    exchange, ship, edge = [], [], []
+    exchange, edge = [], []
 
-    def exchange_case(what, p, kw, dp, gp, side):
-        mesh, prot, plan, h = ring_inputs(p, kw, dp, gp, side, dev)
-        xh = torch.cat([prot.x, h], dim=-1)
-        args = (mesh.unfold(xh), mesh.unfold(hr.take_rows(xh, plan.send_next)),
-                mesh.unfold(hr.take_rows(xh, plan.send_prev)))
-        exchange.append(dict(shape=f"{what}: local {tuple(args[0].shape)}, "
-                                   f"Hr={args[1].shape[3]}", args=args))
+    def case(what, name, p, kw, dp, gp, D=64):
+        mesh, side_plans, prots, sides = halo_sides(p, kw, dp, gp, dev, D)
+        gen = torch.Generator().manual_seed(len(exchange) + 3)
+        grads = [tuple(torch.randn(x.shape[0], t.dims[3], w, generator=gen).to(dev)
+                       for w in (3, h.shape[-1])) for x, h, t in sides]
+        shape = f"{what}: " + ", ".join(
+            f"{n} x {tuple(x.shape[:2])} -> Ssrc {t.dims[3]}" for n, (x, _, t) in
+            zip(("lig", "rec"), sides)) + f", dp={dp}, D={D}"
+        exchange.append(dict(shape=shape, name=name, mesh=mesh, plans=side_plans,
+                             sides=sides, grads=grads, prots=prots))
 
-    exchange_case("512x1024 request, receptor, padded gp=2", pair, *plans["padded_gp2"], "rec")
-    exchange_case("training batch, ligand, padded gp=2", train_batch, dict(gp=2), 1, 2, "lig")
-    mesh, prot, plan, h = ring_inputs(pair, *plans["ragged_gp4"], "rec", dev)
-    flat = torch.cat([prot.x, h], dim=-1).reshape(mesh.dp * mesh.gp, -1, 67)
-    a, b = (hr.take_rows(flat, i).reshape(mesh.dp, mesh.gp, -1, 67)
-            for i in (plan.send_next_flat, plan.send_prev_flat))
-    ship.append(dict(shape=f"512x1024 request, receptor, ragged gp=4: a {tuple(a.shape)}, "
-                           f"b {tuple(b.shape)}", args=(a, b)))
-    shape = exchange[1]["args"][1].shape      # the training batch's gradient slices
-    gen = torch.Generator().manual_seed(3)
-    ship.append(dict(shape=f"training batch backward, gp=2: {tuple(shape)} both ways",
-                     args=tuple(torch.randn(shape, generator=gen).to(dev) for _ in range(2))))
+    for name in ("padded_gp2", "ragged_gp4", "residual_gp4"):
+        case("512x1024 request, " + name, name, pair, *plans[name])
+    case("training batch, padded gp=2", "padded_gp2", train_batch, dict(gp=2), 1, 2)
+    case("training batch, padded gp=2", "padded_gp2", train_batch, dict(gp=2), 2, 2)
+    case("training batch, ragged gp=2", "ragged_gp2", train_batch,
+         dict(gp=2, ragged=True, dp=2), 2, 2, D=16)
 
-    for what in ("padded_gp2", "residual_gp4"):
-        kw, dp, gp = plans[what]
-        mesh, prot, plan, h = ring_inputs(pair, kw, dp, gp, "rec", dev, seed=1)
-        src_view = halo_exchange(prot.x, h, plan, mesh)
+    for c in (exchange[0], exchange[2]):       # the receptor, padded gp=2 and residual
+        mesh, (_, prot), (_, (x, h, tab)) = c["mesh"], c["prots"], c["sides"]
+        src_view = halo_exchange(x, h, tab, mesh)
         he = prot.edge_feat.contiguous()
-        src, dst, kp = edge_kernel_inputs(params["original"]["rest"], prot.x, h, he,
-                                          src=src_view)
+        src, dst, kp = edge_kernel_inputs(params["original"]["rest"], x, h, he, src=src_view)
         gen = torch.Generator().manual_seed(2)
         grads = (torch.randn(dst.shape[:2] + (64,), generator=gen).to(dev),
                  torch.randn(dst.shape[:2] + (3,), generator=gen).to(dev))
-        edge.append(dict(shape=f"512x1024 request, receptor, {what}: B={src.shape[0]} "
+        edge.append(dict(shape=f"512x1024 request, receptor, {c['name']}: B={src.shape[0]} "
                                f"N={dst.shape[1]} Nsrc={src.shape[1]} K=10 D=64 E=27",
                          args=(src, dst, he, prot.nbr, prot.nbr_mask, kp), grads=grads))
-    return exchange, ship, edge
+    return exchange, edge
 
 
-def check_halo_kernels(exchange, ship, edge, slope) -> dict:
-    """Rows 8 and 9 bit-equal to their plain versions and to a second
-    launch; the edge kernels at Nsrc != N to their plain versions (forward
-    EDGE_TOL, backward norm-wise), the d_src scatter to index_add_, two
-    launches of each bit-equal (check_edge_case)."""
+def check_halo_case(c) -> dict:
+    """Row 8 into outputs inside NaN guard regions, bit-equal to both plain
+    versions (the table's index_select and the ring composition) and to a
+    second launch; row 9 likewise guarded, bit-equal to the sequential
+    index_add_ of the table on the CPU and to a second launch, and within
+    HALO_BWD_REL_TOL (norm-wise) of autograd through the ring composition
+    on the card."""
     from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+    from equidock_public_tpu_torch.parallel.halo import ring_composition
 
-    out = {"halo_ring_exchange": [], "halo_ring_ship2": [], "edge_message_nsrc": []}
-    for c in exchange:
-        got = hr.ring_exchange_kernel(*c["args"])
-        synced("halo_ring_exchange")
-        again = hr.ring_exchange_kernel(*c["args"])
-        want = hr.ring_exchange_plain(*c["args"])
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), f"halo_ring_exchange {c['shape']}: differs from plain")
-        require(torch.equal(got, again), f"halo_ring_exchange {c['shape']}: two launches differ")
-        c["err"] = max_err([got], [want])
-        out["halo_ring_exchange"].append({"shape": c["shape"], "max_abs_err": c["err"]})
-    for c in ship:
-        got = hr.ring_ship_kernel(*c["args"])
-        synced("halo_ring_ship2")
-        again = hr.ring_ship_kernel(*c["args"])
-        want = hr.ring_ship_plain(*c["args"])
-        torch.cuda.synchronize()
-        require(all(torch.equal(g, w) for g, w in zip(got, want)),
-                f"halo_ring_ship2 {c['shape']}: differs from plain")
-        require(all(torch.equal(g, w) for g, w in zip(got, again)),
-                f"halo_ring_ship2 {c['shape']}: two launches differ")
-        c["err"] = max_err(got, want)
-        out["halo_ring_ship2"].append({"shape": c["shape"], "max_abs_err": c["err"]})
-    out["edge_message_nsrc"] = [check_edge_case(c, slope) for c in edge]
-    return out
+    sides, dev, what = c["sides"], c["sides"][0][0].device, c["shape"]
+    shapes = [s for x, h, t in sides for s in ((x.shape[0], t.dims[3], 3),
+                                                (x.shape[0], t.dims[3], h.shape[-1]))]
+    bufs, views = guarded(shapes, dev)
+    got = hr.exchange_kernel(sides, out=[views[:2], views[2:]])
+    synced("halo_exchange")
+    require_guards("halo_exchange " + what, bufs)
+    again = hr.exchange_kernel(sides)
+    fwd_err = bwd_err = 0.0
+    for (x, h, t), g, a, plan in zip(sides, got, again, c["plans"]):
+        want = hr.exchange_plain(x, h, t)
+        fwd_err = max(fwd_err, max_err(g, want))
+        require(all(torch.equal(u, v) for u, v in zip(g, want)),
+                f"halo_exchange {what}: differs from the table's index_select")
+        require(all(torch.equal(u, v) for u, v in zip(g, ring_composition(x, h, plan, c["mesh"]))),
+                f"halo_exchange {what}: differs from the ring composition")
+        require(all(torch.equal(u, v) for u, v in zip(g, a)),
+                f"halo_exchange {what}: two launches differ")
+
+    grads = [(gx, gh, t) for (gx, gh), (_, _, t) in zip(c["grads"], sides)]
+    shapes = [s for x, h, _ in sides for s in (tuple(x.shape), tuple(h.shape))]
+    bufs, views = guarded(shapes, dev)
+    got = hr.exchange_bwd_kernel(grads, out=[views[:2], views[2:]])
+    synced("halo_exchange_bwd")
+    require_guards("halo_exchange_bwd " + what, bufs)
+    again = hr.exchange_bwd_kernel(grads)
+    worst = 0.0
+    for (gx, gh, t), g, a, (x, h, _), plan in zip(grads, got, again, sides, c["plans"]):
+        cpu = hr.exchange_bwd_plain(gx.cpu(), gh.cpu(), t.to("cpu"))
+        bwd_err = max(bwd_err, max_err([u.cpu() for u in g], cpu))
+        require(all(torch.equal(u.cpu(), v) for u, v in zip(g, cpu)),
+                f"halo_exchange_bwd {what}: differs from the sequential index_add_ on the CPU")
+        require(all(torch.equal(u, v) for u, v in zip(g, a)),
+                f"halo_exchange_bwd {what}: two launches differ")
+        leaves = [x.detach().requires_grad_(True), h.detach().requires_grad_(True)]
+        want = torch.autograd.grad(ring_composition(*leaves, plan, c["mesh"]), leaves, (gx, gh))
+        for u, w in zip(g, want):
+            require(torch.isfinite(u).all().item(), f"halo_exchange_bwd {what}: non-finite")
+            worst = max(worst, rel_err(u, w))
+    require(worst <= HALO_BWD_REL_TOL, f"halo_exchange_bwd {what}: {worst:.3g} from autograd "
+                                       f"through the ring composition > {HALO_BWD_REL_TOL}")
+    return {"shape": what, "fwd_bit_equal": True, "bwd_bit_equal_to_cpu_index_add": True,
+            "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
+            "bwd_rel_err_vs_composition": worst}
+
+
+def check_halo_kernels(exchange, edge, slope) -> dict:
+    """Rows 8 and 9 at every exchange case (check_halo_case); the edge
+    kernels at Nsrc != N to their plain versions (forward EDGE_TOL,
+    backward norm-wise), the d_src scatter to index_add_, two launches of
+    each bit-equal (check_edge_case)."""
+    return {"halo_exchange": [check_halo_case(c) for c in exchange],
+            "edge_message_nsrc": [check_edge_case(c, slope) for c in edge]}
 
 
 def inverse(perm: np.ndarray) -> np.ndarray:
@@ -1530,10 +1598,12 @@ def timed_ms(fn, reps: int) -> list:
 def run_halo(dev, requests, train_golden) -> dict:
     """The halo phase: (a) the 4 served requests through the halo forward
     at three plans each against the serving golden file, each forward
-    launching the ring tier's kernel and the edge forward 10 times; (b) 3
-    halo training steps at gp=2 on the golden batch against the training
-    golden file, rows 8 and 9 10 times a step, two steps from one state
-    bit-equal; (c) times beside the dense path's in the same run."""
+    launching row 8 5 times (both sides a layer), row 9 never and the edge
+    forward 10 times; (b) 3 halo training steps at gp=2 on the golden batch
+    against the training golden file, rows 8 and 9 5 times a step, the 2
+    inverse neighbour lists of a dense step, no exchange table built, two
+    steps from one state bit-equal; (c) times beside the dense path's in
+    the same run, and a device profile of a halo forward and a halo step."""
     from equidock_public_tpu_torch.models.iegmn import docking_forward
     from equidock_public_tpu_torch.params import flatten
     from equidock_public_tpu_torch.parallel.halo import (build_halo_batch, make_halo_forward,
@@ -1557,9 +1627,8 @@ def run_halo(dev, requests, train_golden) -> dict:
                 out = make_halo_forward(cfg, ParallelMesh(dp, gp, dev))(params, hb)
             after = read_counts()
             grew = {k: after[k] - before[k] for k in after}
-            ring = "halo_ring_ship2" if kw.get("ragged") else "halo_ring_exchange"
             want = {k: 0 for k in grew}
-            want.update({ring: per_fwd, "edge_message": per_fwd})
+            want.update({"halo_exchange": LAYERS, "edge_message": per_fwd})
             if name == "residual_gp4":
                 require(stats.hres_lig > 0 and stats.hres_rec > 0, "no residual tier")
             require(grew == want, f"halo forward {name} {g['ligand']}: launches {grew}")
@@ -1596,14 +1665,12 @@ def run_halo(dev, requests, train_golden) -> dict:
         state, m = step(state, hb)
         metrics.append(m)
     train_counts = read_counts()
-    takes = LAYERS * (4 + (stats.hres_lig > 0) + (stats.hres_rec > 0))
     want = {k: 0 for k in train_counts}
-    want.update({k: per_fwd * TRAIN_STEPS for k in ("halo_ring_exchange", "halo_ring_ship2",
-                                                    "edge_message", "edge_message_bwd",
-                                                    "edge_message_scatter")},
-                halo_take_scatter=takes * TRAIN_STEPS)
-    # the forward's two lists, and one for each take scatter of the backward
-    want[INVERSE[2]] = (PER_STEP_INVERSE + takes) * TRAIN_STEPS
+    want.update({k: per_fwd * TRAIN_STEPS for k in ("edge_message", "edge_message_bwd",
+                                                    "edge_message_scatter")})
+    want.update({k: LAYERS * TRAIN_STEPS for k in ("halo_exchange", "halo_exchange_bwd")})
+    # the forward's two lists, as a dense step builds them
+    want[INVERSE[2]] = PER_STEP_INVERSE * TRAIN_STEPS
     require(train_counts == want, f"halo train: launches {train_counts}, expected {want}")
     worst_step = check_step_golden("halo train", metrics, state, p0, golden, cfg)
     runs = [step(state0, hb) for _ in range(2)]
@@ -1628,11 +1695,13 @@ def run_halo(dev, requests, train_golden) -> dict:
     for _ in range(2):
         step_ms["dense"] += timed_ms(lambda: train_step(state0, batch, cfg), 3)
         step_ms["halo"] += timed_ms(lambda: step(state0, hb), 3)
+    step_profile = device_profile(lambda: step(state0, hb), reps=2)
     med = lambda d: {k: statistics.median(v) for k, v in d.items()}
     return dict(
         forwards=forwards, golden_max_abs_err=worst, golden_atol=GOLDEN_ATOL,
-        launches_serve=serve_counts, launches_per_forward={"ring": per_fwd, "edge_message": per_fwd,
-                                                           "cross_attention": 0},
+        launches_serve=serve_counts,
+        launches_per_forward={"halo_exchange": LAYERS, "halo_exchange_bwd": 0,
+                              "edge_message": per_fwd, "cross_attention": 0},
         train=dict(gp=2, hring=[stats.hring_lig, stats.hring_rec],
                    hres=[stats.hres_lig, stats.hres_rec], launches=train_counts,
                    golden_worst_rel_err=dict(worst_step, leaf_grad_norm=worst_leaf),
@@ -1645,7 +1714,7 @@ def run_halo(dev, requests, train_golden) -> dict:
         forward_bytes_per_layer=st_r.bytes_per_layer(64),
         forward_full_gather_bytes_per_layer=st_r.full_gather_bytes_per_layer(64, 512, 1024, 1),
         forward_profile_512x1024_gp2=fwd_profile,
-        step_ms=step_ms, step_ms_median=med(step_ms),
+        step_ms=step_ms, step_ms_median=med(step_ms), step_profile_train_gp2=step_profile,
         timing="host clock around calls ended by a synchronize, dense and halo in turns; "
                "steps from one state, not chained")
 
@@ -1755,8 +1824,8 @@ def main() -> int:
     # rows 8 and 9, and the edge kernels at Nsrc != N, at the halo path's shapes
     requests = served_requests(cfg, dev)
     train_golden = training_golden(dev)
-    h_exchange, h_ship, h_edge = halo_kernel_cases(params, requests, train_golden[3], dev)
-    halo_checks = check_halo_kernels(h_exchange, h_ship, h_edge, slope)
+    h_exchange, h_edge = halo_kernel_cases(params, requests, train_golden[3], dev)
+    halo_checks = check_halo_kernels(h_exchange, h_edge, slope)
     emit("kernels", **halo_checks,
          edge_message=edge_checks,
          cross_attention=[{"shape": c["shape"], "max_abs_err": c["err"], **c["empty"]}
@@ -1774,11 +1843,16 @@ def main() -> int:
                               f"cross_attention forward ({len(a_cases)} shapes)"],
          combines={n: {"shape": c["shape"], "max_abs_err": c["err"]}
                    for n, c in combines.items()},
-         bit_equal_to_plain=["halo_ring_exchange", "halo_ring_ship2"],
-         guarded_outputs=f"edge_message, edge_message_bwd, softmin_field, softmin_field_bwd: "
-                         f"{GUARD} NaN floats before and after each output, untouched",
+         bit_equal_to_plain=[f"halo_exchange ({len(h_exchange)} shapes, both sides a launch): "
+                             "the table's index_select and the ring composition",
+                             "halo_exchange_bwd: the sequential index_add_ of the table on "
+                             "the CPU"],
+         guarded_outputs=f"edge_message, edge_message_bwd, softmin_field, softmin_field_bwd, "
+                         f"halo_exchange, halo_exchange_bwd: {GUARD} NaN floats before and "
+                         "after each output, untouched",
          tolerance={"edge_message": EDGE_TOL, "cross_attention": ATT_TOL,
-                    "softmin_field": SOFTMIN_TOL, "backward_relative_norm": BWD_REL_TOL})
+                    "softmin_field": SOFTMIN_TOL, "backward_relative_norm": BWD_REL_TOL,
+                    "halo_exchange_bwd_vs_composition": HALO_BWD_REL_TOL})
 
     # -- serve: the main path ------------------------------------------------
     with open(os.path.join(REPO, "equidock_public_tpu_torch", "assets",
@@ -1952,22 +2026,25 @@ def main() -> int:
                              call_ms=call_ms(kern), plain_ms=device_ms(plain, reps=5),
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
                              library_note=no_library))
-    no_library_ring = ("none: no single PyTorch call computes the ring exchange "
-                       "(torch.roll of the shard axis does not zero the chain ends)")
     from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
-    for name, cases, kern_fn, plain_fn in (
-            ("halo_ring_exchange", h_exchange, hr.ring_exchange_kernel, hr.ring_exchange_plain),
-            ("halo_ring_ship2", h_ship, hr.ring_ship_kernel, hr.ring_ship_plain)):
-        for c in cases:
-            a = c["args"]
-            outs = kern_fn(*a)
-            b_ms, b_by = bound(ring_nbytes(a, outs if isinstance(outs, tuple) else (outs,)), 0)
-            kern = lambda f=kern_fn, a=a: f(*a)
-            rows.append(dict(kernel=name, shape=c["shape"], ms=device_ms(kern),
-                             call_ms=call_ms(kern),
-                             plain_ms=device_ms(lambda f=plain_fn, a=a: f(*a)),
-                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                             library_note=no_library_ring))
+    for c in (h_exchange[0], h_exchange[3]):   # the request and the training batch, gp=2
+        sides, grads = c["sides"], [(gx, gh, t) for (gx, gh), (*_, t) in zip(c["grads"],
+                                                                            c["sides"])]
+        lib_f, lib_b = library_gathers(sides, grads)
+        for name, args, kern, plain, lib, bwd in (
+                ("halo_exchange", sides, hr.exchange_kernel, hr.exchange_plain, lib_f, False),
+                ("halo_exchange_bwd", grads, hr.exchange_bwd_kernel, hr.exchange_bwd_plain,
+                 lib_b, True)):
+            b_ms, b_by = bound(exchange_nbytes(args, kern(args), bwd), 0)
+            rows.append(dict(kernel=name, shape=c["shape"],
+                             ms=device_ms(lambda k=kern, a=args: k(a)),
+                             call_ms=call_ms(lambda k=kern, a=args: k(a)),
+                             plain_ms=device_ms(lambda p=plain, a=args: [p(*s) for s in a]),
+                             bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(lib),
+                             library_note=("index_select, 4 calls (x and h of both sides) "
+                                           "on inputs with a zero row appended beforehand"
+                                           if not bwd else "torch.zeros and index_add_ "
+                                           "(atomics), 4 calls (x and h of both sides)")))
     for name, c in combines.items():
         parts = c["parts"]
         b_ms, b_by = bound(nbytes_of(*parts, *c["outs"]), float(sum(p.numel() for p in parts)))
@@ -2023,10 +2100,11 @@ def main() -> int:
         main[f"cross_attention_{part}"] = (
             row(f"cross_attention_{part}", ab_cases[0]["shape"]),
             max(c[f"check_{part}"]["max_abs_err"] for c in ab_cases))
-    main["halo_ring_exchange"] = (row("halo_ring_exchange", h_exchange[0]["shape"]),
-                                  max(c["err"] for c in h_exchange))
-    main["halo_ring_ship2"] = (row("halo_ring_ship2", h_ship[0]["shape"]),
-                               max(c["err"] for c in h_ship))
+    h_checks = halo_checks["halo_exchange"]
+    main["halo_exchange"] = (row("halo_exchange", h_exchange[0]["shape"]),
+                             max(c["fwd_max_abs_err"] for c in h_checks))
+    main["halo_exchange_bwd"] = (row("halo_exchange_bwd", h_exchange[3]["shape"]),
+                                 max(c["bwd_max_abs_err"] for c in h_checks))
     for name, c in combines.items():
         main[name] = (row(name, c["shape"]), c["err"])
     # each combine pass beside its row: the same source, TPU kernel and path

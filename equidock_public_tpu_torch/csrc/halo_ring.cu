@@ -1,50 +1,66 @@
-// Halo ring of the graph-parallel trunk: the ring exchange (row 8) and the
-// both-direction shipment (row 9), for shards that live on one device.
+// The halo exchange of the graph-parallel trunk as a gather by a fixed
+// table: the exchange forward (row 8) and its backward (row 9), for shards
+// that live on one device, both sides of a layer in one launch each way.
 //
-// Replaces the TPU kernels `_fwd_kernel` and `_ship2_kernel` of
-// equidock_public_tpu/parallel/pallas_halo.py (called through `_call_fwd`
-// and `_call_ship2`, `ring_exchange`, `ring_ship` and their VJPs).
+// Replaces the TPU kernels `_fwd_kernel` (the ring exchange) and
+// `_ship2_kernel` (the both-direction shipment: the ragged tier's forward,
+// the reverse shipment of both VJPs) of
+// equidock_public_tpu/parallel/pallas_halo.py, together with the takes, the
+// ragged unpack and the residual all_to_all around them
+// (equidock_public_tpu/parallel/halo.py::_halo_exchange).
 //
-// Layout. The node axis of each protein is cut into P contiguous shards and
-// the batch into G data groups; every shard is a block of one stacked
-// tensor on one device, leading dims (G, P), the B / G complexes of a
-// group kept as a third dim Bl:
-//   exchange: local (G, P, Bl, S, F), snd_next / snd_prev (G, P, Bl, H, F)
-//             -> out (G, P, Bl, S + 2H, F) = [local | from prev | from next],
-//             from prev = snd_next of shard p - 1 (zeros at p = 0),
-//             from next = snd_prev of shard p + 1 (zeros at p = P - 1);
-//   ship2:    a (G, P, La), b (G, P, Lb), any trailing widths
-//             -> out_p (G, P, La) = a of shard p - 1 (zeros at p = 0),
-//                out_n (G, P, Lb) = b of shard p + 1 (zeros at p = P - 1).
-// Both are the semantics of `lax.ppermute` over an open chain: the chain
-// ends receive zeros, so their receive slots, and in the backward the
-// cotangents of rows nobody shipped, are exactly zero.
+// Why a table. The Pallas kernels stage send chunks because a TPU remote
+// DMA moves one contiguous VMEM ref to one neighbour chip. Here every shard
+// is a block of one stacked tensor on one card, so the receiving shard
+// reads the owner's rows where they lie. Composed with the plan, one side's
+// whole exchange is a gather: each output slot of [local | from prev |
+// from next | residual] names one stacked row b N + n, or -1 for a zero
+// (the chain ends, as `lax.ppermute` gives). The table, `src_row` (B, gp,
+// Ssrc), and its inverse (order, offsets) in CSR form over the B N stacked
+// rows are built once per batch on the host (parallel/halo.py::
+// exchange_table) from the plan arrays and pinned to the plain ring
+// composition bit for bit.
 //
-// Synchronisation. The Pallas kernel barriers with its ring neighbours,
-// starts two remote DMAs, copies the local block while they fly, waits on
-// DMA semaphores and barriers again before exit. Here every shard's send
-// buffer is an ordinary device array written by the gather before this
-// launch on the same stream, and read by no later kernel before this one
-// ends: one launch on one stream orders every read of a send buffer after
-// its producer and every write of a receive slot before its consumer.
-// Stream order takes the place of the barriers and semaphores; nothing is
-// emulated. (Shards on other cards would need NCCL send/recv or peer
-// stores; the Python side refuses a mesh of more than one device.)
+// Layout. Rows live in the folded layout of parallel/mesh.py: block
+// blk = (g gp + p) Bl + bl holds complex b = g Bl + bl, shard p (nodes
+// p S ... p S + S - 1); folded row blk S + r is stacked row b N + p S + r.
+//   forward:  x (B', S, 3), h (B', S, D) -> x_src (B', Ssrc, 3),
+//             h_src (B', Ssrc, D), slot (blk, s) = row src_row[b, p, s];
+//   backward: g_x (B', Ssrc, 3), g_h (B', Ssrc, D) -> d_x (B', S, 3),
+//             d_h (B', S, D), each stacked row the sum of its slots in
+//             ascending flat table order (b gp + p) Ssrc + s, from +0.0.
 //
-// Design. Pure data movement, no arithmetic, so the outputs equal their
-// plain versions bit for bit. Each (g, p, b) block of the output is three
-// contiguous regions (S F, H F, H F floats); a grid-stride loop walks the
-// output in order, each thread finding its region and source by offset, so
-// reads and writes are coalesced. When every region is a multiple of 4
-// floats and the pointers are 16-byte aligned, it moves float4s (16-byte
-// loads); F = 3 + 64 = 67 is odd, so that holds when S and H are multiples
-// of 4, as the bucketed halo widths are; otherwise one float a thread.
+// Design. Pure data movement forward (bit-equal to the plain versions),
+// fixed-order sums backward (no atomics: the same bits on every launch,
+// and the bits of a sequential `index_add_` of the same table on the CPU).
+// A group of LPR lanes owns one row; its index is read once. h moves as
+// float4 when every h row is whole float4s on 16-byte boundaries, on 16
+// lanes (D = 64) or 4 (D <= 16); else one float a lane on 32 lanes. Wider
+// rows loop over their columns. x moves as one float on each of three
+// lanes. Index arithmetic is 32-bit, per row or per slot, never per
+// element, and divides by multiplying with magic numbers computed on the
+// host (FastDiv): 12-18% faster than the `/` and `%` of 32-bit ints, both
+// kernels at both shapes timed in turns on an H100 (PERF.md). One launch
+// takes both sides: the grid's blocks are cut into the two sides' ranges,
+// each side a descriptor in the kernel's parameters.
 //
-// Bound on an H100 at the served 512 x 1024 request, gp = 2, padded tier:
-// the receptor side moves 2 x 512 x 67 floats of local rows and about
-// 4 x 64 x 67 of halo rows in and out, about 0.7 MB: 0.2 us at 3.35 TB/s.
-// No operations. Bound by bytes, and at this size by the launch itself
-// (a few us).
+// Hot rows. Each shard's row 0 collects every padding slot (65 slots at
+// the training batch, 57 at the served receptor, 385 at a forced residual
+// tier), so the backward must not walk a list one load at a time. A group
+// takes its row's slots B = min(LPR, 16) at a time: each lane reads one
+// slot index and finds its cotangent row, the lanes swap them by shuffle,
+// every lane loads its columns of all B slots at once, then adds them in
+// order. A list of n slots costs ceil(n / B) memory round trips and keeps
+// the sequential order exactly; neither chunked partial sums (another
+// association) nor a skip of padding slots (which holds only where their
+// cotangent is 0) is needed.
+//
+// Bound on an H100 (3.35 TB/s): by bytes, each input (rows and table) read
+// once and each output written once (backward: only the cotangent rows
+// some slot reads). Row 8 on both sides of a layer moves 0.93 MB at the
+// served 512 x 1024 request (gp = 2) and 6.7 MB at the training batch
+// (B = 10, 512 x 512), 0.28 and 2.0 us; a launch and one to a few
+// dependent memory round trips a row set the time at these sizes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,111 +68,273 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;   // 16 blocks per SM of an H100
+constexpr int kMaxSides = 2;
+constexpr int kBatch = 16;   // slots a round trip of the backward
 
-template <typename V>
-__device__ __forceinline__ V zero();
-template <>
-__device__ __forceinline__ float zero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ float4 zero<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+// n / d for 0 <= n < 2^31 and 1 <= d < 2^31 by one multiply-high: with
+// l = ceil(log2 d) and m = floor(2^32 (2^l - d) / d) + 1, n / d =
+// (umulhi(n, m) + n) >> l (Granlund and Montgomery); the sum stays below
+// 2^32 since umulhi(n, m) < n.
+struct FastDiv {
+  int d;
+  unsigned m;
+  int l;
+};
 
-// nblk = G * P * Bl blocks; LS, LH in units of V. Block blk holds shard
-// p = (blk / Bl) % P; blk - Bl and blk + Bl are the same complex on the
-// shards p - 1 and p + 1 of the same data group.
-template <typename V>
-__global__ void ring_exchange_kernel(const V* __restrict__ local, const V* __restrict__ snd_next,
-                                     const V* __restrict__ snd_prev, V* __restrict__ out,
-                                     long long nblk, int P, int Bl, long long LS, long long LH) {
-  const long long LT = LS + 2 * LH;
-  const long long total = nblk * LT;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
-    const long long blk = i / LT, o = i - blk * LT;
-    const int p = (int)((blk / Bl) % P);
-    V v;
-    if (o < LS) {
-      v = local[blk * LS + o];
-    } else if (o < LS + LH) {
-      v = p > 0 ? snd_next[(blk - Bl) * LH + (o - LS)] : zero<V>();
-    } else {
-      v = p < P - 1 ? snd_prev[(blk + Bl) * LH + (o - LS - LH)] : zero<V>();
-    }
-    out[i] = v;
-  }
+FastDiv make_div(int d) {
+  int l = 0;
+  while ((1ll << l) < d) ++l;
+  const unsigned m = (unsigned)((((1ull << 32) * ((1ull << l) - (unsigned long long)d)) /
+                                 (unsigned long long)d) + 1);
+  return FastDiv{d, m, l};
 }
 
-// nblk = G * P shard blocks; La, Lb in units of V.
-template <typename V>
-__global__ void ring_ship2_kernel(const V* __restrict__ a, const V* __restrict__ b,
-                                  V* __restrict__ out_p, V* __restrict__ out_n, long long nblk,
-                                  int P, long long La, long long Lb) {
-  const long long ta = nblk * La, total = ta + nblk * Lb;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
-    if (i < ta) {
-      const int p = (int)((i / La) % P);
-      out_p[i] = p > 0 ? a[i - La] : zero<V>();
-    } else {
-      const long long j = i - ta;
-      const int p = (int)((j / Lb) % P);
-      out_n[j] = p < P - 1 ? b[j + Lb] : zero<V>();
-    }
-  }
+__device__ __forceinline__ int div_(int n, const FastDiv& f) {
+  return (int)((__umulhi((unsigned)n, f.m) + (unsigned)n) >> f.l);
 }
 
-int grid_for(long long total) {
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  return (int)(blocks < kMaxBlocks ? (blocks > 0 ? blocks : 1) : kMaxBlocks);
+// One side of a launch. Forward: in_x, in_h are x, h; out_x, out_h are
+// x_src, h_src; src_row set. Backward: in_x, in_h are g_x, g_h; out_x,
+// out_h are d_x, d_h; order and offsets set.
+struct Side {
+  const float* in_x;
+  const float* in_h;
+  float* out_x;
+  float* out_h;
+  const int* src_row;
+  const int* order;
+  const int* offsets;
+  int S, N, Ssrc, D, P, Bl;
+  FastDiv by_S, by_N, by_Ssrc, by_Bl, by_PBl, by_PSsrc;
+  int rows;       // rows this side's groups own
+  int blocks;     // this side's blocks of the grid
+};
+
+struct Sides {
+  Side s[kMaxSides];
+};
+
+template <typename V>
+__device__ __forceinline__ V vzero();
+template <>
+__device__ __forceinline__ float vzero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ float4 vzero<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+
+__device__ __forceinline__ void vadd(float& a, float b) { a += b; }
+__device__ __forceinline__ void vadd(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// The side this block works for and its block index within the side.
+__device__ __forceinline__ Side pick_side(const Sides& sides, int& bid) {
+  bid = blockIdx.x;
+  if (bid < sides.s[0].blocks) return sides.s[0];
+  bid -= sides.s[0].blocks;
+  return sides.s[1];
+}
+
+// Folded block -> (complex b, shard p).
+__device__ __forceinline__ void block_of(const Side& sd, int blk, int& b, int& p) {
+  const int g = div_(blk, sd.by_PBl), rem = blk - g * (sd.P * sd.Bl);
+  p = div_(rem, sd.by_Bl);
+  b = g * sd.Bl + (rem - p * sd.Bl);
+}
+
+// Complex b, shard p -> folded block (g P + p) Bl + bl.
+__device__ __forceinline__ int folded_block(const Side& sd, int b, int p) {
+  const int g = div_(b, sd.by_Bl);
+  return (g * sd.P + p) * sd.Bl + (b - g * sd.Bl);
+}
+
+// Stacked row b N + n -> folded row blk S + r.
+__device__ __forceinline__ int folded_row(const Side& sd, int v) {
+  const int b = div_(v, sd.by_N), n = v - b * sd.N;
+  const int p = div_(n, sd.by_S);
+  return folded_block(sd, b, p) * sd.S + (n - p * sd.S);
+}
+
+// Flat table slot (b P + p) Ssrc + s -> its folded position blk Ssrc + s.
+__device__ __forceinline__ int slot_pos(const Side& sd, int q) {
+  const int b = div_(q, sd.by_PSsrc), rem = q - b * (sd.P * sd.Ssrc);
+  const int p = div_(rem, sd.by_Ssrc);
+  return folded_block(sd, b, p) * sd.Ssrc + (rem - p * sd.Ssrc);
+}
+
+// Row 8: one group of LPR lanes copies one output slot.
+template <typename V, int LPR>
+__global__ void __launch_bounds__(kThreads) exchange_fwd_kernel(const Sides sides) {
+  int bid;
+  const Side sd = pick_side(sides, bid);
+  const int lane = threadIdx.x & (LPR - 1);
+  const int row = bid * (kThreads / LPR) + threadIdx.x / LPR;
+  if (row >= sd.rows) return;
+  const int blk = div_(row, sd.by_Ssrc), s = row - blk * sd.Ssrc;
+  int b, p;
+  block_of(sd, blk, b, p);
+  const int v = __ldg(sd.src_row + (b * sd.P + p) * sd.Ssrc + s);
+  const int src = v >= 0 ? folded_row(sd, v) : 0;
+  constexpr int W = sizeof(V) / sizeof(float);
+  const int DV = sd.D / W;
+  const V* hin = reinterpret_cast<const V*>(sd.in_h) + (size_t)src * DV;
+  V* hout = reinterpret_cast<V*>(sd.out_h) + (size_t)row * DV;
+  for (int c = lane; c < DV; c += LPR) hout[c] = v >= 0 ? __ldg(hin + c) : vzero<V>();
+  if (lane < 3) sd.out_x[row * 3 + lane] = v >= 0 ? __ldg(sd.in_x + src * 3 + lane) : 0.f;
+}
+
+// Row 9: one group of LPR lanes sums one local row's slots in order. Every
+// row has its local slot, at a position known without a load, and most
+// rows have no other: its cotangent is loaded with the row's offsets, so
+// such a row costs one memory round trip. Longer lists go kBatch slots at
+// a time: each of the first kBatch lanes holds one slot's position (the
+// next batch's slots are fetched while this one loads), the lanes swap
+// them by shuffle, every lane loads its columns of all kBatch slots (lanes
+// past the list load the local slot again, so no load waits on a
+// predicate), then adds them in order.
+template <typename V, int LPR>
+__global__ void __launch_bounds__(kThreads) exchange_bwd_kernel(const Sides sides) {
+  constexpr int B = kBatch < LPR ? kBatch : LPR;
+  int bid;
+  const Side sd = pick_side(sides, bid);
+  const int lane = threadIdx.x & (LPR - 1);
+  const int row = bid * (kThreads / LPR) + threadIdx.x / LPR;
+  if (row >= sd.rows) return;          // the whole group leaves together
+  const unsigned gmask =
+      LPR == 32 ? 0xffffffffu : ((1u << LPR) - 1) << ((threadIdx.x & 31) & ~(LPR - 1));
+  const int blk = div_(row, sd.by_S), r = row - blk * sd.S;
+  int b, p;
+  block_of(sd, blk, b, p);
+  const int v = b * sd.N + p * sd.S + r, local = blk * sd.Ssrc + r;
+  const int beg = __ldg(sd.offsets + v), end = __ldg(sd.offsets + v + 1);
+  constexpr int W = sizeof(V) / sizeof(float);
+  const int DV = sd.D / W;
+  const V* gh = reinterpret_cast<const V*>(sd.in_h);
+  for (int c0 = 0; c0 < DV; c0 += LPR) {     // the first pass also sums x on lanes 0-2
+    const int c = c0 + lane;
+    const bool has_h = c < DV, do_x = c0 == 0 && lane < 3;
+    const V lv = has_h ? __ldg(gh + (size_t)local * DV + c) : vzero<V>();
+    const float lx = do_x ? __ldg(sd.in_x + local * 3 + lane) : 0.f;
+    V acc = vzero<V>();
+    float acc_x = 0.f;
+    if (end - beg == 1) {                    // the local slot alone
+      vadd(acc, lv);
+      acc_x += lx;
+    } else {
+      int mine = lane < B && beg + lane < end ? slot_pos(sd, __ldg(sd.order + beg + lane)) : local;
+      for (int k0 = beg; k0 < end; k0 += B) {
+        const int n = min(B, end - k0), kn = k0 + B + lane;
+        const int qn = lane < B && kn < end ? __ldg(sd.order + kn) : -1;
+        V val[B];
+        float val_x[B];
+#pragma unroll
+        for (int u = 0; u < B; ++u) {
+          const int pos = __shfl_sync(gmask, mine, u, LPR);
+          val[u] = has_h ? __ldg(gh + (size_t)pos * DV + c) : vzero<V>();
+          val_x[u] = do_x ? __ldg(sd.in_x + pos * 3 + lane) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < B; ++u) {
+          if (u < n) {
+            vadd(acc, val[u]);
+            acc_x += val_x[u];
+          }
+        }
+        mine = qn >= 0 ? slot_pos(sd, qn) : local;
+      }
+    }
+    if (has_h) reinterpret_cast<V*>(sd.out_h)[(size_t)row * DV + c] = acc;
+    if (do_x) sd.out_x[row * 3 + lane] = acc_x;
+  }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// ptrs: 7 a side (in_x, in_h, out_x, out_h, src_row, order, offsets);
+// dims: 11 a side (Bp, S, N, Ssrc, D, P, Bl, lpr, vec, rows, blocks), lpr
+// the lanes a row and vec the floats of an h load, both the same on every
+// side: (lpr, vec) is (4, 4), (16, 4) or (32, 1), the variants built.
+// Checks what the kernels assume.
+int fill_sides(int n, void* const* ptrs, const int* dims, bool backward, Sides& sides,
+               int& grid, int& lpr, int& vec) {
+  if (n < 1 || n > kMaxSides) return (int)cudaErrorInvalidValue;
+  sides = Sides{};
+  grid = 0;
+  lpr = dims[7];
+  vec = dims[8];
+  if (!(vec == 4 && (lpr == 4 || lpr == 16)) && !(vec == 1 && lpr == 32))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n; ++i) {
+    Side& s = sides.s[i];
+    void* const* p = ptrs + 7 * i;
+    const int* d = dims + 11 * i;
+    s.in_x = static_cast<const float*>(p[0]);
+    s.in_h = static_cast<const float*>(p[1]);
+    s.out_x = static_cast<float*>(p[2]);
+    s.out_h = static_cast<float*>(p[3]);
+    s.src_row = static_cast<const int*>(p[4]);
+    s.order = static_cast<const int*>(p[5]);
+    s.offsets = static_cast<const int*>(p[6]);
+    const int Bp = d[0];
+    s.S = d[1], s.N = d[2], s.Ssrc = d[3], s.D = d[4], s.P = d[5], s.Bl = d[6];
+    s.rows = d[9], s.blocks = d[10];
+    if (Bp <= 0 || s.S <= 0 || s.P <= 0 || s.Bl <= 0 || Bp % (s.P * s.Bl) ||
+        s.N != s.S * s.P || s.Ssrc < s.S || s.D <= 0 || s.D % vec || d[7] != lpr ||
+        d[8] != vec || s.blocks <= 0 || s.rows != Bp * (backward ? s.S : s.Ssrc) ||
+        (long long)s.blocks * (kThreads / lpr) < s.rows ||
+        (long long)Bp * s.Ssrc * (s.D > 3 ? s.D : 3) >= (1ll << 31) ||
+        (long long)(Bp / s.P) * s.N >= (1ll << 31))
+      return (int)cudaErrorInvalidValue;
+    if (backward ? (s.order == nullptr || s.offsets == nullptr) : s.src_row == nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (vec == 4 && (!aligned16(s.in_h) || !aligned16(s.out_h))) return (int)cudaErrorInvalidValue;
+    s.by_S = make_div(s.S), s.by_N = make_div(s.N), s.by_Ssrc = make_div(s.Ssrc);
+    s.by_Bl = make_div(s.Bl), s.by_PBl = make_div(s.P * s.Bl);
+    s.by_PSsrc = make_div(s.P * s.Ssrc);
+    grid += s.blocks;
+  }
+  if (n == 1) sides.s[1] = sides.s[0], sides.s[1].blocks = 0;
+  return 0;
+}
+
+template <typename V, int LPR>
+void launch(bool backward, int grid, const Sides& sides, cudaStream_t st) {
+  if (backward)
+    exchange_bwd_kernel<V, LPR><<<grid, kThreads, 0, st>>>(sides);
+  else
+    exchange_fwd_kernel<V, LPR><<<grid, kThreads, 0, st>>>(sides);
+}
+
+int run(int n, void* const* ptrs, const int* dims, bool backward, void* stream) {
+  Sides sides;
+  int grid, lpr, vec;
+  if (int err = fill_sides(n, ptrs, dims, backward, sides, grid, lpr, vec)) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 1)
+    launch<float, 32>(backward, grid, sides, st);
+  else if (lpr == 4)
+    launch<float4, 4>(backward, grid, sides, st);
+  else
+    launch<float4, 16>(backward, grid, sides, st);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// Device pointers to contiguous f32 arrays as in the layout above. Returns
-// the cudaError_t of the launch.
-int equidock_halo_ring_exchange(const void* local, const void* snd_next, const void* snd_prev,
-                                void* out, int G, int P, int Bl, int S, int H, int F,
-                                void* stream) {
-  if (G <= 0 || P <= 0 || Bl <= 0 || S <= 0 || H < 0 || F <= 0) return (int)cudaErrorInvalidValue;
-  const long long nblk = (long long)G * P * Bl;
-  const long long LS = (long long)S * F, LH = (long long)H * F;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (LS % 4 == 0 && LH % 4 == 0 && aligned16(local) && aligned16(snd_next) &&
-      aligned16(snd_prev) && aligned16(out)) {
-    ring_exchange_kernel<float4><<<grid_for(nblk * (LS + 2 * LH) / 4), kThreads, 0, s>>>(
-        static_cast<const float4*>(local), static_cast<const float4*>(snd_next),
-        static_cast<const float4*>(snd_prev), static_cast<float4*>(out), nblk, P, Bl, LS / 4,
-        LH / 4);
-  } else {
-    ring_exchange_kernel<float><<<grid_for(nblk * (LS + 2 * LH)), kThreads, 0, s>>>(
-        static_cast<const float*>(local), static_cast<const float*>(snd_next),
-        static_cast<const float*>(snd_prev), static_cast<float*>(out), nblk, P, Bl, LS, LH);
-  }
-  return (int)cudaGetLastError();
+// Row 8 on n (1 or 2) sides in one launch. Device pointers to contiguous
+// f32 arrays and int32 tables as in the layout above; `ptrs` and `dims`
+// are host arrays (see fill_sides). Returns the cudaError_t of the launch.
+int equidock_halo_exchange(int n, void* const* ptrs, const int* dims, void* stream) {
+  return run(n, ptrs, dims, false, stream);
 }
 
-// a (G, P, La), b (G, P, Lb) -> out_p (G, P, La), out_n (G, P, Lb); La, Lb
-// in floats, either may be 0 (nothing ships that way).
-int equidock_halo_ring_ship2(const void* a, const void* b, void* out_p, void* out_n, int G,
-                             int P, long long La, long long Lb, void* stream) {
-  if (G <= 0 || P <= 0 || La < 0 || Lb < 0) return (int)cudaErrorInvalidValue;
-  const long long nblk = (long long)G * P;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (La % 4 == 0 && Lb % 4 == 0 && aligned16(a) && aligned16(b) && aligned16(out_p) &&
-      aligned16(out_n)) {
-    ring_ship2_kernel<float4><<<grid_for(nblk * (La + Lb) / 4), kThreads, 0, s>>>(
-        static_cast<const float4*>(a), static_cast<const float4*>(b),
-        static_cast<float4*>(out_p), static_cast<float4*>(out_n), nblk, P, La / 4, Lb / 4);
-  } else {
-    ring_ship2_kernel<float><<<grid_for(nblk * (La + Lb)), kThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(out_p),
-        static_cast<float*>(out_n), nblk, P, La, Lb);
-  }
-  return (int)cudaGetLastError();
+// Row 9 on n (1 or 2) sides in one launch, as row 8.
+int equidock_halo_exchange_bwd(int n, void* const* ptrs, const int* dims, void* stream) {
+  return run(n, ptrs, dims, true, stream);
 }
 
 }  // extern "C"

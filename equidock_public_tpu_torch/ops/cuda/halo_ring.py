@@ -1,45 +1,58 @@
-"""The halo ring of the graph-parallel trunk: launch wrappers of the CUDA
-kernels in `csrc/halo_ring.cu`, their plain PyTorch versions, and the
-`torch.autograd.Function`s that join them; plus `take_rows`, the gather of
-send rows whose transpose sums in a fixed order.
+"""The halo exchange of the graph-parallel trunk as a gather by a fixed
+table: launch wrappers of the CUDA kernels in `csrc/halo_ring.cu` (rows 8
+and 9), their plain PyTorch versions, the `torch.autograd.Function` that
+joins them, a numpy emulation of the kernels' index arithmetic; and the
+plain ring composition the table is pinned to.
 
 Replaces `_fwd_kernel` and `_ship2_kernel` of
-`equidock_public_tpu/parallel/pallas_halo.py`. Every shard is a block of a
-stacked tensor on one device (leading dims (G, P): data groups, graph
-shards; see `parallel/mesh.py`):
+`equidock_public_tpu/parallel/pallas_halo.py` together with the takes, the
+ragged unpack and the residual all_to_all around them
+(`equidock_public_tpu/parallel/halo.py::_halo_exchange`). Every shard is a
+block of a stacked tensor on one device, so a receiving shard reads the
+owner's rows where they lie: one side's whole exchange is
 
-    ring_exchange(local (G, P, Bl, S, F), snd_next, snd_prev (G, P, Bl, H, F))
-        -> (G, P, Bl, S + 2H, F) = [local | snd_next of shard p - 1
-                                          | snd_prev of shard p + 1]
-    ring_ship(a (G, P, ...), b (G, P, ...))
-        -> (a of shard p - 1, b of shard p + 1)
+    x_src[blk, s] = x of stacked row src_row[b, p, s]   (zeros where -1)
 
-with zeros where no shard sends (p = 0 receives nothing from "prev",
-p = P - 1 nothing from "next"), as `lax.ppermute` gives. The backward of
-either is `ring_ship` in the other direction (`pallas_halo._bwd_rule`,
-`_ship_bwd`). Both kernels move f32 rows without arithmetic, so on the card
-each equals its plain version bit for bit.
+with `src_row` (B, gp, Ssrc) built once per batch by
+`parallel/halo.py::exchange_table`, Ssrc = S + 2 Hr + gp Hres, laid out as
+[local | from prev | from next | residual]. Rows live in the folded layout
+of `parallel/mesh.py` (block (g gp + p) Bl + bl holds complex b = g Bl + bl,
+shard p, nodes p S ... (p + 1) S - 1; stacked row b N + n). The backward
+sums each stacked row's slots in ascending table order (b, p, s) from +0.0
+through the inverse (order, offsets): no atomics, the same bits as a
+sequential `index_add_` of the same table on the CPU.
 
-On CUDA tensors the Functions always launch the kernels (a failed build or
-launch raises); on CPU tensors they run the plain versions.
+On CUDA tensors the Function always launches the kernels, both sides of a
+layer in one launch each way (a failed build or launch raises); on CPU
+tensors it runs the plain versions. `ring_exchange`, `ring_ship` and
+`take_rows` are the plain ring composition (`parallel/halo.py::
+ring_composition`): cat, zeros and gather, differentiable, launching no
+kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from . import edge_message as em
-from ._build import check_launch, check_tensor, load_library
+from ._build import check_launch, check_tensor, load_library, outputs
 
 # Launches of each CUDA kernel in this process (plain-version calls excluded).
-launches = 0          # row 8, the ring exchange
-ship_launches = 0     # row 9, the both-direction shipment
-take_launches = 0     # the take's transpose (the d_src scatter kernel of row 2)
+launches = 0          # row 8, the exchange forward (all sides of a call in one launch)
+bwd_launches = 0      # row 9, the exchange backward
 
+THREADS = 256         # threads a block, both kernels
+BATCH = 16            # slots a round trip of the backward (kBatch), at most lpr
+
+
+# --------------------------------------------------------------------------- #
+# The plain ring composition (the reference the tables are pinned to)
+# --------------------------------------------------------------------------- #
 
 def _shift_from_prev(a: torch.Tensor) -> torch.Tensor:
     """a of shard p - 1 at shard p (dim 1), zeros at p = 0."""
@@ -52,129 +65,30 @@ def _shift_from_next(b: torch.Tensor) -> torch.Tensor:
 
 
 def ring_exchange_plain(local, snd_next, snd_prev) -> torch.Tensor:
-    """Plain PyTorch version of row 8: [local | from prev | from next] along
-    the row axis (dim -2)."""
+    """`pallas_halo.ring_exchange`: [local | from prev | from next] along the
+    row axis (dim -2) of (G, P, Bl, ., F) blocks, zeros at the chain ends."""
     return torch.cat([local, _shift_from_prev(snd_next), _shift_from_next(snd_prev)], dim=-2)
 
 
 def ring_ship_plain(a, b) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of row 9: (a of shard p - 1, b of shard p + 1)."""
+    """`pallas_halo.ring_ship`: (a of shard p - 1, b of shard p + 1)."""
     return _shift_from_prev(a), _shift_from_next(b)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fns():
-    lib = load_library()
-    ex, ship = lib.equidock_halo_ring_exchange, lib.equidock_halo_ring_ship2
-    ex.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    ship.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
-                     + [ctypes.c_void_p])
-    ex.restype = ship.restype = ctypes.c_int
-    return ex, ship
+# Differentiable through cat and zeros as they are; the JAX VJPs
+# (`_bwd_rule`, `_ship_bwd`) are the transposes autograd takes.
+ring_exchange = ring_exchange_plain
+ring_ship = ring_ship_plain
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def ring_exchange_kernel(local, snd_next, snd_prev) -> torch.Tensor:
-    """Row 8 by the CUDA kernel, on CUDA operands."""
-    if local.device.type != "cuda":
-        raise ValueError(f"ring_exchange: unsupported device {local.device}")
-    G, P, Bl, S, F = local.shape
-    H = snd_next.shape[3]
-    dev, f32 = local.device, torch.float32
-    check_tensor(local, "local", (G, P, Bl, S, F), f32, dev)
-    check_tensor(snd_next, "snd_next", (G, P, Bl, H, F), f32, dev)
-    check_tensor(snd_prev, "snd_prev", (G, P, Bl, H, F), f32, dev)
-    out = torch.empty((G, P, Bl, S + 2 * H, F), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        err = _kernel_fns()[0](local.data_ptr(), snd_next.data_ptr(), snd_prev.data_ptr(),
-                               out.data_ptr(), G, P, Bl, S, H, F, _stream(dev))
-    check_launch(err, "halo ring_exchange")
-    global launches
-    launches += 1
-    return out
-
-
-def ring_ship_kernel(a, b) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Row 9 by the CUDA kernel, on CUDA operands with the same (G, P)."""
-    if a.device.type != "cuda":
-        raise ValueError(f"ring_ship: unsupported device {a.device}")
-    G, P = a.shape[:2]
-    dev, f32 = a.device, torch.float32
-    check_tensor(a, "a", a.shape, f32, dev)
-    check_tensor(b, "b", (G, P) + tuple(b.shape[2:]), f32, dev)
-    out_p, out_n = torch.empty_like(a), torch.empty_like(b)
-    with torch.cuda.device(dev):
-        err = _kernel_fns()[1](a.data_ptr(), b.data_ptr(), out_p.data_ptr(), out_n.data_ptr(),
-                               G, P, a[0, 0].numel(), b[0, 0].numel(), _stream(dev))
-    check_launch(err, "halo ring_ship")
-    global ship_launches
-    ship_launches += 1
-    return out_p, out_n
-
-
-def _exchange(local, snd_next, snd_prev):
-    if local.device.type == "cpu":
-        return ring_exchange_plain(local, snd_next, snd_prev)
-    return ring_exchange_kernel(local, snd_next, snd_prev)
-
-
-def _ship(a, b):
-    if a.device.type == "cpu":
-        return ring_ship_plain(a, b)
-    return ring_ship_kernel(a.contiguous(), b.contiguous())
-
-
-class _RingExchange(torch.autograd.Function):
-    """Row 8; its backward is row 9 on the two halo slices of the
-    cotangent (`pallas_halo._bwd_rule`): the "from next" slots go back to
-    their owner p + 1's snd_prev, the "from prev" slots to p - 1's
-    snd_next; chain-end slots were zeros and send nothing back."""
-
-    @staticmethod
-    def forward(ctx, local, snd_next, snd_prev):
-        ctx.widths = (local.shape[-2], snd_next.shape[-2])
-        return _exchange(local, snd_next, snd_prev)
-
-    @staticmethod
-    def backward(ctx, g):
-        S, H = ctx.widths
-        g_snd_prev, g_snd_next = _ship(g[..., S + H:, :], g[..., S:S + H, :])
-        return g[..., :S, :], g_snd_next, g_snd_prev
-
-
-class _RingShip(torch.autograd.Function):
-    """Row 9; its backward is row 9 the other way (`pallas_halo._ship_bwd`)."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        return _ship(a, b)
-
-    @staticmethod
-    def backward(ctx, g_from_prev, g_from_next):
-        g_b, g_a = _ship(g_from_next, g_from_prev)
-        return g_a, g_b
-
-
-def ring_exchange(local, snd_next, snd_prev) -> torch.Tensor:
-    """[local | from prev | from next] (G, P, Bl, S + 2H, F), differentiable.
-    CUDA tensors launch row 8 (backward: row 9); CPU tensors take the plain
-    versions."""
-    return _RingExchange.apply(local, snd_next, snd_prev)
-
-
-def ring_ship(a, b) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(a of shard p - 1, b of shard p + 1), differentiable; widths may
-    differ. CUDA tensors launch row 9 (backward: row 9); CPU tensors take
-    the plain version."""
-    return _RingShip.apply(a, b)
+def take_rows(src, idx) -> torch.Tensor:
+    """src (G, n_src, F), idx (G, N) int -> (G, N, F) = src[g, idx[g, i]],
+    differentiable in src (a gather; its transpose adds repeated rows)."""
+    return torch.gather(src, 1, idx.long()[..., None].expand(-1, -1, src.shape[-1]))
 
 
 def take_rows_bwd_plain(idx, n_src: int, g) -> torch.Tensor:
-    """Plain transpose of `take_rows`: `index_add_` (sequential on the CPU;
-    on the card it adds with atomics in no fixed order)."""
+    """The transpose of `take_rows` as `index_add_` (sequential on the CPU)."""
     G, N = idx.shape
     rows = (idx.long() + n_src * torch.arange(G, device=idx.device)[:, None]).reshape(-1)
     out = torch.zeros((G * n_src, g.shape[-1]), dtype=g.dtype, device=g.device)
@@ -182,39 +96,418 @@ def take_rows_bwd_plain(idx, n_src: int, g) -> torch.Tensor:
     return out.reshape(G, n_src, -1)
 
 
-def take_rows_bwd(idx, n_src: int, g) -> torch.Tensor:
-    """(G, n_src, F): g (G, N, F) summed onto the rows idx (G, N) names.
-    Several slots may name one row (padding slots all name row 0, a row can
-    ship both ways, ragged unpack slots are clamped), so on the card the
-    sum goes through row 2's d_src scatter kernel over the sorted inverse
-    list: each row's slots in ascending order, the same bits every run. CPU
-    tensors take the plain version."""
-    if g.device.type == "cpu":
-        return take_rows_bwd_plain(idx, n_src, g)
-    if g.shape[-1] <= 3:
-        raise ValueError(f"take_rows: rows of {g.shape[-1]} floats; the scatter kernel "
-                         "takes 3 + D")
-    out = em.launch_scatter(idx[..., None], n_src, g[..., :3].contiguous(),
-                            g[..., 3:].contiguous())
-    global take_launches
-    take_launches += 1
+# --------------------------------------------------------------------------- #
+# The table of one side in the folded layout of a mesh
+# --------------------------------------------------------------------------- #
+
+@dataclasses.dataclass
+class ExchangeTable:
+    """One side's exchange on a mesh of dp data groups: `src_row` (B, gp,
+    Ssrc) int32, the stacked row b N + n each slot reads or -1; its inverse
+    in CSR form over the B N stacked rows, `order` (slots read,) int32 flat
+    table slots (b gp + p) Ssrc + s ascending within a row, `offsets`
+    (B N + 1,) int32. A padded plan's table holds for any dp dividing B; a
+    ragged plan's (`ragged`) only for the dp it was packed for."""
+
+    src_row: torch.Tensor
+    order: torch.Tensor
+    offsets: torch.Tensor
+    N: int
+    dp: int
+    ragged: bool = False
+
+    @property
+    def dims(self) -> Tuple[int, int, int, int, int, int]:
+        """(B', S, N, Ssrc, gp, Bl) with B' = B gp folded blocks."""
+        B, gp, Ssrc = self.src_row.shape
+        return B * gp, self.N // gp, self.N, Ssrc, gp, B // self.dp
+
+    def to(self, device) -> "ExchangeTable":
+        return dataclasses.replace(self, src_row=self.src_row.to(device),
+                                   order=self.order.to(device), offsets=self.offsets.to(device))
+
+
+def _table_to_folded(t: torch.Tensor, tab: ExchangeTable) -> torch.Tensor:
+    """(B, gp, W, ...) in table order -> folded (B', W, ...)."""
+    B, gp = t.shape[:2]
+    Bl = B // tab.dp
+    return t.reshape(tab.dp, Bl, gp, *t.shape[2:]).transpose(1, 2).reshape(B * gp, *t.shape[2:])
+
+
+def _folded_to_table(t: torch.Tensor, tab: ExchangeTable) -> torch.Tensor:
+    """Folded (B', W, ...) -> (B, gp, W, ...) in table order."""
+    _, _, _, _, gp, Bl = tab.dims
+    return t.reshape(tab.dp, gp, Bl, *t.shape[1:]).transpose(1, 2).reshape(
+        tab.dp * Bl, gp, *t.shape[1:])
+
+
+def gather_index(tab: ExchangeTable) -> torch.Tensor:
+    """(B gp Ssrc,) int64 in table order: the folded source row (blk S + r)
+    of each slot, B' S for a zero slot."""
+    Bp, S, N, _, gp, Bl = tab.dims
+    v = tab.src_row.reshape(-1).long()
+    b, n = v.div(N, rounding_mode="floor"), v.remainder(N)
+    p, r = n.div(S, rounding_mode="floor"), n.remainder(S)
+    blk = (b.div(Bl, rounding_mode="floor") * gp + p) * Bl + b.remainder(Bl)
+    return torch.where(v >= 0, blk * S + r, torch.full_like(v, Bp * S))
+
+
+# --------------------------------------------------------------------------- #
+# Plain versions
+# --------------------------------------------------------------------------- #
+
+def exchange_plain(x, h, tab: ExchangeTable) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain row 8: `index_select` of the table over the folded rows with
+    one zero row appended. x (B', S, 3), h (B', S, D) -> x_src (B', Ssrc,
+    3), h_src (B', Ssrc, D)."""
+    Bp, S, _, Ssrc, gp, _ = tab.dims
+    idx = _table_to_folded(gather_index(tab).reshape(Bp // gp, gp, Ssrc), tab).reshape(-1)
+
+    def one(a):
+        flat = torch.cat([a.reshape(Bp * S, -1), a.new_zeros(1, a.shape[-1])])
+        return flat.index_select(0, idx).reshape(Bp, Ssrc, -1)
+
+    return one(x), one(h)
+
+
+def exchange_bwd_plain(g_x, g_h, tab: ExchangeTable) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain row 9: the cotangents of x and h from those of x_src and h_src,
+    a sequential `index_add_` over the slots in table order (on the card
+    `index_add_` adds with atomics in no fixed order)."""
+    Bp, S, _, Ssrc, _, _ = tab.dims
+    idx = gather_index(tab)
+
+    def one(g):
+        C = g.shape[-1]
+        out = g.new_zeros(Bp * S + 1, C)
+        out.index_add_(0, idx, _folded_to_table(g, tab).reshape(-1, C))
+        return out[:-1].reshape(Bp, S, C)
+
+    return one(g_x), one(g_h)
+
+
+# --------------------------------------------------------------------------- #
+# The kernels
+# --------------------------------------------------------------------------- #
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    lib = load_library()
+    fwd, bwd = lib.equidock_halo_exchange, lib.equidock_halo_exchange_bwd
+    for f in (fwd, bwd):
+        f.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    return fwd, bwd
+
+
+@dataclasses.dataclass(frozen=True)
+class SidePlan:
+    """How one side is laid over the grid: `lpr` lanes a row (a power of
+    two, the same on every side of a launch), `vec` floats an h load (4:
+    float4, else 1), `rows` and `blocks`."""
+
+    lpr: int
+    vec: int
+    rows: int
+    blocks: int
+
+
+def exchange_launch_plan(dims: Sequence[Tuple[int, int, int, int, int, int]], Ds: Sequence[int],
+                         vec: int, backward: bool) -> List[SidePlan]:
+    """The grid of one launch: each side's rows (B' Ssrc output slots
+    forward, B' S local rows backward) on groups of `lpr` lanes, THREADS /
+    lpr rows a block, the sides' blocks one after the other. The kernel is
+    built for three (lpr, vec): float4 loads on 4 lanes when every row
+    holds at most 16 floats, else on 16 (D = 64; wider rows loop), and
+    float loads on 32 lanes. x takes 3 lanes; the backward takes a row's
+    slots min(lpr, BATCH) at a time."""
+    if vec == 4:
+        lpr = 4 if max(Ds) <= 16 else 16
+    elif vec == 1:
+        lpr = 32
+    else:
+        raise ValueError(f"halo_exchange: {vec} floats a load (4 or 1)")
+    plans = []
+    for Bp, S, _, Ssrc, _, _ in dims:
+        rows = Bp * (S if backward else Ssrc)
+        plans.append(SidePlan(lpr, vec, rows, -(-rows // (THREADS // lpr))))
+    return plans
+
+
+def fast_div(n, d: int):
+    """n // d as the kernels compute it for 0 <= n < 2^31: one multiply-high
+    by a magic number (`FastDiv` in `csrc/halo_ring.cu`)."""
+    ell = max(d - 1, 0).bit_length()
+    m = ((1 << 32) * ((1 << ell) - d)) // d + 1
+    n = np.asarray(n, np.int64)
+    return ((((n * m) >> 32) + n) >> ell).astype(np.int64)
+
+
+def _vec_width(ts, Ds) -> int:
+    """4 when every h row is whole float4s at 16-byte aligned addresses."""
+    ok = all(D % 4 == 0 for D in Ds) and all(t.data_ptr() % 16 == 0 for t in ts)
+    return 4 if ok else 1
+
+
+def _launch(which: int, ptrs: List[int], dims, plans, dev) -> None:
+    n = len(plans)
+    ints = []
+    for (Bp, S, N, Ssrc, gp, Bl, D), pl in zip(dims, plans):
+        ints += [Bp, S, N, Ssrc, D, gp, Bl, pl.lpr, pl.vec, pl.rows, pl.blocks]
+    p_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    i_arr = (ctypes.c_int * len(ints))(*ints)
+    with torch.cuda.device(dev):
+        err = _kernel_fns()[which](n, p_arr, i_arr, torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "halo_exchange" + ("_bwd" if which else ""))
+
+
+def _check_table(tab: ExchangeTable, D: int, dev) -> None:
+    B, gp, Ssrc = tab.src_row.shape
+    check_tensor(tab.src_row, "src_row", (B, gp, Ssrc), torch.int32, dev)
+    check_tensor(tab.offsets, "inverse offsets", (B * tab.N + 1,), torch.int32, dev)
+    check_tensor(tab.order, "inverse order", tuple(tab.order.shape), torch.int32, dev)
+    if tab.N % gp or B % tab.dp or B * gp * Ssrc * max(D, 3) >= 2 ** 31:
+        raise ValueError(f"exchange table {tuple(tab.src_row.shape)}, N={tab.N}, dp={tab.dp}, "
+                         f"D={D}: outside the kernels' 32-bit offsets")
+
+
+def exchange_kernel(sides, out=None):
+    """Row 8 on CUDA operands: `sides` a list of one or two (x (B', S, 3),
+    h (B', S, D), ExchangeTable), contiguous f32; one launch for all.
+    `out`: [(x_src, h_src)] to write into, else fresh. Returns the list of
+    (x_src, h_src)."""
+    dev = sides[0][0].device
+    if dev.type != "cuda" or not 1 <= len(sides) <= 2:
+        raise ValueError(f"halo_exchange: {len(sides)} sides on {dev}")
+    dims, ptrs, res = [], [], []
+    for i, (x, h, tab) in enumerate(sides):
+        Bp, S, N, Ssrc, gp, Bl = tab.dims
+        D = h.shape[-1]
+        check_tensor(x, "x", (Bp, S, 3), torch.float32, dev)
+        check_tensor(h, "h", (Bp, S, D), torch.float32, dev)
+        _check_table(tab, D, dev)
+        xo, ho = outputs(((Bp, Ssrc, 3), (Bp, Ssrc, D)), dev,
+                         None if out is None else out[i], "halo_exchange")
+        res.append((xo, ho))
+        dims.append((Bp, S, N, Ssrc, gp, Bl, D))
+        ptrs += [x.data_ptr(), h.data_ptr(), xo.data_ptr(), ho.data_ptr(),
+                 tab.src_row.data_ptr(), 0, 0]
+    Ds = [d[6] for d in dims]
+    vec = _vec_width([s[1] for s in sides] + [r[1] for r in res], Ds)
+    plans = exchange_launch_plan([d[:6] for d in dims], Ds, vec, backward=False)
+    _launch(0, ptrs, dims, plans, dev)
+    global launches
+    launches += 1
+    return res
+
+
+def exchange_bwd_kernel(sides, out=None):
+    """Row 9 on CUDA operands: `sides` a list of one or two (g_x (B', Ssrc,
+    3), g_h (B', Ssrc, D), ExchangeTable); one launch for all. Each local
+    row's cotangent is the sum of its slots in ascending table order from
+    +0.0. Returns the list of (d_x (B', S, 3), d_h (B', S, D))."""
+    dev = sides[0][0].device
+    if dev.type != "cuda" or not 1 <= len(sides) <= 2:
+        raise ValueError(f"halo_exchange_bwd: {len(sides)} sides on {dev}")
+    dims, ptrs, res = [], [], []
+    for i, (gx, gh, tab) in enumerate(sides):
+        Bp, S, N, Ssrc, gp, Bl = tab.dims
+        D = gh.shape[-1]
+        check_tensor(gx, "g_x", (Bp, Ssrc, 3), torch.float32, dev)
+        check_tensor(gh, "g_h", (Bp, Ssrc, D), torch.float32, dev)
+        _check_table(tab, D, dev)
+        dx, dh = outputs(((Bp, S, 3), (Bp, S, D)), dev, None if out is None else out[i],
+                         "halo_exchange_bwd")
+        res.append((dx, dh))
+        dims.append((Bp, S, N, Ssrc, gp, Bl, D))
+        ptrs += [gx.data_ptr(), gh.data_ptr(), dx.data_ptr(), dh.data_ptr(), 0,
+                 tab.order.data_ptr(), tab.offsets.data_ptr()]
+    Ds = [d[6] for d in dims]
+    vec = _vec_width([s[1] for s in sides] + [r[1] for r in res], Ds)
+    plans = exchange_launch_plan([d[:6] for d in dims], Ds, vec, backward=True)
+    _launch(1, ptrs, dims, plans, dev)
+    global bwd_launches
+    bwd_launches += 1
+    return res
+
+
+class _HaloExchange(torch.autograd.Function):
+    """Rows 8 and 9 over one or two sides: inputs (x_1, h_1, x_2, h_2),
+    outputs (x_src_1, h_src_1, ...)."""
+
+    @staticmethod
+    def forward(ctx, tabs, *xh):
+        ctx.tabs = tabs
+        pairs = [(xh[2 * i].contiguous(), xh[2 * i + 1].contiguous(), t)
+                 for i, t in enumerate(tabs)]
+        if xh[0].device.type == "cpu":
+            res = [exchange_plain(x, h, t) for x, h, t in pairs]
+        else:
+            res = exchange_kernel(pairs)
+        return tuple(a for r in res for a in r)
+
+    @staticmethod
+    def backward(ctx, *g):
+        pairs = [(g[2 * i].contiguous(), g[2 * i + 1].contiguous(), t)
+                 for i, t in enumerate(ctx.tabs)]
+        if g[0].device.type == "cpu":
+            res = [exchange_bwd_plain(gx, gh, t) for gx, gh, t in pairs]
+        else:
+            res = exchange_bwd_kernel(pairs)
+        return (None,) + tuple(a for r in res for a in r)
+
+
+def halo_exchange_sides(tabs: Sequence[ExchangeTable], xh: Sequence[torch.Tensor]):
+    """(x_src_1, h_src_1, ...) of one or two sides, differentiable: on CUDA
+    tensors one launch of row 8 (backward: one of row 9); on CPU tensors
+    the plain versions."""
+    return _HaloExchange.apply(tuple(tabs), *xh)
+
+
+def halo_exchange_pair(x_l, h_l, x_r, h_r, tab_l: ExchangeTable, tab_r: ExchangeTable):
+    """Both sides' exchange of one layer: (x_src_l, h_src_l, x_src_r,
+    h_src_r)."""
+    return halo_exchange_sides((tab_l, tab_r), (x_l, h_l, x_r, h_r))
+
+
+# --------------------------------------------------------------------------- #
+# CPU emulation of the kernels' index arithmetic (numpy, every thread)
+# --------------------------------------------------------------------------- #
+
+def _np_table(tab: ExchangeTable):
+    return (tab.src_row.cpu().numpy().reshape(-1).astype(np.int64),
+            tab.order.cpu().numpy().astype(np.int64), tab.offsets.cpu().numpy().astype(np.int64))
+
+
+def _emulated_threads(plans: List[SidePlan]):
+    """(side, row, lane) of every thread of the grid that owns a row, as the
+    kernels compute them from blockIdx and threadIdx."""
+    out = []
+    first = 0
+    for i, pl in enumerate(plans):
+        blocks = np.arange(first, first + pl.blocks)
+        first += pl.blocks
+        t = np.arange(THREADS)
+        shift = pl.lpr.bit_length() - 1
+        bid = (blocks - (first - pl.blocks))[:, None]
+        row = (bid * (THREADS >> shift) + (t[None, :] >> shift)).reshape(-1)
+        lane = np.broadcast_to(t & (pl.lpr - 1), (pl.blocks, THREADS)).reshape(-1)
+        keep = row < pl.rows
+        out.append((i, row[keep], lane[keep]))
     return out
 
 
-class _TakeRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, src, idx):
-        ctx.save_for_backward(idx)
-        ctx.n_src = src.shape[1]
-        return torch.gather(src, 1, idx.long()[..., None].expand(-1, -1, src.shape[-1]))
-
-    @staticmethod
-    def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        return take_rows_bwd(idx, ctx.n_src, g.contiguous()), None
+def _folded_block(blk, gp, Bl):
+    """Folded block -> (b, p), the kernels' integer arithmetic."""
+    g = fast_div(blk, gp * Bl)
+    rem = blk - g * gp * Bl
+    p = fast_div(rem, Bl)
+    return g * Bl + rem - p * Bl, p
 
 
-def take_rows(src, idx) -> torch.Tensor:
-    """src (G, n_src, F), idx (G, N) int -> (G, N, F) = src[g, idx[g, i]],
-    differentiable in src with a transpose that sums in a fixed order."""
-    return _TakeRows.apply(src, idx)
+def _block_of(b, p, gp, Bl):
+    """(b, p) -> folded block (g gp + p) Bl + bl."""
+    g = fast_div(b, Bl)
+    return (g * gp + p) * Bl + b - g * Bl
+
+
+def _stacked_to_folded(v, S, N, gp, Bl):
+    b = fast_div(v, N)
+    n = v - b * N
+    p = fast_div(n, S)
+    return _block_of(b, p, gp, Bl), n - p * S
+
+
+def exchange_tiles_fwd(sides, vec: int = 4):
+    """Row 8's kernel emulated on the CPU: `sides` a list of (x, h, table);
+    every thread of the grid computes its row, source and columns as the
+    kernel does. Returns ([(x_src, h_src)], writes) with `writes` each
+    output float's write count (1 everywhere when the grid covers each
+    output once)."""
+    dims = [t.dims for _, _, t in sides]
+    Ds = [h.shape[-1] for _, h, _ in sides]
+    plans = exchange_launch_plan(dims, Ds, vec, backward=False)
+    res, writes = [], []
+    for (i, row, lane), (x, h, tab) in zip(_emulated_threads(plans), sides):
+        Bp, S, N, Ssrc, gp, Bl = tab.dims
+        D, pl = Ds[i], plans[i]
+        src_row, _, _ = _np_table(tab)
+        xs, hs = x.numpy().reshape(-1, 3), h.numpy().reshape(Bp * S, D)
+        xo, ho = np.full((Bp * Ssrc, 3), np.nan, np.float32), np.full((Bp * Ssrc, D), np.nan,
+                                                                     np.float32)
+        wx, wh = np.zeros(xo.shape, np.int64), np.zeros(ho.shape, np.int64)
+        blk = fast_div(row, Ssrc)
+        s = row - blk * Ssrc
+        b, p = _folded_block(blk, gp, Bl)
+        v = src_row[(b * gp + p) * Ssrc + s]
+        fblk, r = _stacked_to_folded(np.maximum(v, 0), S, N, gp, Bl)
+        src = fblk * S + r
+        live = v >= 0
+        xl = lane < 3
+        xo[row[xl], lane[xl]] = np.where(live[xl], xs[src[xl], lane[xl]], 0.0)
+        np.add.at(wx, (row[xl], lane[xl]), 1)
+        for c0 in range(0, D // pl.vec, pl.lpr):     # the kernel's column loop
+            c = c0 + lane
+            ok = c < D // pl.vec
+            for e in range(pl.vec):
+                col = c[ok] * pl.vec + e
+                ho[row[ok], col] = np.where(live[ok], hs[src[ok], col], 0.0)
+                np.add.at(wh, (row[ok], col), 1)
+        res.append((torch.from_numpy(xo.reshape(Bp, Ssrc, 3)),
+                    torch.from_numpy(ho.reshape(Bp, Ssrc, D))))
+        writes.append((wx, wh))
+    return res, writes
+
+
+def exchange_tiles_bwd(sides, vec: int = 4):
+    """Row 9's kernel emulated on the CPU in float32: `sides` a list of
+    (g_x_src, g_h_src, table); each group walks its row's slots `lpr` at a
+    time in order, as the kernel does. Returns ([(d_x, d_h)], writes,
+    longest slot list)."""
+    dims = [t.dims for _, _, t in sides]
+    Ds = [g.shape[-1] for _, g, _ in sides]
+    plans = exchange_launch_plan(dims, Ds, vec, backward=True)
+    res, writes, longest = [], [], 0
+    for (i, row, lane), (gx, gh, tab) in zip(_emulated_threads(plans), sides):
+        Bp, S, N, Ssrc, gp, Bl = tab.dims
+        D, pl = Ds[i], plans[i]
+        _, order, offsets = _np_table(tab)
+        gxs, ghs = gx.numpy().reshape(-1, 3), gh.numpy().reshape(-1, D)
+        dx, dh = np.full((Bp * S, 3), np.nan, np.float32), np.full((Bp * S, D), np.nan,
+                                                                   np.float32)
+        wx, wh = np.zeros(dx.shape, np.int64), np.zeros(dh.shape, np.int64)
+        blk = fast_div(row, S)
+        r = row - blk * S
+        b, p = _folded_block(blk, gp, Bl)
+        v = b * N + p * S + r
+        beg, end = offsets[v], offsets[v + 1]
+        longest = max(longest, int((end - beg).max(initial=0)))
+
+        def slot_pos(k):
+            q = order[np.minimum(k, len(order) - 1)]
+            bq = fast_div(q, gp * Ssrc)
+            rem = q - bq * gp * Ssrc
+            pq = fast_div(rem, Ssrc)
+            return _block_of(bq, pq, gp, Bl) * Ssrc + rem - pq * Ssrc
+
+        cols = [(lane < 3, None)] + [(c0 + lane < D // pl.vec, c0 + lane)
+                                     for c0 in range(0, D // pl.vec, pl.lpr)]
+        for sel, c in cols:
+            for e in range(1 if c is None else pl.vec):
+                col = lane[sel] if c is None else c[sel] * pl.vec + e
+                src = gxs if c is None else ghs
+                acc = np.zeros(int(sel.sum()), np.float32)
+                k0 = beg[sel].copy()
+                while (k0 < end[sel]).any():
+                    for u in range(min(BATCH, pl.lpr)):
+                        k = k0 + u
+                        live = k < end[sel]
+                        val = src[slot_pos(k), col]
+                        acc = np.where(live, acc + val, acc).astype(np.float32)
+                    k0 += min(BATCH, pl.lpr)
+                dst, w = (dx, wx) if c is None else (dh, wh)
+                dst[row[sel], col] = acc
+                np.add.at(w, (row[sel], col), 1)
+        res.append((torch.from_numpy(dx.reshape(Bp, S, 3)), torch.from_numpy(dh.reshape(Bp, S, D))))
+        writes.append((wx, wh))
+    return res, writes, longest

@@ -13,20 +13,26 @@ src views) on its local block, with a ring cross-attention.
          lists in two tiers, remap the neighbour tables into each shard's
          [local | from prev | from next | residual] index space. Numpy, the
          JAX package's planner line for line: its arrays equal the JAX
-         package's bit for bit.
+         package's bit for bit; they stay on the host. Then, port only,
+         each side's exchange table (`exchange_table`): the stacked row
+         each slot of that space reads, and its inverse, once per batch,
+         on the batch's device.
   device `make_halo_forward` / `make_halo_train_step`: the shards of a
          `ParallelMesh` are blocks of stacked tensors on one device
-         (`parallel/mesh.py`). Per layer and side the ring tier goes
-         through row 8 (`ops/cuda/halo_ring.py::ring_exchange`; padded
-         plans) or row 9 (`ring_ship`; ragged plans), the residual tier is
-         a transpose of (owner, dest) blocks (the tiled all_to_all), and
-         the trunk ends with the all-gather of x and h; the keypoint head
-         and the Kabsch fit run densely. This is the JAX computation with
-         `parallel.pallas_ring_halo` on; on CUDA tensors the ring always
-         runs through the kernels.
+         (`parallel/mesh.py`), so a shard reads the rows it receives where
+         their owner holds them. Per layer both sides' exchanges are one
+         launch of row 8 (`ops/cuda/halo_ring.py::halo_exchange_pair`, a
+         gather by the tables), whatever the tier: the composition of the
+         takes, the ring (`pallas_halo.ring_exchange` / `ring_ship`), the
+         ragged unpack and the residual all_to_all that the JAX package
+         runs with `parallel.pallas_ring_halo` on; their backward is one
+         launch of row 9. The trunk ends with the all-gather of x and h;
+         the keypoint head and the Kabsch fit run densely.
+         `ring_composition` keeps that composition in plain PyTorch, the
+         reference the tables are pinned to.
 
 Moving rows between cards (NCCL send/recv, peer stores) is not ported:
-a mesh that names several devices raises (ROADMAP A10).
+a mesh that names several devices raises (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ from ..graph import PairBatch, ProteinBatch
 from ..models.iegmn import (check_supported, iegmn_layer_forward, keypoint_head,
                             layer_params, trunk_inputs)
 from ..ops.cuda.edge_message import inverse_neighbors
-from ..ops.cuda.halo_ring import ring_exchange, ring_ship, take_rows
+from ..ops.cuda.halo_ring import (ExchangeTable, halo_exchange_pair, halo_exchange_sides,
+                                   ring_exchange, ring_ship, take_rows)
 from ..ops.kabsch import apply_rigid
 from ..params import flatten
 from .mesh import ParallelMesh
@@ -71,7 +78,8 @@ class HaloPlan:
     where each padded-view slot lives in the received flat buffer (clamped
     past the element's true width; the remapped tables never read those).
     The [local | from prev | from next | residual] view the layer body
-    indexes is the same either way."""
+    indexes is the same either way. The device path reads the side's
+    `exchange_table` instead; `ring_composition` reads these."""
 
     send_next: torch.Tensor
     send_prev: torch.Tensor
@@ -89,13 +97,16 @@ class HaloPlan:
 @dataclasses.dataclass
 class HaloBatch:
     """A PairBatch whose node arrays are reordered and whose nbr tables are
-    remapped to each shard's local + halo index space, plus the plans.
-    `pair` is self-consistent (gt and masks permuted alike), so the losses
-    on it equal the dense ones up to the node order."""
+    remapped to each shard's local + halo index space, plus the plans (on
+    the host) and their exchange tables (on the pair's device). `pair` is
+    self-consistent (gt and masks permuted alike), so the losses on it
+    equal the dense ones up to the node order."""
 
     pair: PairBatch
     plan_lig: HaloPlan
     plan_rec: HaloPlan
+    table_lig: ExchangeTable
+    table_rec: ExchangeTable
 
 
 @dataclasses.dataclass
@@ -326,11 +337,74 @@ def _pack_ring(plan: dict, sizes: np.ndarray, S: int, hr: int, dp: int):
     return r_next, r_prev
 
 
+table_builds = 0    # exchange tables built (`exchange_table`), one a side a batch
+
+
+def exchange_table(plan: dict, N: int, device="cpu") -> ExchangeTable:
+    """One side's exchange as a table (numpy, port only): `src_row` (B, gp,
+    Ssrc) int32 with Ssrc = S + 2 Hr + gp Hres, the stacked row b N + n that
+    slot s of shard p's [local | from prev | from next | residual] view
+    holds for complex b, or -1 where the ring's chain ends hold zeros; and
+    its inverse in CSR form over the B N stacked rows: `order`, the
+    flat slots (b gp + p) Ssrc + s that read a row, ascending within each
+    row (a stable argsort), and `offsets` (B N + 1,) (a searchsorted).
+    Returned on `device`; `mesh_table` folds it for a mesh's dp (a ragged
+    plan's table only for the dp it was packed for).
+
+    It is the composition `ring_composition` runs (the takes, the ring or
+    the ragged ship and unpack, the residual all_to_all), slot by slot:
+    padding slots name row 0 of their owner shard, ragged unpack slots past
+    an element's width may name another complex of its group, residual
+    chunks of a shard's own or ring neighbours' name their row 0."""
+    global table_builds
+    table_builds += 1
+    B, gp, hr = plan["send_next"].shape
+    S = N // gp
+    hres = plan["send_res"].shape[-1] // gp
+    Ssrc = S + 2 * hr + gp * hres
+    base = (np.arange(B) * N)[:, None]
+    src = np.full((B, gp, Ssrc), -1, np.int64)
+    ragged = plan.get("send_next_flat") is not None
+    if ragged:
+        dp = plan["send_next_flat"].shape[0]
+        Bl = B // dp
+
+        def unpacked(flat, unpack, owner):
+            # received flat buffer entry -> owner's flattened (Bl S) row ->
+            # stacked row; one (B, Hr) block of the destination
+            v = np.take_along_axis(flat[:, owner], unpack.reshape(dp, Bl * hr), axis=1)
+            bl, r = v // S, v % S
+            b = np.arange(dp)[:, None] * Bl + bl
+            return (b * N + owner * S + r).reshape(B, hr)
+
+    for i in range(gp):
+        src[:, i, :S] = base + i * S + np.arange(S)
+        lo, hi = S, S + hr
+        if i > 0:
+            src[:, i, lo:hi] = (unpacked(plan["send_next_flat"], plan["unpack_prev"][:, i], i - 1)
+                                if ragged else base + (i - 1) * S + plan["send_next"][:, i - 1])
+        if i < gp - 1:
+            src[:, i, hi:hi + hr] = (
+                unpacked(plan["send_prev_flat"], plan["unpack_next"][:, i], i + 1)
+                if ragged else base + (i + 1) * S + plan["send_prev"][:, i + 1])
+        for j in range(gp):
+            o = S + 2 * hr + j * hres
+            src[:, i, o:o + hres] = base + j * S + plan["send_res"][:, j, i * hres:(i + 1) * hres]
+    flat = src.reshape(-1)
+    slots = np.flatnonzero(flat >= 0)
+    order = slots[np.argsort(flat[slots], kind="stable")]
+    offsets = np.searchsorted(flat[order], np.arange(B * N + 1))
+    T = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
+    return ExchangeTable(T(src), T(order), T(offsets), N=N, dp=dp if ragged else 1,
+                         ragged=ragged)
+
+
 def build_halo_batch(pair: PairBatch, gp: int, spatial: bool = True,
                      hmax: Optional[int] = None, ragged: bool = False, dp: int = 1
                      ) -> Tuple[HaloBatch, HaloStats, np.ndarray, np.ndarray]:
-    """Host side: reorder, plan, remap. Returns (HaloBatch on the pair's
-    device, HaloStats, perm_lig, perm_rec); a perm maps new position ->
+    """Host side: reorder, plan, remap. Returns (HaloBatch: pair and
+    exchange tables on the pair's device, plans on the host; HaloStats,
+    perm_lig, perm_rec); a perm maps new position ->
     original index, so `halo_out[b] == dense_out[b][perm[b]]`."""
     lig, rec = pair.lig, pair.rec
     B = lig.x.shape[0]
@@ -357,16 +431,17 @@ def build_halo_batch(pair: PairBatch, gp: int, spatial: bool = True,
     if ragged:
         rf_l = _pack_ring(plan_l, sz_l, lig_p.x.shape[1] // gp, hr_l, dp)
         rf_r = _pack_ring(plan_r, sz_r, rec_p.x.shape[1] // gp, hr_r, dp)
-
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    host = lambda plan: HaloPlan(**{k: torch.from_numpy(np.ascontiguousarray(v))
+                                    for k, v in plan.items()})
     pair_p = PairBatch(
         lig=dataclasses.replace(lig_p, nbr=T(nbr_l)),
         rec=dataclasses.replace(rec_p, nbr=T(nbr_r)),
         gt_lig=T(gt_p), pocket_lig=pair.pocket_lig, pocket_rec=pair.pocket_rec,
         pocket_mask=pair.pocket_mask, pair_mask=pair.pair_mask)
-    hb = HaloBatch(pair=pair_p,
-                   plan_lig=HaloPlan(**{k: T(v) for k, v in plan_l.items()}),
-                   plan_rec=HaloPlan(**{k: T(v) for k, v in plan_r.items()}))
+    hb = HaloBatch(pair=pair_p, plan_lig=host(plan_l), plan_rec=host(plan_r),
+                   table_lig=exchange_table(plan_l, lig_p.x.shape[1], dev),
+                   table_rec=exchange_table(plan_r, rec_p.x.shape[1], dev))
     stats = HaloStats(sizes_lig=sz_l, sizes_rec=sz_r, hring_lig=hr_l, hring_rec=hr_r,
                       hres_lig=hres_l, hres_rec=hres_r, ring_flat_lig=rf_l,
                       ring_flat_rec=rf_r, dp=dp if ragged else 1)
@@ -377,63 +452,63 @@ def build_halo_batch(pair: PairBatch, gp: int, spatial: bool = True,
 # Device side: exchange + sharded trunk
 # --------------------------------------------------------------------------- #
 
-@dataclasses.dataclass
-class ShardPlan:
-    """One side's plan in the folded layout of a mesh: padded tables
-    (dp gp Bl, W), ragged tables (dp gp, R) and (dp gp, Bl Hr)."""
-
-    send_next: torch.Tensor
-    send_prev: torch.Tensor
-    send_res: torch.Tensor
-    hres: int
-    send_next_flat: Optional[torch.Tensor] = None
-    send_prev_flat: Optional[torch.Tensor] = None
-    unpack_prev: Optional[torch.Tensor] = None
-    unpack_next: Optional[torch.Tensor] = None
+def mesh_table(table: ExchangeTable, mesh: ParallelMesh) -> ExchangeTable:
+    """One side's exchange table on `mesh`: the same tensors, folded for
+    the mesh's dp (no copy, no rebuild)."""
+    B, gp = table.src_row.shape[:2]
+    if gp != mesh.gp or B % mesh.dp:
+        raise ValueError(f"table of {B} complexes x {gp} shards does not fit {mesh}")
+    if table.ragged and table.dp != mesh.dp:
+        raise ValueError(f"ragged plan packed for ({table.dp}, {gp}) (dp, gp) groups, "
+                         f"mesh {mesh}")
+    return dataclasses.replace(table, dp=mesh.dp)
 
 
-def shard_plan(plan: HaloPlan, mesh: ParallelMesh) -> ShardPlan:
-    """One side's HaloPlan in the folded layout of `mesh`."""
-    gp = mesh.gp
-    out = ShardPlan(send_next=mesh.fold_plan(plan.send_next),
-                    send_prev=mesh.fold_plan(plan.send_prev),
-                    send_res=mesh.fold_plan(plan.send_res),
-                    hres=plan.send_res.shape[-1] // gp)
-    if plan.ragged:
-        if plan.send_next_flat.shape[:2] != (mesh.dp, gp):
-            raise ValueError(f"ragged plan packed for {tuple(plan.send_next_flat.shape[:2])} "
-                             f"(dp, gp) groups, mesh {mesh}")
-        flat = lambda a: a.reshape(mesh.dp * gp, -1)
-        out.send_next_flat, out.send_prev_flat = flat(plan.send_next_flat), flat(plan.send_prev_flat)
-        out.unpack_prev, out.unpack_next = flat(plan.unpack_prev), flat(plan.unpack_next)
-    return out
+def halo_exchange(x, h, table: ExchangeTable, mesh: ParallelMesh):
+    """x (B', S, 3), h (B', S, D): every shard's local block, folded.
+    Returns (x_src, h_src) (B', S + 2 Hr + gp Hres, .) laid out as [local |
+    from prev | from next | residual], through the side's exchange table:
+    row 8 on CUDA tensors (backward row 9), the plain versions on the CPU.
+    `_trunk` exchanges both sides of a layer in one call
+    (`halo_exchange_pair`)."""
+    return halo_exchange_sides((mesh_table(table, mesh),), (x, h))
 
 
-def halo_exchange(x, h, plan: ShardPlan, mesh: ParallelMesh):
-    """x (B', S, 3), h (B', S, D): every shard's local block, folded. Ships
-    x and h in one buffer. Ring tier: row 8 on the padded send chunks, or
-    row 9 on the ragged flat buffers followed by the unpack; residual tier:
-    the (owner, dest) block transpose, only when it has width. Returns
-    (x_src, h_src) (B', S + 2 Hr + gp Hres, .) laid out as
-    [local | from prev | from next | residual]."""
+def ring_composition(x, h, plan: HaloPlan, mesh: ParallelMesh):
+    """The exchange as the JAX package composes it (`_halo_exchange` with
+    `pallas_ring_halo`), in plain PyTorch: x and h shipped in one buffer;
+    ring tier: the takes of the padded send chunks and the ring exchange,
+    or the ragged flat buffers, the both-way ship and the unpack; residual
+    tier: the (owner, dest) block transpose. Launches no kernel; the
+    reference `exchange_table` is pinned to. Copies the plan's arrays to
+    x's device. Returns (x_src, h_src) as `halo_exchange`."""
+    if plan.ragged and plan.send_next_flat.shape[:2] != (mesh.dp, mesh.gp):
+        raise ValueError(f"ragged plan packed for {tuple(plan.send_next_flat.shape[:2])} "
+                         f"(dp, gp) groups, mesh {mesh}")
+    hp = HaloPlan(**{f.name: None if getattr(plan, f.name) is None
+                     else getattr(plan, f.name).to(x.device)
+                     for f in dataclasses.fields(HaloPlan)})
     xh = torch.cat([x, h], dim=-1)
     Bp, S, F = xh.shape
     G, P = mesh.dp, mesh.gp
-    if plan.send_next_flat is not None:
+    if hp.ragged:
         flat = xh.reshape(G * P, Bp // (G * P) * S, F)
-        snd_n = take_rows(flat, plan.send_next_flat).reshape(G, P, -1, F)
-        snd_p = take_rows(flat, plan.send_prev_flat).reshape(G, P, -1, F)
+        per_group = lambda a: a.reshape(G * P, -1)
+        snd_n = take_rows(flat, per_group(hp.send_next_flat)).reshape(G, P, -1, F)
+        snd_p = take_rows(flat, per_group(hp.send_prev_flat)).reshape(G, P, -1, F)
         from_prev, from_next = ring_ship(snd_n, snd_p)
-        unpack = lambda buf, idx: take_rows(buf.reshape(G * P, -1, F), idx).reshape(Bp, -1, F)
-        parts = [xh, unpack(from_prev, plan.unpack_prev), unpack(from_next, plan.unpack_next)]
+        unpack = lambda buf, idx: take_rows(buf.reshape(G * P, -1, F),
+                                            per_group(idx)).reshape(Bp, -1, F)
+        parts = [xh, unpack(from_prev, hp.unpack_prev), unpack(from_next, hp.unpack_next)]
     else:
-        snd_n = mesh.unfold(take_rows(xh, plan.send_next))
-        snd_p = mesh.unfold(take_rows(xh, plan.send_prev))
+        snd_n = mesh.unfold(take_rows(xh, mesh.fold_plan(hp.send_next)))
+        snd_p = mesh.unfold(take_rows(xh, mesh.fold_plan(hp.send_prev)))
         parts = [ring_exchange(mesh.unfold(xh), snd_n, snd_p).reshape(Bp, -1, F)]
-    if plan.hres > 0:
-        snd = mesh.unfold(take_rows(xh, plan.send_res))            # (G, P, Bl, P Hres, F)
-        blocks = snd.reshape(G, P, snd.shape[2], P, plan.hres, F)  # (G, owner, Bl, dest, ..)
-        parts.append(blocks.transpose(1, 3).reshape(Bp, P * plan.hres, F))
+    hres = hp.send_res.shape[-1] // P
+    if hres > 0:
+        snd = mesh.unfold(take_rows(xh, mesh.fold_plan(hp.send_res)))  # (G, P, Bl, P Hres, F)
+        blocks = snd.reshape(G, P, snd.shape[2], P, hres, F)          # (G, owner, Bl, dest, ..)
+        parts.append(blocks.transpose(1, 3).reshape(Bp, P * hres, F))
     full = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     return full[..., :3], full[..., 3:]
 
@@ -450,19 +525,19 @@ def _ring_attend(mesh: ParallelMesh) -> Callable:
 
 
 def _trunk(p, cfg: ModelConfig, mesh: ParallelMesh, n_lays: int, fine_tune: bool,
-           lig: ProteinBatch, rec: ProteinBatch, x_l_in, plan_l: ShardPlan,
-           plan_r: ShardPlan):
-    """The IEGMN trunk on folded node shards. Per layer: halo exchange of
-    both sides, then the unchanged layer body on the local blocks. Returns
-    the final x and h of both sides gathered to (B, N, .)."""
+           lig: ProteinBatch, rec: ProteinBatch, x_l_in, tab_l: ExchangeTable,
+           tab_r: ExchangeTable):
+    """The IEGMN trunk on folded node shards. Per layer: the halo exchange
+    of both sides in one call, then the unchanged layer body on the local
+    blocks. Returns the final x and h of both sides gathered to (B, N, .)."""
     x_l, x_r = x_l_in, rec.x
     h_l, h_r, he_l, he_r = trunk_inputs(p, cfg, lig, rec)
     orig_h_l, orig_h_r = h_l, h_r
     attend = _ring_attend(mesh)
     inv_l = inv_r = None
     for i in range(n_lays):
-        src_l = halo_exchange(x_l, h_l, plan_l, mesh)
-        src_r = halo_exchange(x_r, h_r, plan_r, mesh)
+        xs_l, hs_l, xs_r, hs_r = halo_exchange_pair(x_l, h_l, x_r, h_r, tab_l, tab_r)
+        src_l, src_r = (xs_l, hs_l), (xs_r, hs_r)
         if i == 0 and torch.is_grad_enabled():   # the remapped nbr's inverse lists
             inv_l = inverse_neighbors(lig.nbr, src_l[0].shape[1])
             inv_r = inverse_neighbors(rec.nbr, src_r[0].shape[1])
@@ -500,8 +575,8 @@ def make_halo_forward(cfg: Config, mesh: ParallelMesh):
                 raise ValueError(f"halo batch on {t.device}, mesh on {mesh.device}")
         x_l_f, h_l_f, x_r_f, h_r_f = _trunk(
             params_stage, mc, mesh, n_lays, fine_tune, mesh.shard_protein(lig),
-            mesh.shard_protein(rec), mesh.fold(x_l_in), shard_plan(hb.plan_lig, mesh),
-            shard_plan(hb.plan_rec, mesh))
+            mesh.shard_protein(rec), mesh.fold(x_l_in), mesh_table(hb.table_lig, mesh),
+            mesh_table(hb.table_rec, mesh))
         return keypoint_head(params_stage, mc, h_l_f, x_l_f, h_r_f, x_r_f,
                              lig.node_mask, rec.node_mask)
 

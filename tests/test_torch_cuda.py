@@ -497,64 +497,119 @@ def test_fused_intersection_step_matches_the_unfused_one(cuda):
 # Rows 8 and 9: the halo ring, and the edge kernels at Nsrc != N
 # --------------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("G,P,Bl,S,H,F", [(1, 2, 1, 512, 64, 67), (2, 4, 3, 7, 5, 67),
-                                          (1, 4, 2, 256, 8, 68), (1, 2, 10, 256, 1, 67)])
-def test_ring_exchange_kernel_equals_plain(cuda, G, P, Bl, S, H, F):
-    """Bit for bit (the kernel moves floats), float4 path (F = 68) and the
-    scalar one, interior shards and both chain ends; two launches alike."""
-    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+def _random_plan(rng, G, P, Bl, S, H, hres, dev):
+    """A padded halo plan of random send rows: (its exchange table on the
+    mesh, the HaloPlan, mesh)."""
+    from equidock_public_tpu_torch.parallel.halo import HaloPlan, exchange_table, mesh_table
+    from equidock_public_tpu_torch.parallel.mesh import ParallelMesh
 
-    gen = torch.Generator().manual_seed(S + H)
-    local, sn, sp = (torch.randn(G, P, Bl, n, F, generator=gen).to(cuda) for n in (S, H, H))
-    before = hr.launches
-    got = hr.ring_exchange_kernel(local, sn, sp)
-    again = hr.ring_exchange_kernel(local, sn, sp)
-    assert hr.launches == before + 2
-    want = hr.ring_exchange_plain(local, sn, sp)
+    B = G * Bl
+    plan = {"send_next": rng.integers(0, S, (B, P, H)), "send_prev": rng.integers(0, S, (B, P, H)),
+            "send_res": rng.integers(0, S, (B, P, P * hres))}
+    mesh = ParallelMesh(G, P, dev)
+    return (mesh_table(exchange_table(plan, P * S, dev), mesh),
+            HaloPlan(**{k: torch.from_numpy(v.astype(np.int32)) for k, v in plan.items()}), mesh)
+
+
+def _check_exchange(cuda, sides, plans, mesh):
+    """Rows 8 and 9 on `sides` [(x, h, table)] in one launch each: row 8
+    bit-equal to the table's index_select and to the ring composition, row
+    9 to the sequential index_add_ on the CPU; two launches alike."""
+    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+    from equidock_public_tpu_torch.parallel.halo import ring_composition
+
+    before = (hr.launches, hr.bwd_launches)
+    got, again = hr.exchange_kernel(sides), hr.exchange_kernel(sides)
+    gen = torch.Generator().manual_seed(len(sides))
+    grads = [(torch.randn(x.shape, generator=gen).to(cuda), torch.randn(h.shape, generator=gen)
+              .to(cuda), t) for (x, h), (_, _, t) in zip(got, sides)]
+    dgot, dagain = hr.exchange_bwd_kernel(grads), hr.exchange_bwd_kernel(grads)
+    assert (hr.launches, hr.bwd_launches) == (before[0] + 2, before[1] + 2)
     torch.cuda.synchronize()
-    assert torch.equal(got, want) and torch.equal(again, got)
+    for (x, h, t), g, a, plan in zip(sides, got, again, plans):
+        for want in (hr.exchange_plain(x, h, t), ring_composition(x, h, plan, mesh)):
+            assert all(torch.equal(u, v) for u, v in zip(g, want))
+        assert all(torch.equal(u, v) for u, v in zip(g, a))
+    for (gx, gh, t), g, a in zip(grads, dgot, dagain):
+        cpu = hr.exchange_bwd_plain(gx.cpu(), gh.cpu(), t.to("cpu"))
+        assert all(torch.equal(u.cpu(), v) for u, v in zip(g, cpu))
+        assert all(torch.equal(u, v) for u, v in zip(g, a))
 
 
-@pytest.mark.parametrize("shape_a,shape_b", [((1, 2, 96, 67), (1, 2, 64, 67)),
-                                             ((2, 4, 3, 5, 67), (2, 4, 3, 5, 67)),
-                                             ((1, 4, 32, 68), (1, 4, 1, 68))])
-def test_ring_ship_kernel_equals_plain(cuda, shape_a, shape_b):
-    from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
+@pytest.mark.parametrize("G,P,Bl,S,H,F", [(1, 2, 1, 512, 64, 67), (2, 4, 3, 7, 5, 67),
+                                          (1, 4, 2, 256, 8, 68), (1, 2, 10, 256, 1, 67),
+                                          (2, 2, 5, 256, 48, 19)])
+def test_ring_exchange_kernel_equals_plain(cuda, G, P, Bl, S, H, F):
+    """Rows 8 and 9 on two sides of D = F - 3 (random padded plans at dp=G,
+    gp=P, Bl complexes a group, shard widths S and S + 1, ring width H, a
+    residual tier of 2 rows a pair): the float4 path (D 64, 16) and the
+    scalar one (D 65), odd S, Hr = 1, interior shards and both chain ends,
+    dp > 1 with Bl > 1; bit for bit, two launches alike."""
+    rng = np.random.default_rng(S + H)
+    sides, plans = [], []
+    for s in (S, S + 1):
+        tab, plan, mesh = _random_plan(rng, G, P, Bl, s, H, 2, cuda)
+        x = torch.from_numpy(rng.standard_normal((G * P * Bl, s, 3)).astype(np.float32))
+        h = torch.from_numpy(rng.standard_normal((G * P * Bl, s, F - 3)).astype(np.float32))
+        sides.append((x.to(cuda), h.to(cuda), tab))
+        plans.append(plan)
+    _check_exchange(cuda, sides, plans, mesh)
 
-    gen = torch.Generator().manual_seed(len(shape_a))
-    a, b = torch.randn(*shape_a, generator=gen).to(cuda), torch.randn(*shape_b, generator=gen).to(cuda)
-    before = hr.ship_launches
-    got = hr.ring_ship_kernel(a, b)
-    assert hr.ship_launches == before + 1
-    for g, w in zip(got, hr.ring_ship_plain(a, b)):
-        assert torch.equal(g, w)
+
+@pytest.mark.parametrize("gp,dp,D", [(2, 1, 64), (4, 1, 64), (2, 2, 16)])
+def test_ring_ship_kernel_equals_plain(cuda, gp, dp, D):
+    """The ragged plans, whose rows the JAX package ships with row 9's TPU
+    kernel (unpack slots past a complex's width may name another complex of
+    its group), on 4 complexes: both sides in one launch of each kernel,
+    bit for bit."""
+    from equidock_public_tpu_torch.parallel.halo import build_halo_batch, mesh_table
+    from equidock_public_tpu_torch.parallel.mesh import ParallelMesh
+
+    rng = np.random.default_rng(gp + dp)
+    pairs = [_batch(rng, cuda) for _ in range(4)]
+    cat = lambda objs: torch.cat(objs)
+    side = lambda name: ProteinBatch(**{k: cat([vars(getattr(p, name))[k] for p in pairs])
+                                        for k in vars(pairs[0].lig)})
+    pair = PairBatch(lig=side("lig"), rec=side("rec"), **{
+        k: cat([getattr(p, k) for p in pairs])
+        for k in ("gt_lig", "pocket_lig", "pocket_rec", "pocket_mask", "pair_mask")})
+    hb, _, _, _ = build_halo_batch(pair, gp=gp, ragged=True, dp=dp)
+    mesh = ParallelMesh(dp, gp, cuda)
+    sides, plans = [], []
+    for name in ("lig", "rec"):
+        x = mesh.fold(getattr(hb.pair, name).x)
+        h = torch.from_numpy(rng.standard_normal(tuple(x.shape[:2]) + (D,)).astype(np.float32))
+        sides.append((x, h.to(cuda), mesh_table(getattr(hb, "table_" + name), mesh)))
+        plans.append(getattr(hb, "plan_" + name))
+    _check_exchange(cuda, sides, plans, mesh)
 
 
 def test_ring_backward_on_the_card_equals_the_cpu(cuda):
-    """The Functions' backwards (row 9 with the slices swapped) and the
-    take's deterministic transpose give the CPU's values, the same bits on
-    two runs."""
+    """The Function on both sides (rows 8 and 9) gives the CPU's values,
+    forward and backward bit for bit, the same bits on two runs."""
     from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
 
-    gen = torch.Generator().manual_seed(0)
-    src = torch.randn(2 * 4 * 3, 9, 67, generator=gen)
-    idx = torch.randint(0, 9, (2 * 4 * 3, 5), generator=gen, dtype=torch.int32)
-    idx[:, -1] = 0                       # padding slots name row 0
-    ct = torch.randn(2, 4, 3, 9 + 10, 67, generator=gen)
+    rng = np.random.default_rng(0)
+    tabs = [_random_plan(rng, 2, 4, 3, s, 5, 1, "cpu")[0] for s in (9, 11)]
+    xh = [torch.from_numpy(rng.standard_normal((24, s, w)).astype(np.float32))
+          for s in (9, 11) for w in (3, 64)]
+    cts = None
 
     def run(dev):
-        leaf = src.to(dev).requires_grad_(True)
-        snd = hr.take_rows(leaf, idx.to(dev)).reshape(2, 4, 3, 5, 67)
-        out = hr.ring_exchange(leaf.reshape(2, 4, 3, 9, 67), snd, snd * 2)
-        (g,) = torch.autograd.grad(out, [leaf], ct.to(dev))
-        return out.detach().cpu(), g.cpu()
+        nonlocal cts
+        leaves = [a.to(dev).requires_grad_(True) for a in xh]
+        out = hr.halo_exchange_pair(*leaves, *(t.to(dev) for t in tabs))
+        if cts is None:
+            gen = torch.Generator().manual_seed(1)
+            cts = [torch.randn(o.shape, generator=gen) for o in out]
+        grads = torch.autograd.grad(out, leaves, [c.to(dev) for c in cts])
+        return [o.detach().cpu() for o in out], [g.cpu() for g in grads]
 
-    before = (hr.launches, hr.ship_launches, hr.take_launches)
+    before = (hr.launches, hr.bwd_launches)
     first, second, cpu = run(cuda), run(cuda), run("cpu")
-    assert (hr.launches, hr.ship_launches, hr.take_launches) == (
-        before[0] + 2, before[1] + 2, before[2] + 2)
-    assert torch.equal(first[0], cpu[0]) and torch.equal(first[1], second[1])
-    torch.testing.assert_close(first[1], cpu[1], rtol=1e-6, atol=1e-6)
+    assert (hr.launches, hr.bwd_launches) == (before[0] + 2, before[1] + 2)
+    for a, b, c in zip(first[0] + first[1], second[0] + second[1], cpu[0] + cpu[1]):
+        assert torch.equal(a, c) and torch.equal(a, b)
 
 
 def test_edge_kernels_with_a_wider_source_match_plain(cuda):
@@ -589,7 +644,8 @@ def test_edge_kernels_with_a_wider_source_match_plain(cuda):
 
 
 def test_halo_forward_on_the_card_matches_the_cpu_path(cuda):
-    """Padded gp=2 and ragged gp=4: row 8 or row 9 launches twice a layer."""
+    """Padded gp=2 and ragged gp=4: row 8 launches once a layer for both
+    sides, row 9 never (no gradient)."""
     from equidock_public_tpu_torch.config import Config
     from equidock_public_tpu_torch.ops.cuda import halo_ring as hr
     from equidock_public_tpu_torch.parallel.halo import build_halo_batch, make_halo_forward
@@ -597,16 +653,16 @@ def test_halo_forward_on_the_card_matches_the_cpu_path(cuda):
 
     cfg = Config(model=ModelConfig(residue_emb_dim=16, iegmn_lay_hid_dim=64, iegmn_n_lays=3,
                                    shared_layers=True, num_att_heads=8))
-    for kw, grew in ((dict(gp=2), (6, 0)), (dict(gp=4, ragged=True), (0, 6))):
+    for kw, grew in ((dict(gp=2), (3, 0)), (dict(gp=4, ragged=True), (3, 0))):
         out = {}
         for dev in (cuda, "cpu"):
             hb, _, _, _ = build_halo_batch(_batch(np.random.default_rng(1), dev), **kw)
-            before = (hr.launches, hr.ship_launches)
+            before = (hr.launches, hr.bwd_launches)
             with torch.inference_mode():
                 out[str(dev)] = make_halo_forward(cfg, ParallelMesh(1, kw["gp"], dev))(
                     init_params(cfg.model, 0, dev), hb)
             if dev == cuda:
-                assert (hr.launches - before[0], hr.ship_launches - before[1]) == grew
+                assert (hr.launches - before[0], hr.bwd_launches - before[1]) == grew
         for key in ("R", "t", "ligand_coords"):
             torch.testing.assert_close(out[str(cuda)][key].cpu(), out["cpu"][key],
                                        rtol=1e-4, atol=1e-3)

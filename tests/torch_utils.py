@@ -43,15 +43,19 @@ def port_halo_batch(jhb):
     """JAX HaloBatch -> the port's HaloBatch on the CPU, field by field."""
     import dataclasses
 
-    from equidock_public_tpu_torch.parallel.halo import HaloBatch, HaloPlan
+    from equidock_public_tpu_torch.parallel.halo import HaloBatch, HaloPlan, exchange_table
 
-    def plan(jp):
-        return HaloPlan(**{f.name: None if getattr(jp, f.name) is None
-                           else t(getattr(jp, f.name), torch.int32)
-                           for f in dataclasses.fields(HaloPlan)})
+    def arrays(jp):
+        return {f.name: np.asarray(getattr(jp, f.name)) for f in dataclasses.fields(HaloPlan)
+                if getattr(jp, f.name) is not None}
 
-    return HaloBatch(pair=port_batch(jhb.pair), plan_lig=plan(jhb.plan_lig),
-                     plan_rec=plan(jhb.plan_rec))
+    plan = lambda a: HaloPlan(**{k: t(v, torch.int32) for k, v in a.items()})
+    pair = jhb.pair
+    lig, rec = arrays(jhb.plan_lig), arrays(jhb.plan_rec)
+    # the JAX plans' arrays, and the port-only exchange tables built from them
+    return HaloBatch(pair=port_batch(pair), plan_lig=plan(lig), plan_rec=plan(rec),
+                     table_lig=exchange_table(lig, pair.lig.x.shape[1]),
+                     table_rec=exchange_table(rec, pair.rec.x.shape[1]))
 
 
 def jax_batch(pb):
