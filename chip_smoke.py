@@ -11,6 +11,10 @@ non-zero without printing a result.
   build    wipes equidock_public_tpu_torch/_build and builds the six
            sources with one nvcc call; prints ptxas' register/shared-memory
            lines
+  native   builds the host graph builder (native/graph_builder.cc) with one
+           g++ call; on the chains of the served requests its distance
+           matrices and kNN tables must be bit-equal to the numpy versions;
+           both timed
   kernels  each CUDA kernel against its plain PyTorch version on the card:
            the forwards at the serving shapes, the backwards (edge message,
            attention dQ and dK/dV) against autograd through the plain
@@ -29,7 +33,10 @@ non-zero without printing a result.
            sums and their backward at the training, a ragged and the
            largest bucket's shapes and at the edges of their tiles (masks
            with holes, a complex whose keys are all masked, a cotangent all
-           0, M = 1, N below one key tile), with the stated tolerances; the
+           0, M = 1, N below one key tile) and at the clash descent's
+           shapes (B = 1, masks of ones, sigma 8, 4132 x 3591 atoms both
+           ways, against the plain versions in float64), with the stated
+           tolerances; the
            halo exchange kernels (rows 8, 9), both sides a launch, at the
            served request's three plans and at the training batch (dp 1
            and 2, D 64 and 16): row 8 bit-equal to the table's index_select
@@ -83,6 +90,21 @@ non-zero without printing a result.
            from one state bit-equal; the halo forward's and step's times
            beside the dense ones in turns, a device profile of each, and the
            halo bytes a layer against a full gather
+  inference  the rest of inference: (a) the 4 requests served with the
+           native builder and with its numpy versions, in turns (request
+           ms); (b) remove_clashes: the descent of the clash golden file's
+           request (4132 x 3591 atoms) from the JAX package's docked pose
+           and from its shifted pose on rows 6 and 7 (2 launches of each an
+           evaluation, the backward none at the stop), the same steps, loss
+           and moved atoms as the JAX package's, again on the plain
+           versions on the card, then the request served with
+           remove_clashes per request and batched; (c) batched serving,
+           max_batch 4, warmed at 4 slots: the 4 requests as one
+           co-arrival, grouped by bucket pair, against the serving golden
+           file (forward ms and dead slots a group); (d) run_inference_dir,
+           run_batched_inference and a two-member ensemble on a directory
+           of tracked chains cut in two, each scored by evaluate_output_dir
+           and held to the same path on the plain versions on the card
   times    each kernel's device time (CUDA-graph replays between CUDA
            events) beside its plain version, its bound and a PyTorch library
            call where one exists, and its eager per-call time (the attention
@@ -900,29 +922,41 @@ def softmin_cases(dev):
 def check_softmin_case(c) -> None:
     """Rows 6 and 7 at one case against their plain versions (S at
     SOFTMIN_TOL, dx and dA norm-wise); each kernel's launch into guarded
-    outputs, and two launches bit-equal. Fills c["err"] and c["check"]."""
+    outputs, and two launches bit-equal. Fills c["err"] and c["check"]. A
+    case may carry its own "sigma", and "reference": "float64" to be held
+    to the plain versions evaluated in float64 (rounded to f32); the f32
+    plain versions' own errors against that are reported as c["plain_f32"]."""
     from equidock_public_tpu_torch.ops import softmin_field as sf
     from equidock_public_tpu_torch.ops.cuda import softmin_field as ksf
 
     (x, a, am), name = c["args"], c["shape"]
+    sigma = c.get("sigma", SIGMA)
+    f64 = c.get("reference") == "float64"
+    ref = ((lambda *t: [u.double() for u in t]) if f64 else (lambda *t: list(t)))
     B, M, N = x.shape[0], x.shape[1], a.shape[1]
     bufs, views = guarded([(B, M)], x.device)
-    got = ksf.softmin_field_fwd(x, a, am, SIGMA, out=views)
+    got = ksf.softmin_field_fwd(x, a, am, sigma, out=views)
     synced(f"softmin_field {name}")
     require_guards(f"softmin_field {name}", bufs)
-    want = sf.softmin_field_sums_plain(x, a, am, SIGMA)
-    c["err"] = check_close(f"softmin_field {name}", [got], [want], SOFTMIN_TOL)
-    require(torch.equal(got, ksf.softmin_field_fwd(x, a, am, SIGMA)),
+    want_s = sf.softmin_field_sums_plain(*ref(x, a, am), sigma).float()
+    c["err"] = check_close(f"softmin_field {name}", [got], [want_s], SOFTMIN_TOL)
+    require(torch.equal(got, ksf.softmin_field_fwd(x, a, am, sigma)),
             f"softmin_field {name}: two launches on the same inputs differ")
     bufs, views = guarded([(B, M, 3), (B, N, 3)], x.device)
-    got = ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA, out=views)
+    got = ksf.softmin_field_bwd(x, a, am, c["c"], sigma, out=views)
     synced(f"softmin_field_bwd {name}")
     require_guards(f"softmin_field_bwd {name}", bufs)
-    want = sf.softmin_field_bwd_plain(x, a, am, c["c"], SIGMA)
+    want = [w.float() for w in sf.softmin_field_bwd_plain(*ref(x, a, am, c["c"]), sigma)]
     c["check"] = check_grads("softmin_field_bwd", name, got, want)
-    again = ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA)
+    again = ksf.softmin_field_bwd(x, a, am, c["c"], sigma)
     require(all(torch.equal(g, h) for g, h in zip(got, again)),
             f"softmin_field_bwd {name}: two launches on the same inputs differ")
+    if f64:
+        plain_g = sf.softmin_field_bwd_plain(x, a, am, c["c"], sigma)
+        c["plain_f32"] = {
+            "softmin_field_max_abs_err": max_err(
+                [sf.softmin_field_sums_plain(x, a, am, sigma)], [want_s]),
+            "softmin_field_bwd_rel_err": [rel_err(g, w) for g, w in zip(plain_g, want)]}
 
 
 def softmin_cost(x, a, am, c=None):
@@ -1720,6 +1754,367 @@ def run_halo(dev, requests, train_golden) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# Slice 5: the rest of inference
+# --------------------------------------------------------------------------- #
+
+CLASH_SIGMA, CLASH_CT = 8.0, 8.0    # remove_clashes_descent's defaults
+MAX_BATCH = 4                       # batched serving
+# Outputs of one model through two paths on the card (batched against one
+# complex a forward, kernels against the plain versions): the serving gate
+# on t and CA, in A; PDB files hold 3 decimals.
+PATH_ATOL = 1e-2
+DIR_CODES = ("2VDB", "2SNI", "1NW9", "1AVX")   # tracked chains cut in two
+# The request served with remove_clashes starts from the port's own docked
+# pose, which differs from the JAX package's by the forward's rounding (R
+# within about 3e-5); the descent turns the ligand about the origin, some
+# 80 A away, and carries that on: 0.057 A at the recorded atoms through the
+# port's CPU path against the JAX golden file. The golden file's own cases
+# start from the JAX package's pose and are held to its tolerance.
+SERVED_CLASH_ATOL = 0.25
+
+
+def load_asset(name: str) -> dict:
+    with open(os.path.join(REPO, "equidock_public_tpu_torch", "assets", name)) as f:
+        return json.load(f)
+
+
+def chain_path(code: str) -> str:
+    return os.path.join(REPO, "artifacts", "db5_test_outputs", f"{code}_l_b_EQUIDOCK_TPU.pdb")
+
+
+def clash_start(g):
+    """(ligand atoms at the clash golden's docked pose, receptor atoms),
+    float32: R @ ligand + t in numpy, as the JAX package's dock_one moves
+    them."""
+    from equidock_public_tpu_torch.data.pdb import read_pdb
+
+    lig = read_pdb(os.path.join(REPO, g["ligand"])).coords
+    rec = read_pdb(os.path.join(REPO, g["receptor"])).coords.astype(np.float32)
+    R, t = np.asarray(g["R"], np.float32), np.asarray(g["t"], np.float32)
+    return ((R @ lig.T).T + t).astype(np.float32), rec
+
+
+def descent_softmin_cases(dev):
+    """Rows 6 and 7 at the descent's shapes: B = 1, masks of ones, the clash
+    golden request's atoms at its docked pose (4132 ligand, 3591 receptor),
+    sigma 8, in both directions, with the cotangent of S that the descent's
+    loss gives there; held to the plain versions in float64."""
+    from equidock_public_tpu_torch.ops import softmin_field as sf
+
+    lig, rec = clash_start(load_asset("db5_clashes.golden.json"))
+    cases = []
+    for q, k, what in ((lig, rec, "ligand atoms in the receptor's field"),
+                       (rec, lig, "receptor atoms in the ligand's field")):
+        x = torch.from_numpy(q).to(dev)[None].contiguous()
+        a = torch.from_numpy(k).to(dev)[None].contiguous()
+        am = torch.ones(1, a.shape[1], device=dev)
+        s = sf.softmin_field_sums_plain(x.double(), a.double(), am.double(), CLASH_SIGMA)
+        g = -CLASH_SIGMA * torch.log(1e-3 + s)
+        c = torch.where(CLASH_CT - g > 0, CLASH_SIGMA / (1e-3 + s), 0.0) / x.shape[1]
+        cases.append(dict(shape=f"B=1 M={x.shape[1]} N={a.shape[1]} (descent: {what}, "
+                                f"sigma 8, masks of ones)", args=(x, a, am),
+                          c=c.float().contiguous(), sigma=CLASH_SIGMA, reference="float64"))
+    return cases
+
+
+def run_native() -> dict:
+    """The native graph builder: one g++ call into _build/, then on the
+    chains of the served requests its distance matrix and kNN tables
+    bit-equal to the numpy versions, both timed (host ms)."""
+    from equidock_public_tpu_torch import native
+    from equidock_public_tpu_torch.data import featurize as fz
+    from equidock_public_tpu_torch.data.pdb import group_residues, read_pdb
+
+    res = native.build()
+    require(res.seconds > 0, "the native library was not built in this run")
+    golden = load_asset("db5_model_best.golden.json")["requests"]
+    codes = sorted({os.path.basename(p)[:4] for g in golden for p in (g["ligand"], g["receptor"])})
+    rows = []
+    for code in codes:
+        atoms = fz.local_frames(fz.filter_residues(group_residues(read_pdb(chain_path(code)))))[-1]
+        ms = {}
+        for name, fn in (("native", native.residue_mean_dist),
+                         ("numpy", fz.residue_mean_distance_matrix)):
+            t0 = time.perf_counter()
+            ms[name] = (fn(atoms), (time.perf_counter() - t0) * 1e3)
+        require(np.array_equal(ms["native"][0], ms["numpy"][0]),
+                f"{code}: native distance matrix differs from the numpy version")
+        tables = {}
+        for name, fn in (("native", native.knn_edges), ("numpy", fz.knn_tables)):
+            t0 = time.perf_counter()
+            tables[name] = (fn(ms["native"][0], 30.0, 10), (time.perf_counter() - t0) * 1e3)
+        require(all(np.array_equal(u, v) for u, v in zip(tables["native"][0], tables["numpy"][0])),
+                f"{code}: native kNN tables differ from the numpy version")
+        rows.append(dict(chain=code, residues=len(atoms), atoms=int(sum(len(a) for a in atoms)),
+                         distances_native_ms=ms["native"][1], distances_numpy_ms=ms["numpy"][1],
+                         knn_native_ms=tables["native"][1], knn_numpy_ms=tables["numpy"][1]))
+    return dict(build_seconds=round(res.seconds, 3), library=os.path.relpath(res.path, REPO),
+                flags=list(native.CXX_FLAGS), bit_equal_to_numpy=codes, chains=rows,
+                threads=os.cpu_count())
+
+
+@contextlib.contextmanager
+def numpy_graph_builder():
+    """build_protein_graph on the numpy versions instead of the native
+    library, for timing the featurization it replaced."""
+    from equidock_public_tpu_torch import native
+    from equidock_public_tpu_torch.data import featurize as fz
+
+    saved = native.residue_mean_dist, native.knn_edges
+    native.residue_mean_dist, native.knn_edges = fz.residue_mean_distance_matrix, fz.knn_tables
+    try:
+        yield
+    finally:
+        native.residue_mean_dist, native.knn_edges = saved
+
+
+def serve_lines_ms(server, golden, out_dir, **extra) -> list:
+    """Per-request seconds (ms) of the golden requests through serve_lines."""
+    lines = [json.dumps({"ligand": os.path.join(REPO, g["ligand"]),
+                         "receptor": os.path.join(REPO, g["receptor"]),
+                         "output": os.path.join(out_dir, f"r{i}.pdb"), **extra})
+             for i, g in enumerate(golden)]
+    buf = io.StringIO()
+    server.serve_lines(lines, buf)
+    resp = [json.loads(x) for x in buf.getvalue().splitlines()]
+    require(len(resp) == len(golden) and all(r["ok"] for r in resp), f"requests failed: {resp}")
+    return [r["seconds"] * 1e3 for r in resp]
+
+
+def check_descent(what, got, case, atoms, tol) -> dict:
+    """A descent on the card against a case of the clash golden file: the
+    same steps and stop, the loss and the recorded atoms within tol."""
+    require(np.isfinite(got.coords).all(), f"{what}: non-finite coordinates")
+    require((got.iterations, got.stopped) == (case["steps"], case["stopped"]),
+            f"{what}: {got.iterations} steps (stopped {got.stopped}), the JAX package "
+            f"{case['steps']} (stopped {case['stopped']})")
+    v_err = abs(got.value - case["value"])
+    require(v_err <= tol["value_atol"], f"{what}: loss {got.value:.7g} at the stop, "
+                                        f"JAX {case['value']:.7g}")
+    err = float(np.abs(got.coords[atoms] - np.asarray(case["coords"])).max())
+    require(err <= tol["coords_atol"], f"{what}: atoms {err:.3g} A from the JAX package's")
+    return dict(steps=got.iterations, value=got.value, value_err=v_err, coords_max_abs_err=err)
+
+
+def run_clashes(dev, server) -> dict:
+    """remove_clashes on the card: the clash golden's two descents from its
+    exact start through rows 6 and 7 (2 forward launches an evaluation, 2
+    backward a step), then on the plain versions on the card; the served
+    request with remove_clashes per request and batched."""
+    from equidock_public_tpu_torch.data.pdb import read_pdb
+    from equidock_public_tpu_torch.eval.inference import remove_clashes_descent
+
+    g = load_asset("db5_clashes.golden.json")
+    lig, rec = clash_start(g)
+    atoms, shift, tol = np.asarray(g["atoms"]), np.asarray(g["shift"], np.float32), g["tolerance"]
+    out = {"tolerance": tol}
+    for name, l0, r0 in (("served", lig, rec), ("shifted", lig - shift, rec - shift)):
+        case = g["cases"][name]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = remove_clashes_descent(l0, r0, device=dev)
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        evals = got.iterations + int(got.stopped)
+        want = {"softmin_field": 2 * evals, "softmin_field_bwd": 2 * got.iterations}
+        for k, n in want.items():
+            require(launches[k] == n, f"descent {name}: {k} launched {launches[k]} times, "
+                                      f"expected {n} ({got.iterations} steps)")
+        require(all(launches[k] == 0 for k, *_ in KERNELS if k not in want),
+                f"descent {name}: other kernels launched: {launches}")
+        check = check_descent(f"descent {name}", got, case, atoms, tol)
+        with plain_versions():
+            plain = remove_clashes_descent(l0, r0, device=dev)
+        plain_check = check_descent(f"descent {name} (plain versions)", plain, case, atoms, tol)
+        out[name] = dict(check, seconds=seconds, ms_per_step=seconds * 1e3 / max(evals, 1),
+                         launches=launches,
+                         plain_versions=plain_check,
+                         kernel_vs_plain_max_abs=float(np.abs(got.coords - plain.coords).max()))
+    # where a step's time goes: a device profile of 20 steps from the served pose
+    out["profile_20_steps"] = device_profile(
+        lambda: remove_clashes_descent(lig, rec, max_iters=20, device=dev), reps=1)
+    # the request itself, served with remove_clashes, per request and batched
+    req = {"ligand": os.path.join(REPO, g["ligand"]), "receptor": os.path.join(REPO, g["receptor"]),
+           "remove_clashes": True}
+    out_dir = tempfile.mkdtemp(prefix="equidock_clash_")
+    try:
+        paths = [os.path.join(out_dir, n) for n in ("one.pdb", "batched.pdb")]
+        buf = io.StringIO()
+        reset_counts()
+        server.serve_lines([json.dumps(dict(req, output=paths[0]))], buf)
+        server.serve_batched([json.dumps(dict(req, output=paths[1]))], buf, MAX_BATCH)
+        launches = read_counts()
+        resp = [json.loads(x) for x in buf.getvalue().splitlines()]
+        require(all(r["ok"] for r in resp), f"served remove_clashes failed: {resp}")
+        coords = [read_pdb(p).coords for p in paths]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    served = np.asarray(g["cases"]["served"]["coords"])
+    errs = [float(np.abs(c[atoms] - served).max()) for c in coords]
+    for what, e in zip(("per request", "batched"), errs):
+        require(e <= SERVED_CLASH_ATOL, f"served remove_clashes ({what}): atoms {e:.3g} A "
+                                        "from the JAX package's descent")
+    require(launches["softmin_field_bwd"] > 0, "served remove_clashes launched no row 7")
+    out["served_request"] = dict(seconds=[r["seconds"] for r in resp],
+                                 atoms_max_abs_err=errs, atol=SERVED_CLASH_ATOL,
+                                 launches=launches)
+    return out
+
+
+def run_batched_serving(server, golden) -> dict:
+    """Batched serving (max_batch 4, warmed at 4 slots): the 4 golden
+    requests as one co-arrival, grouped by bucket pair, each group one
+    forward; R, t and CA against the serving golden file."""
+    n_warm, warm_s = server.warmup(WARMUP_BUCKETS, batch_size=MAX_BATCH)
+    inner, outputs, groups = server.forward, [], []
+
+    def recording_forward(batch):
+        out = inner(batch)
+        outputs.append(out)
+        return out
+
+    server.forward = recording_forward
+    out_dir = tempfile.mkdtemp(prefix="equidock_batched_")
+    try:
+        lines = [json.dumps({"ligand": os.path.join(REPO, g["ligand"]),
+                             "receptor": os.path.join(REPO, g["receptor"]),
+                             "output": os.path.join(out_dir, f"req{i}.pdb")})
+                 for i, g in enumerate(golden)]
+        buf = io.StringIO()
+        reset_counts()
+        served = server.serve_batched(lines, buf, MAX_BATCH, on_group=groups.append)
+        launches = read_counts()
+        resp = [json.loads(x) for x in buf.getvalue().splitlines()]
+    finally:
+        server.forward = inner
+        shutil.rmtree(out_dir, ignore_errors=True)
+    require(served == len(golden) and all(r["ok"] and r["batched"] == len(golden) for r in resp),
+            f"batched serving: {resp}")
+    # the groups (one forward each) in order of first arrival; each request
+    # in the next slot of its group
+    keys = [tuple(gr["buckets"]) for gr in groups]
+    filled, slots = [0] * len(keys), []
+    for r in resp:
+        k = keys.index((bucket_of(server, r["num_lig_res"]), bucket_of(server, r["num_rec_res"])))
+        slots.append((k, filled[k]))
+        filled[k] += 1
+    worst = {k: 0.0 for k in GOLDEN_ATOL}
+    for (group, j), g in zip(slots, golden):
+        o = outputs[group]
+        got = {"R": o["R"][j].cpu().numpy(), "t": o["t"][j, 0].cpu().numpy(),
+               "ca": o["ligand_coords"][j, :8].cpu().numpy()}
+        for k, atol in GOLDEN_ATOL.items():
+            err = float(np.abs(got[k] - np.asarray(g[k])).max())
+            worst[k] = max(worst[k], err)
+            require(np.isfinite(got[k]).all() and err <= atol,
+                    f"batched {g['ligand']}: {k} differs from the JAX golden value by {err:.3g}")
+    per_fwd = LAYERS * SIDES
+    for k in ("edge_message", "cross_attention"):
+        require(launches[k] == per_fwd * len(groups),
+                f"batched: {k} launched {launches[k]} times for {len(groups)} forwards")
+    expect_combines("batched", launches)
+    return dict(warmed=n_warm, warmup_seconds=warm_s, max_batch=MAX_BATCH, launches=launches,
+                groups=[dict(gr, forward_ms=gr.pop("forward_seconds") * 1e3) for gr in groups],
+                batch_seconds=resp[0]["batch_seconds"], golden_max_abs_err=worst)
+
+
+def bucket_of(server, n: int) -> int:
+    from equidock_public_tpu_torch.config import bucket_for
+
+    return bucket_for(n, server.cfg.data.node_buckets)
+
+
+def write_complex_dirs(root: str):
+    """in/X_l_b.pdb, gt/X_{l,r}_b_COMPLEX.pdb: the tracked chains of
+    DIR_CODES cut in two at half their residues (file order)."""
+    inp, gt = os.path.join(root, "in"), os.path.join(root, "gt")
+    os.makedirs(inp)
+    os.makedirs(gt)
+    for code in DIR_CODES:
+        with open(chain_path(code)) as f:
+            lines = [ln for ln in f if ln.startswith("ATOM")]
+        keys = list(dict.fromkeys(ln[21:27] for ln in lines))
+        first = set(keys[:len(keys) // 2])
+        for path, keep in ((os.path.join(gt, f"{code}_l_b_COMPLEX.pdb"), True),
+                           (os.path.join(gt, f"{code}_r_b_COMPLEX.pdb"), False),
+                           (os.path.join(inp, f"{code}_l_b.pdb"), True)):
+            with open(path, "w") as f:
+                f.writelines(ln for ln in lines if (ln[21:27] in first) == keep)
+    return inp, gt
+
+
+def run_directories(dev, root) -> dict:
+    """run_inference_dir, run_batched_inference (2 a batch) and a two-member
+    ensemble (the shipped weights and a random 16-wide db5_model_small-sized
+    model) on a directory of tracked chains cut in two, each scored by
+    evaluate_output_dir; each against the same path on the plain versions
+    on the card, the batched outputs against the per-complex ones."""
+    from equidock_public_tpu_torch.config import Config, ModelConfig
+    from equidock_public_tpu_torch.data.pdb import read_pdb
+    from equidock_public_tpu_torch.eval.batch_inference import run_batched_inference
+    from equidock_public_tpu_torch.eval.ensemble import Member, run_ensemble_dir
+    from equidock_public_tpu_torch.eval.inference import run_inference_dir
+    from equidock_public_tpu_torch.eval.rmsd import evaluate_output_dir
+    from equidock_public_tpu_torch.params import (default_checkpoint, init_params,
+                                                  load_checkpoint, save_params)
+
+    inp, gt = write_complex_dirs(root)
+    params, cfg = load_checkpoint(default_checkpoint(), dev)
+    small_cfg = dataclasses.replace(cfg, model=ModelConfig(
+        residue_emb_dim=16, iegmn_lay_hid_dim=16, iegmn_n_lays=2, num_att_heads=8))
+    small = os.path.join(root, "small.pt.xz")
+    save_params(small, init_params(small_cfg.model, seed=3))
+    with open(os.path.join(root, "small.config.json"), "w") as f:
+        json.dump(dataclasses.asdict(small_cfg), f)
+    n = len(DIR_CODES)
+    quiet = lambda *a: None
+    members = lambda: [Member(p, cfg, dev) for p in (default_checkpoint(), small)]
+    paths = {
+        "inference_dir": (lambda d: run_inference_dir(params, cfg, inp, gt, d, log=quiet,
+                                                      device=dev), "equidock_tpu",
+                          {"edge_message": 10 * n}),
+        "batch_inference": (lambda d: run_batched_inference(params, cfg, inp, gt, d,
+                                                            batch_size=2, log=quiet,
+                                                            device=dev), "equidock_tpu",
+                            {"edge_message": 10 * -(-n // 2)}),
+        "ensemble": (lambda d: run_ensemble_dir(members(), inp, gt, d, log=quiet),
+                     "equidock_tpu_ens", {"edge_message": (10 + 4) * n}),
+    }
+    out, coords = {}, {}
+    for name, (run, method, want) in paths.items():
+        d = os.path.join(root, name)
+        reset_counts()
+        t0 = time.perf_counter()
+        run(d)
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        require(launches["edge_message"] == want["edge_message"]
+                and launches["cross_attention"] == want["edge_message"],
+                f"{name}: {launches['edge_message']} edge and {launches['cross_attention']} "
+                f"attention launches, expected {want['edge_message']} each")
+        expect_combines(name, launches)
+        scores = evaluate_output_dir(d, gt, method)
+        require(scores["num_files"] == n and all(np.isfinite(v) for v in scores.values()),
+                f"{name}: scores {scores}")
+        with plain_versions():
+            run(d + "_plain")
+        files = sorted(os.listdir(d))
+        coords[name] = {f: read_pdb(os.path.join(d, f)).coords for f in files}
+        err = max(float(np.abs(c - read_pdb(os.path.join(d + "_plain", f)).coords).max())
+                  for f, c in coords[name].items())
+        require(err <= PATH_ATOL, f"{name}: kernels {err:.3g} A from the plain versions")
+        out[name] = dict(seconds=seconds, launches=launches, scores=scores,
+                         vs_plain_max_abs=err)
+    err = max(float(np.abs(coords["batch_inference"][f] - c).max())
+              for f, c in coords["inference_dir"].items())
+    require(err <= PATH_ATOL, f"batched inference {err:.3g} A from one complex a forward")
+    out["batched_vs_per_complex_max_abs"] = err
+    out["atol"] = PATH_ATOL
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # Main
 # --------------------------------------------------------------------------- #
 
@@ -1758,6 +2153,9 @@ def main() -> int:
              if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     emit("build", seconds=round(res.seconds, 2), library=os.path.relpath(res.path, REPO),
          ptxas=ptxas)
+
+    # -- native: the host graph builder (slice 5) ---------------------------
+    emit("native", **run_native())
 
     # -- kernels --------------------------------------------------------------
     params, cfg = load_checkpoint(default_checkpoint(), dev)
@@ -1818,7 +2216,7 @@ def main() -> int:
         combines[name] = dict(shape=shape, parts=parts, kern=kern, plain=plain,
                               library=library, outs=as_tuple(got), err=err)
     # rows 6 and 7: the soft-min field sums and their backward
-    s_cases = softmin_cases(dev)
+    s_cases = softmin_cases(dev) + descent_softmin_cases(dev)
     for c in s_cases:
         check_softmin_case(c)
     # rows 8 and 9, and the edge kernels at Nsrc != N, at the halo path's shapes
@@ -1835,6 +2233,8 @@ def main() -> int:
          cross_attention_dkv=[{"shape": c["shape"], **c["check_dkv"]} for c in ab_cases],
          softmin_field=[{"shape": c["shape"], "max_abs_err": c["err"]} for c in s_cases],
          softmin_field_bwd=[{"shape": c["shape"], **c["check"]} for c in s_cases],
+         softmin_plain_f32_vs_float64={c["shape"]: c["plain_f32"] for c in s_cases
+                                       if "plain_f32" in c},
          bit_equal=[f"edge_message and edge_message_bwd ({len(edge_checks)} and "
                     f"{sum('bwd' in c for c in edge_checks)} shapes, Nsrc != N included)",
                               f"softmin_field and softmin_field_bwd ({len(s_cases)} shapes)",
@@ -1932,6 +2332,29 @@ def main() -> int:
     halo = run_halo(dev, requests, train_golden)
     emit("halo", **halo)
 
+    # -- inference: the main paths of slice 5 -------------------------------------
+    featurize_ms = {"native": [], "numpy": []}
+    feat_dir = tempfile.mkdtemp(prefix="equidock_featurize_")
+    try:
+        for builder in ("native", "numpy", "numpy", "native"):      # in turns
+            with numpy_graph_builder() if builder == "numpy" else contextlib.nullcontext():
+                featurize_ms[builder] += serve_lines_ms(server, golden, feat_dir)
+    finally:
+        shutil.rmtree(feat_dir, ignore_errors=True)
+    clashes = run_clashes(dev, server)
+    batched = run_batched_serving(server, golden)
+    root = tempfile.mkdtemp(prefix="equidock_dirs_")
+    try:
+        directories = run_directories(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("inference", request_ms={k: v for k, v in featurize_ms.items()},
+         request_ms_median={k: statistics.median(v) for k, v in featurize_ms.items()},
+         request_ms_note="the 4 golden requests through serve_lines, featurized with the "
+                         "native builder or its numpy versions, in turns (native, numpy, "
+                         "numpy, native)",
+         clashes=clashes, batched=batched, directories=directories)
+
     # -- times -----------------------------------------------------------------
     rows = []
     for c in e_cases + [eb_case, e16]:      # row 1 also at the step's shape
@@ -2010,18 +2433,19 @@ def main() -> int:
                              whole_backward_device_ms=device_bwd))
     no_library = ("none: no single PyTorch call computes the soft-min field sums "
                   "(torch.cdist gives only the distances)")
-    for c in s_cases[:3]:      # the training, ragged and largest shapes
+    for c in s_cases[:3] + s_cases[-2:]:   # training, ragged, largest; the descent's
         x, a, am = c["args"]
         for name in ("softmin_field", "softmin_field_bwd"):
             bwd = name.endswith("bwd")
             nbytes, flops = softmin_cost(x, a, am, c["c"] if bwd else None)
             b_ms, b_by = bound(nbytes, flops)
+            sig = c.get("sigma", SIGMA)
             if bwd:
-                kern = lambda: ksf.softmin_field_bwd(x, a, am, c["c"], SIGMA)
-                plain = lambda: sf.softmin_field_bwd_plain(x, a, am, c["c"], SIGMA)
+                kern = lambda: ksf.softmin_field_bwd(x, a, am, c["c"], sig)
+                plain = lambda: sf.softmin_field_bwd_plain(x, a, am, c["c"], sig)
             else:
-                kern = lambda: ksf.softmin_field_fwd(x, a, am, SIGMA)
-                plain = lambda: sf.softmin_field_sums_plain(x, a, am, SIGMA)
+                kern = lambda: ksf.softmin_field_fwd(x, a, am, sig)
+                plain = lambda: sf.softmin_field_sums_plain(x, a, am, sig)
             rows.append(dict(kernel=name, shape=c["shape"], ms=device_ms(kern),
                              call_ms=call_ms(kern), plain_ms=device_ms(plain, reps=5),
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -2118,7 +2542,12 @@ def main() -> int:
                    "epoch": epoch_golden["launches"][name],
                    "epoch_db5_sized": epoch_db5["launches"][name],
                    "halo_serve": halo["launches_serve"][name],
-                   "halo_train": halo["train"]["launches"][name]}
+                   "halo_train": halo["train"]["launches"][name],
+                   "clashes_served": clashes["served"]["launches"][name],
+                   "clashes_shifted": clashes["shifted"]["launches"][name],
+                   "batched_serve": batched["launches"][name],
+                   **{p: directories[p]["launches"][name]
+                      for p in ("inference_dir", "batch_inference", "ensemble")}}
         table.append(dict(name=name, route="cuda",
                           source=f"equidock_public_tpu_torch/{source}",
                           replaces=f"equidock_public_tpu/{replaces}",

@@ -4,9 +4,12 @@ fixed-degree neighbor tables `nbr (N, K)`, `nbr_mask (N, K)` and
 `edge_feat (N, K, 27)`; for training, the binding pocket and the random
 pose of a sample.
 
-The port's own copy of the numpy path of `equidock_public_tpu/data/featurize.py`
+The port's own copy of `equidock_public_tpu/data/featurize.py`
 (`build_protein_graph` and its helpers, `extract_pocket`,
-`uniform_rotation_translation`). Edge convention: edge k of node i has
+`uniform_rotation_translation`). `build_protein_graph` takes the distance
+matrix and the kNN tables from the C++ builder (`native/`);
+`residue_mean_distance_matrix` and `knn_tables` are their plain numpy
+versions, bit-equal, which the tests hold it to. Edge convention: edge k of node i has
 source j = nbr[i, k] and destination i, so x_rel = x_j - x_i.
 """
 
@@ -167,13 +170,16 @@ def knn_tables(dist: np.ndarray, cutoff: float, max_neighbor: int
 def build_protein_graph(residues: Sequence[GroupedResidue],
                         cutoff: float = 30.0,
                         max_neighbor: int = 10) -> ProteinGraph:
-    """Build the kNN residue graph with all node and edge features."""
+    """Build the kNN residue graph with all node and edge features (the
+    distances and neighbour tables from the C++ builder, `native/`)."""
+    from .. import native
+
     ca, n_i, u_i, v_i, atoms = local_frames(residues)
     num = ca.shape[0]
     if num <= 1:
         raise ValueError("protein contains only 1 residue")
-    dist = residue_mean_distance_matrix(atoms)
-    nbr, nbr_mask, nbr_dist = knn_tables(dist, cutoff, max_neighbor)
+    dist = native.residue_mean_dist(atoms)
+    nbr, nbr_mask, nbr_dist = native.knn_edges(dist, cutoff, max_neighbor)
 
     # Surface-awareness feature mu_r_norm: softmax(-d^2/sigma)-weighted mean
     # of (x_i - x_j) against the weighted mean of their norms, 5 sigmas.

@@ -1,6 +1,7 @@
 """Minimal fixed-column PDB reader/writer: the port's copy of the parts of
-`equidock_public_tpu/data/pdb.py` that serving needs. Only ATOM records are
-parsed, with the columns the pipeline uses (PDB 3.3 column layout).
+`equidock_public_tpu/data/pdb.py` that inference and the evaluator need.
+Only ATOM records are parsed, with the columns the pipeline uses (PDB 3.3
+column layout).
 """
 
 from __future__ import annotations
@@ -97,3 +98,8 @@ def group_residues(table: AtomTable) -> List[GroupedResidue]:
             "resname": key[2],
         }))
     return out
+
+
+def ca_coords(table: AtomTable) -> np.ndarray:
+    """CA atom coordinates in file order (the evaluator's convention)."""
+    return table.coords[table.atom_name == "CA"].astype(np.float32)

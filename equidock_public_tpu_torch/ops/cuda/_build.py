@@ -41,8 +41,8 @@ BUILD_TIMEOUT_S = 240
 @dataclasses.dataclass
 class BuildResult:
     path: str          # the shared library
-    seconds: float     # nvcc wall time (0 when the library was already built)
-    log: str           # nvcc's output (ptxas register / shared-memory lines)
+    seconds: float     # compiler wall time (0 when the library was already built)
+    log: str           # the compiler's output (nvcc: ptxas register / shared-memory lines)
 
 
 def find_nvcc() -> str:
@@ -70,32 +70,43 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build(nvcc: Optional[str] = None) -> BuildResult:
-    """Compile the sources unless a library for this exact source hash exists."""
-    out_dir = os.path.join(BUILD_DIR, source_hash())
-    lib = os.path.join(out_dir, LIB_NAME)
+def compile_library(compiler: str, flags, sources, out_dir: str, lib_name: str,
+                    timeout_s: float) -> BuildResult:
+    """One compiler call `compiler flags -o <lib> sources` into
+    `out_dir/lib_name`, unless that library exists. The call writes to a
+    temporary name that is renamed into place, so processes that race to
+    build the same library each finish with a whole one."""
+    lib = os.path.join(out_dir, lib_name)
     if os.path.exists(lib):
         return BuildResult(lib, 0.0, "")
-    nvcc = nvcc or find_nvcc()
     os.makedirs(out_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_source_paths()]
+    cmd = [compiler, *flags, "-o", tmp, *sources]
+    name = os.path.basename(compiler)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout_s)
     except subprocess.TimeoutExpired as e:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc timed out after {BUILD_TIMEOUT_S} s: {' '.join(cmd)}\n"
+        raise RuntimeError(f"{name} timed out after {timeout_s} s: {' '.join(cmd)}\n"
                            f"{e.stdout or ''}{e.stderr or ''}") from e
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"{name} failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
     os.replace(tmp, lib)
     return BuildResult(lib, seconds, log)
+
+
+def build(nvcc: Optional[str] = None) -> BuildResult:
+    """Compile the sources unless a library for this exact source hash exists."""
+    out_dir = os.path.join(BUILD_DIR, source_hash())
+    if os.path.exists(os.path.join(out_dir, LIB_NAME)):
+        return BuildResult(os.path.join(out_dir, LIB_NAME), 0.0, "")
+    return compile_library(nvcc or find_nvcc(), NVCC_FLAGS, _source_paths(), out_dir,
+                           LIB_NAME, BUILD_TIMEOUT_S)
 
 
 @functools.lru_cache(maxsize=None)

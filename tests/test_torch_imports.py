@@ -3,7 +3,9 @@ nor `chip_smoke.py` may import JAX, flax, optax, orbax or anything of the
 JAX package `equidock_public_tpu`, because the machine with the card has
 none of them. Checked statically (ast) and by running the port's serving
 path, one training step and one halo forward and step in a process where
-those modules cannot be imported."""
+those modules cannot be imported; likewise the inference surface (native
+builder, clash removal, directory, batched and ensemble inference, the
+evaluator, batched serving)."""
 
 import ast
 import os
@@ -229,6 +231,80 @@ def test_a_halo_forward_and_step_run_with_jax_and_the_jax_package_unimportable()
                           timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "HALO" in proc.stdout
+
+
+INFERENCE_MODULES = ("native/__init__.py", "data/pdb.py", "data/featurize.py",
+                     "eval/inference.py", "eval/batch_inference.py", "eval/ensemble.py",
+                     "eval/rmsd.py", "cli/_common.py", "cli/serve.py", "cli/inference.py",
+                     "cli/ensemble_inference.py", "cli/eval_outputs.py")
+
+BLOCKED_INFERENCE = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint",
+             "equidock_public_tpu"):
+    sys.modules[name] = None
+import dataclasses, io, json, os, shutil, tempfile
+import torch
+torch.set_num_threads(1)     # small ops: no contention with the other test workers
+from equidock_public_tpu_torch.cli.serve import DockingServer
+from equidock_public_tpu_torch.config import Config, ModelConfig
+from equidock_public_tpu_torch.eval.batch_inference import run_batched_inference
+from equidock_public_tpu_torch.eval.ensemble import Member, run_ensemble_dir
+from equidock_public_tpu_torch.eval.inference import run_inference_dir
+from equidock_public_tpu_torch.eval.rmsd import evaluate_output_dir
+from equidock_public_tpu_torch.params import init_params, save_params
+tmp = tempfile.mkdtemp()
+cfg = Config(model=ModelConfig(residue_emb_dim=8, iegmn_lay_hid_dim=8, iegmn_n_lays=2,
+                               num_att_heads=4))
+params = init_params(cfg.model)
+weights = os.path.join(tmp, "tiny.pt.xz")
+save_params(weights, params)
+json.dump(dataclasses.asdict(cfg), open(os.path.join(tmp, "tiny.config.json"), "w"))
+lines = [l for l in open(os.path.join(REPO, "artifacts", "db5_test_outputs",
+                                      "2VDB_l_b_EQUIDOCK_TPU.pdb")) if l.startswith("ATOM")]
+keys = list(dict.fromkeys(l[21:27] for l in lines))
+for d in ("in", "gt"):
+    os.makedirs(os.path.join(tmp, d))
+half = set(keys[:len(keys) // 2])
+for name, keep in (("gt/X_l_b_COMPLEX.pdb", True), ("gt/X_r_b_COMPLEX.pdb", False),
+                   ("in/X_l_b.pdb", True)):
+    open(os.path.join(tmp, name), "w").writelines(l for l in lines if (l[21:27] in half) == keep)
+inp, gt = os.path.join(tmp, "in"), os.path.join(tmp, "gt")
+run_inference_dir(params, cfg, inp, gt, os.path.join(tmp, "a"), remove_clashes=True,
+                  log=lambda *a: None, device="cpu")
+run_batched_inference(params, cfg, inp, gt, os.path.join(tmp, "a"), method_name="b",
+                      log=lambda *a: None, device="cpu")
+run_ensemble_dir([Member(weights, cfg, "cpu")] * 2, inp, gt, os.path.join(tmp, "a"),
+                 method_name="e", log=lambda *a: None)
+for m in ("equidock_tpu", "b", "e"):
+    assert evaluate_output_dir(os.path.join(tmp, "a"), gt, m)["num_files"] == 1
+buf = io.StringIO()
+req = {"ligand": os.path.join(inp, "X_l_b.pdb"), "receptor": os.path.join(gt, "X_r_b_COMPLEX.pdb"),
+       "output": os.path.join(tmp, "s.pdb"), "remove_clashes": True}
+assert DockingServer(params, cfg, "cpu").serve_batched([json.dumps(req)] * 2, buf, 2) == 2
+assert all(json.loads(x)["ok"] for x in buf.getvalue().splitlines())
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "equidock_public_tpu")]
+assert not loaded, loaded
+print("INFERRED")
+"""
+
+
+@pytest.mark.parametrize("module", INFERENCE_MODULES)
+def test_inference_modules_are_under_the_guard(module):
+    path = os.path.join(PKG, module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{module} imports {bad}"
+
+
+def test_the_inference_surface_runs_with_jax_and_the_jax_package_unimportable():
+    code = f"REPO = {REPO!r}\n" + BLOCKED_INFERENCE
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "INFERRED" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -1,6 +1,7 @@
 """The port's serving path (`serve_lines`, `dock_one`) on the CPU at the DB5
 paper model's full width with the committed weights; the committed weights
-and golden values pinned to the orbax checkpoint and the JAX package.
+and golden values pinned to the orbax checkpoint and the JAX package; a
+request with `remove_clashes` against the JAX package's `dock_one`.
 
 Tolerances. Golden values regenerated by JAX on the CPU: atol 1e-4 on R and
 1e-3 on t and CA coordinates (same code, different thread counts). The
@@ -43,6 +44,21 @@ def server():
 
 def _abs(p):
     return os.path.join(REPO, p)
+
+
+def _jax_dock_one(g, out_path, remove_clashes):
+    """The JAX package's `dock_one` on a golden request: the written ligand
+    coordinates (products at "highest" precision)."""
+    import jax
+
+    from equidock_public_tpu.eval.inference import dock_one as jax_dock_one
+    from equidock_public_tpu.train.checkpoint import load_checkpoint as jax_load
+
+    payload, cfg, _ = jax_load(torch_golden.CHECKPOINT)
+    with jax.default_matmul_precision("highest"):
+        jax_dock_one(payload["params"], cfg, _abs(g["ligand"]), _abs(g["receptor"]), out_path,
+                     remove_clashes=remove_clashes)
+    return read_pdb(out_path).coords
 
 
 def test_weights_file_matches_the_orbax_checkpoint():
@@ -106,8 +122,10 @@ def test_serve_lines_answers_every_line(server, golden, tmp_path):
     assert lines[0]["num_lig_res"] == 55 and lines[0]["num_rec_res"] == 327
     assert "FileNotFoundError" in lines[1]["error"] and lines[1]["ok"] is False
     assert "JSONDecodeError" in lines[2]["error"]
-    assert lines[3] == {"ok": False,
-                        "error": "NotImplementedError: remove_clashes is not ported yet"}
+    # clash removal is served, and its output is the JAX package's
+    assert lines[3]["ok"] is True and lines[3]["output"] == str(tmp_path / "y.pdb")
+    want = _jax_dock_one(g, str(tmp_path / "jax.pdb"), remove_clashes=True)
+    np.testing.assert_allclose(read_pdb(lines[3]["output"]).coords, want, atol=1e-2)
 
 
 def test_main_per_request_mode(monkeypatch, capsys, golden, tmp_path):

@@ -2,12 +2,14 @@
 `equidock_public_tpu_torch/assets/db5_model_best.golden.json` (the served
 smoke requests), `db5_train_step.golden.json` (three training steps of
 the DB5 paper model from its trained weights on a batch of ten split
-chains) and `db5_fit.golden.json` (two epochs of `fit` on the tracked
-split chains, with the fused intersection loss). Shared by the tests and
-the command that writes the files:
+chains), `db5_fit.golden.json` (two epochs of `fit` on the tracked
+split chains, with the fused intersection loss) and `db5_clashes.golden.json`
+(a served request docked and then through the clash-removal descent, at
+full atom count). Shared by the tests and the command that writes the files:
 
-    JAX_PLATFORMS=cpu python -m tests.torch_golden         # all of them
-    JAX_PLATFORMS=cpu python -m tests.torch_golden fit     # the fit file only
+    JAX_PLATFORMS=cpu python -m tests.torch_golden           # all of them
+    JAX_PLATFORMS=cpu python -m tests.torch_golden fit       # the fit file only
+    JAX_PLATFORMS=cpu python -m tests.torch_golden clashes   # the clash file only
 """
 
 import json
@@ -296,6 +298,104 @@ def jax_fit_golden():
     }
 
 
+CLASH_GOLDEN = os.path.join(ASSETS, "db5_clashes.golden.json")
+CLASH_PAIR = PAIRS[1]           # 1N2C -> 5JMO: 4132 x 3591 atoms
+CLASH_ATOMS = 64                # moved ligand atoms recorded, evenly spaced
+# The descent rotates the ligand about the origin, so its speed depends on
+# where the complex lies: from the served pose it stops after 57 steps.
+# The "shifted" case moves both proteins by -CLASH_SHIFT_FRACTION x the
+# receptor's atom centroid first (the same complex, the rotation's centre
+# half way to the receptor), and runs 519 steps.
+CLASH_SHIFT_FRACTION = 0.5
+# The port against these values: the same number of steps, the loss at the
+# stop within 2e-3, the recorded atoms within 2e-2 A. f32 sums in another
+# order move each step's rotation about the origin (the atoms lie some 80 A
+# from it); the port's CPU path read 4.4e-4 and 4.7e-3 A on the served case.
+CLASH_TOL = {"value_atol": 2e-3, "coords_atol": 2e-2}
+
+
+class DescentRecorder:
+    """Stands in for the `jax` module inside `equidock_public_tpu.eval.inference`
+    while it runs: every call of a jitted (value, grad) function records the
+    value, so the JAX descent's own loop reports its steps."""
+
+    def __init__(self):
+        import jax
+
+        self._jax = jax
+        self.values = []
+
+    def __getattr__(self, name):
+        return getattr(self._jax, name)
+
+    def jit(self, f):
+        g = self._jax.jit(f)
+
+        def recorded(*a):
+            out = g(*a)
+            if isinstance(out, tuple):
+                self.values.append(float(out[0]))
+            return out
+        return recorded
+
+
+def jax_descent(lig_atoms, rec_atoms, **kw):
+    """(moved atoms, loss values read, one per evaluation) of the JAX
+    package's `remove_clashes_descent`, products at "highest" precision."""
+    import jax
+
+    from equidock_public_tpu.eval import inference
+
+    rec = DescentRecorder()
+    saved, inference.jax = inference.jax, rec
+    try:
+        with jax.default_matmul_precision("highest"):
+            moved = inference.remove_clashes_descent(lig_atoms, rec_atoms, **kw)
+    finally:
+        inference.jax = saved
+    return np.asarray(moved), rec.values
+
+
+def descent_steps(values):
+    """(gradient steps taken, stopped) from the values one descent read."""
+    stopped = bool(values) and values[-1] <= 0.5
+    return (len(values) - 1 if stopped else len(values)), stopped
+
+
+def clash_atoms(n_atoms):
+    return np.linspace(0, n_atoms - 1, CLASH_ATOMS).astype(int)
+
+
+def jax_clashes_golden():
+    """The JAX package's forward of CLASH_PAIR (as `jax_outputs`), the moved
+    ligand of `dock_one`, then its descent against every receptor atom from
+    that pose ("served") and from the shifted pose ("shifted")."""
+    from equidock_public_tpu.data.pdb import read_pdb
+
+    lig_path, rec_path = (pdb_path(c) for c in CLASH_PAIR)
+    (req,) = jax_outputs((CLASH_PAIR,))
+    R, t = np.asarray(req["R"], np.float32), np.asarray(req["t"], np.float32)
+    lig = read_pdb(os.path.join(REPO, lig_path)).coords
+    rec = read_pdb(os.path.join(REPO, rec_path)).coords.astype(np.float32)
+    moved = ((R @ lig.T).T + t).astype(np.float32)        # as dock_one moves it
+    shift = (CLASH_SHIFT_FRACTION * rec.mean(axis=0)).astype(np.float32)
+    idx = clash_atoms(lig.shape[0])
+    out = {"source": "equidock_public_tpu on the CPU (remove_clashes_descent, products "
+                     "at highest precision), artifacts/db5_model_best",
+           "ligand": lig_path, "receptor": rec_path, "R": R.tolist(), "t": t.tolist(),
+           "start": "R @ ligand atoms + t in float32 (numpy), as dock_one moves them",
+           "atoms": idx.tolist(), "tolerance": CLASH_TOL,
+           "shift_fraction": CLASH_SHIFT_FRACTION, "shift": shift.tolist(), "cases": {}}
+    for name, lig0, rec0 in (("served", moved, rec),
+                             ("shifted", moved - shift, rec - shift)):
+        coords, values = jax_descent(lig0, rec0)
+        steps, stopped = descent_steps(values)
+        out["cases"][name] = {"steps": steps, "stopped": stopped, "value": values[-1],
+                              "values_head": values[:3], "values_tail": values[-3:],
+                              "coords": coords[idx].tolist()}
+    return out
+
+
 def orbax_params_numpy():
     """The checkpoint's params pytree as nested dicts of numpy arrays."""
     import jax
@@ -321,6 +421,10 @@ if __name__ == "__main__":
         with open(FIT_GOLDEN, "w") as f:
             json.dump(jax_fit_golden(), f, indent=1)
         sys.exit(0)
+    if sys.argv[1:] == ["clashes"]:
+        with open(CLASH_GOLDEN, "w") as f:
+            json.dump(jax_clashes_golden(), f, indent=1)
+        sys.exit(0)
     sidecar = os.path.join(ASSETS, "db5_model_best.config.json")
     with open(sidecar, "w") as f:     # the whole config, as the port reads it
         cfg = load_config(CHECKPOINT + ".config.json")
@@ -337,3 +441,5 @@ if __name__ == "__main__":
         json.dump(train_golden, f, indent=1)
     with open(FIT_GOLDEN, "w") as f:
         json.dump(jax_fit_golden(), f, indent=1)
+    with open(CLASH_GOLDEN, "w") as f:
+        json.dump(jax_clashes_golden(), f, indent=1)
