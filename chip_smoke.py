@@ -77,6 +77,32 @@ non-zero without printing a result.
            sizes drawn from the tracked chains): epoch seconds, pairs/s,
            step median, val-epoch and checkpoint seconds, launches per step,
            and the device idle share of one profiled epoch
+  models   the six other shipped models (assets/<name>.pt.xz: the DIPS-
+           pretrained and curriculum 64-wide models, the four 16-wide ones)
+           each serve their golden requests (the JAX package's dock_one)
+           through DockingServer.serve_lines: keypoints within 1e-3 A, R
+           within 1e-3, t and CA within 1e-2 A plus the measured R error's
+           spectral norm times their lever arm; each forward launching rows
+           1 and 3 2 x n_layers times
+  resident on the cache of epoch (b): the training CLI with -device_resident
+           -trim_remainder beside the host-loop CLI, in turns (resident,
+           host loop, resident; 2 epochs each, no synchronization added):
+           epoch seconds, pairs/s, the store's MB and peak device memory,
+           launches per step; resident epochs apart from the CLI: one
+           profiled (device idle share, device ops a step), one counting
+           host syncs a step, one with each step timed between
+           synchronizations (the step median); `fit` with device_resident and trim_remainder
+           on the split chains of epoch (a) replaying the JAX package's
+           draws against assets/db5_resident_fit.golden.json
+  curriculum  synthetic DIPS shards (6 of 8 pairs, kNN graphs of the tracked
+           chains' sizes) through the training CLI's default run (the DIPS
+           -> DB5 curriculum) with -device_resident -stream_dips
+           -stream_window 1, 1 epoch a stage: the DIPS train groups stream
+           through a side CUDA stream; at the end the shard LRU holds at most
+           1 shard, every uploaded group's tensors are released (weak
+           references) and the device memory
+           after the streamed epoch is that before it plus the new train
+           state
   halo     the halo graph-parallel path (shards stacked on the card): the
            4 served requests through `make_halo_forward` at padded gp=2,
            ragged gp=4 and gp=4 with a forced residual tier, each against
@@ -122,6 +148,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib
 import io
 import json
@@ -132,6 +159,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -1359,6 +1387,21 @@ def db5_sized_sizes(n: int, seed: int = 7):
     return [(base[i], base[j]) for i, j in idx]
 
 
+DB5_SIZED_SPLIT = {"train": 152, "val": 25, "test": 25}
+
+
+def db5_sized_argv(root, epochs=2) -> list:
+    """The training CLI's flags of the epoch phase (b): the DB5 paper model's
+    widths, the fused intersection loss, seed 0, `epochs` epochs (None: no
+    -max_epochs), the caches under root/cache."""
+    return (["-shared_layers", "-iegmn_n_lays", "5", "-iegmn_lay_hid_dim", "64",
+             "-residue_emb_dim", "64", "-num_att_heads", "50", "-w_decay", "1e-3",
+             "-node_buckets", "512,1024,2048,3072", "-pocket_buckets", "256,512,1024",
+             "-use_fused_intersection", "-random_seed", "0",
+             "-cache_dir", os.path.join(root, "cache"), "-device", "cuda"]
+            + ([] if epochs is None else ["-max_epochs", str(epochs)]))
+
+
 def run_epoch_db5_sized(dev, root) -> dict:
     """Epoch phase (b): the training CLI (`cli/train.py::main`), 2 epochs of
     a random full-width DB5 paper model (shared layers, 5 layers, 64 wide,
@@ -1371,14 +1414,9 @@ def run_epoch_db5_sized(dev, root) -> dict:
     from equidock_public_tpu_torch.train import loop
     from equidock_public_tpu_torch.train.checkpoint import load_checkpoint
 
-    counts_by_split = {"train": 152, "val": 25, "test": 25}
+    counts_by_split = DB5_SIZED_SPLIT
     sizes = db5_sized_sizes(sum(counts_by_split.values()))
-    argv = ["-shared_layers", "-iegmn_n_lays", "5", "-iegmn_lay_hid_dim", "64",
-            "-residue_emb_dim", "64", "-num_att_heads", "50", "-w_decay", "1e-3",
-            "-node_buckets", "512,1024,2048,3072", "-pocket_buckets", "256,512,1024",
-            "-use_fused_intersection", "-random_seed", "0", "-max_epochs", "2",
-            "-cache_dir", os.path.join(root, "cache"),
-            "-checkpoint_dir", os.path.join(root, "ckpt"), "-device", "cuda"]
+    argv = db5_sized_argv(root) + ["-checkpoint_dir", os.path.join(root, "ckpt")]
     cfg = cli.config_from_args(cli._parser().parse_args(argv))
     t0 = time.perf_counter()
     start = 0
@@ -2115,6 +2153,418 @@ def run_directories(dev, root) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# Slice 6: the other tracked models, device-resident and streamed epochs,
+# the DIPS -> DB5 curriculum
+# --------------------------------------------------------------------------- #
+
+def model_served_atol(g, R) -> dict:
+    """One golden request's tolerances, given the port's rotation R: the
+    keypoints 1e-3 A, R 1e-3, t and CA 1e-2 A plus the measured rotation
+    error's spectral norm times their lever arm. With t = m_rec - R m_lig
+    and CA - m_rec = R (x - m_lig), |dR m_lig| and |dR (x - m_lig)| are at
+    most ||dR||_2 |m_lig| and ||dR||_2 |CA - m_rec|; the keypoints' own
+    error (the centroids' shift) stays inside the 1e-2 A. The same as
+    tests/test_torch_models.py::served_atol."""
+    d_r = np.linalg.norm(np.asarray(R, np.float64) - np.asarray(g["R"], np.float64), 2)
+    lever_t = np.linalg.norm(np.mean(g["keypts_lig"], axis=0))
+    lever_ca = np.linalg.norm(np.asarray(g["ca"]) - np.mean(g["keypts_rec"], axis=0),
+                              axis=-1).max()
+    return dict(GOLDEN_ATOL, keypts=1e-3, t=GOLDEN_ATOL["t"] + d_r * lever_t,
+                ca=GOLDEN_ATOL["ca"] + d_r * lever_ca)
+
+
+def run_models(dev, out_dir) -> dict:
+    """The models phase: each of the six other shipped models serves its
+    golden requests through `serve_lines`; each forward launches rows 1 and
+    3 2 x n_layers times (and their combine passes as often) and builds no
+    inverse list."""
+    from equidock_public_tpu_torch.cli.serve import DockingServer
+    from equidock_public_tpu_torch.params import TRACKED_MODELS, model_checkpoint
+
+    out, failed = {"launches": {}}, []
+    for name in TRACKED_MODELS[1:]:
+        golden = load_asset(f"{name}.golden.json")
+        server = DockingServer.from_checkpoint(model_checkpoint(name), dev)
+        m = server.cfg.model
+        outputs, forward_ms, inner = [], [], server.forward
+
+        def recording(batch, inner=inner, outputs=outputs, forward_ms=forward_ms):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = inner(batch)
+            torch.cuda.synchronize()
+            forward_ms.append((time.perf_counter() - t0) * 1e3)
+            outputs.append({k: o[k][0].cpu().numpy() for k in ("R", "keypts_lig", "keypts_rec")}
+                           | {"t": o["t"][0, 0].cpu().numpy(),
+                              "ca": o["ligand_coords"][0, :8].cpu().numpy()})
+            return o
+
+        server.forward = recording
+        lines = [json.dumps({"ligand": os.path.join(REPO, g["ligand"]),
+                             "receptor": os.path.join(REPO, g["receptor"]),
+                             "output": os.path.join(out_dir, f"{name}_{i}.pdb")})
+                 for i, g in enumerate(golden["requests"])]
+        buf = io.StringIO()
+        reset_counts()
+        served = server.serve_lines(lines, buf)
+        counts = read_counts()
+        responses = [json.loads(x) for x in buf.getvalue().splitlines()]
+        require(served == len(lines) == len(outputs) and all(r.get("ok") for r in responses),
+                f"{name}: served {served} of {len(lines)}: {responses}")
+        per_fwd = 2 * m.iegmn_n_lays
+        for kernel in ("edge_message", "cross_attention"):
+            require(counts[kernel] == per_fwd * served,
+                    f"{name}: {kernel} launched {counts[kernel]} times for {served} forwards "
+                    f"of {m.iegmn_n_lays} layers")
+        require(counts[INVERSE[2]] == 0, f"{name}: inverse lists built without gradient")
+        expect_combines(name, counts)
+        worst, errors = {}, []
+        for o, g in zip(outputs, golden["requests"]):
+            errs = {}
+            for k, atol in model_served_atol(g, o["R"]).items():
+                keys = ("keypts_lig", "keypts_rec") if k == "keypts" else (k,)
+                for key in keys:
+                    got = o[key]
+                    require(np.isfinite(got).all(), f"{name}: non-finite {key}")
+                    err = float(np.abs(got - np.asarray(g[key])).max())
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    errs[key] = [err, atol]
+                    if err > atol:
+                        failed.append(f"{name} {g['ligand']}: {key} {err:.3g} > {atol:.3g} "
+                                      "from the JAX golden value")
+            errors.append(errs)
+        out[name] = dict(errors_and_atol=errors,width=m.iegmn_lay_hid_dim, layers=m.iegmn_n_lays,
+                         shared_layers=m.shared_layers, heads=m.num_att_heads,
+                         requests=served, dropped=golden["dropped"],
+                         launches=counts, golden_max_abs_err=worst, forward_ms=forward_ms)
+        for k, v in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    if failed:
+        emit("models_failed", **out)
+    require(not failed, "; ".join(failed))
+    return out
+
+
+def resident_eval_steps(ds, cfg, bs) -> int:
+    """Forwards without gradient of one resident evaluation of `ds`: one a
+    step, ceil(n / bs) steps a bucket group (trimmed or not)."""
+    from equidock_public_tpu_torch.train.resident import _group_by_bucket
+
+    return sum(-(-len(v) // bs) for v in _group_by_bucket(ds, cfg).values())
+
+
+def run_cli(argv, cwd) -> dict:
+    """`cli/train.py::main(argv)` from `cwd` (its text and scalars logs go to
+    ./stdouterr there), as a user runs it: no synchronization added; every
+    kernel count set to 0 just before and read just after. Returns the
+    launches, the records of the scalars file (one an epoch and one a test,
+    stage after stage), the seconds, the text logged and the peak device
+    memory."""
+    from equidock_public_tpu_torch.cli import train as cli
+
+    os.makedirs(cwd, exist_ok=True)
+    here, out = os.getcwd(), io.StringIO()
+    os.chdir(cwd)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            require(cli.main(argv) == 0, "the training CLI failed")
+            seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+    counts = read_counts()
+    cfg = cli.config_from_args(cli._parser().parse_args(argv))
+    with open(os.path.join(cwd, cfg.log_dir, cfg.banner() + ".scalars.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return dict(launches=counts, records=records, seconds=seconds,
+                log=out.getvalue(), peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def epoch_summary(run, pairs: int) -> dict:
+    """Epoch seconds and pairs/s of a CLI run's last (steady) epoch."""
+    steady = run["records"][-1]
+    return dict(epoch_seconds=steady["train_seconds"] + steady["val_seconds"],
+                train_seconds=steady["train_seconds"], val_seconds=steady["val_seconds"],
+                pairs_per_s=pairs / steady["train_seconds"],
+                cli_seconds=run["seconds"], peak_device_memory_gb=run["peak_gb"],
+                resident_mb=steady.get("resident_mb"),
+                losses=[r["train"]["loss"] for r in run["records"]])
+
+
+def run_resident_golden(dev, root) -> dict:
+    """`fit` with device_resident and trim_remainder, 2 epochs from the
+    committed weights on the split-chain caches of the epoch phase (a),
+    replaying the JAX package's draws, against
+    assets/db5_resident_fit.golden.json."""
+    from equidock_public_tpu_torch.data.dataset import DockingDataset
+    from equidock_public_tpu_torch.params import default_checkpoint, load_checkpoint
+    from equidock_public_tpu_torch.train.loop import fit
+    from equidock_public_tpu_torch.train.resident import ReplayDraws
+    from equidock_public_tpu_torch.train.step import create_train_state
+
+    golden = load_asset("db5_resident_fit.golden.json")
+    tol = golden["tolerance"]
+    params, cfg = load_checkpoint(default_checkpoint(), dev)
+    cfg = dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, use_fused_intersection=True, random_seed=0,
+                                       bs=10, val_repeats=1, trim_remainder=True),
+        data=dataclasses.replace(cfg.data, cache_dir=os.path.join(root, "cache"),
+                                 device_resident=True),
+        checkpoint_dir=os.path.join(root, "ckpt_resident"),
+        log_dir=os.path.join(root, "logs_resident"))
+    train = dataclasses.asdict(cfg.train)
+    require(train == {k: golden["train_config"][k] for k in train},
+            "the resident config differs from the golden file's")
+    passes = [[(d["swap"], d["rot"], d["tr"]) for d in steps] for steps in golden["draws"]]
+    order = {("test", 0): 2 * golden["epochs"]}
+    for e in range(golden["epochs"]):
+        order[("train", e)], order[("val", e)] = 2 * e, 2 * e + 1
+    draws = lambda purpose, epoch: ReplayDraws(passes[order[(purpose, epoch)]], dev)
+    history = []
+    reset_counts()
+    t0 = time.perf_counter()
+    fit(cfg, create_train_state(params, cfg, dev), max_epochs=golden["epochs"],
+        log=lambda *a: None, device=dev, history=history, draws=draws)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counts()
+    steps = sum(h["train"]["num_batches"] for h in history[:-1])
+    evals = (golden["epochs"] * resident_eval_steps(DockingDataset.from_cache(cfg, "val"), cfg, 10)
+             + resident_eval_steps(DockingDataset.from_cache(cfg, "test"), cfg, 10))
+    expect_counts("resident golden", counts, steps, evals, fused=True)
+    got = [dict(train=h["train"], val=h["val"]) for h in history[:-1]]
+    got.append(dict(test=history[-1]["test"]))
+    want = golden["history"] + [dict(test=golden["test"])]
+    worst = {"loss_rel": 0.0, "median_abs": 0.0}
+    for i, (g, w) in enumerate(zip(got, want)):
+        for part in w:
+            for key, value in w[part].items():
+                v = g[part][key]
+                require(v is not None and np.isfinite(v), f"resident epoch {i} {part} {key}: {v}")
+                if key.endswith("median"):
+                    worst["median_abs"] = max(worst["median_abs"], abs(v - value))
+                    require(abs(v - value) <= tol["median_atol"],
+                            f"resident epoch {i} {part} {key}: {v:.5f}, JAX {value:.5f}")
+                else:
+                    e = abs(v - value) / max(abs(value), 1e-12)
+                    worst["loss_rel"] = max(worst["loss_rel"], e)
+                    require(e <= tol["loss_rtol"] or (key == "num_clips" and v == value),
+                            f"resident epoch {i} {part} {key}: {v:.7g}, JAX {value:.7g}")
+    require(history[-1]["best_epoch"] == golden["best_epoch"],
+            f"resident best epoch {history[-1]['best_epoch']}, JAX {golden['best_epoch']}")
+    return dict(steps=steps, forwards_without_gradient=evals, launches=counts,
+                golden_worst=worst, golden_tolerance=tol, fit_seconds=fit_s,
+                resident_mb=history[0]["resident_mb"])
+
+
+def resident_profile(dev, cfg, ckpt) -> dict:
+    """Resident train epochs of the checkpoint's state on the DB5-sized
+    split: one under the device profiler, one counting the host syncs it
+    makes (torch's sync debug mode, by the line that made them) a step, and
+    one with each train step timed between synchronizations (the step
+    median; the syncs are added, so this epoch's own seconds are not
+    reported)."""
+    import warnings
+
+    from equidock_public_tpu_torch.data.dataset import DockingDataset
+    from equidock_public_tpu_torch.train import resident
+    from equidock_public_tpu_torch.train.checkpoint import load_checkpoint
+
+    state, _, _ = load_checkpoint(ckpt, dev)
+    rs = resident.build_resident_split(DockingDataset.from_cache(cfg, "train"), cfg, dev)
+    holder, rng = [state], np.random.default_rng(1)
+    draws = resident.draws_factory(cfg, dev)
+    steps = []
+
+    def one_epoch():
+        holder[0], avg = resident.run_train_epoch_resident(holder[0], rs, cfg, rng,
+                                                           draws("train", 2), 2)
+        steps.append(avg["num_batches"])
+        torch.cuda.synchronize()
+
+    prof = device_profile(one_epoch, reps=1, top=8)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            one_epoch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    step_ms, plain = [], resident.train_step
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    resident.train_step = timed
+    try:
+        one_epoch()
+    finally:
+        resident.train_step = plain
+    where: dict = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    n = steps[-1]
+    return dict(prof, steps=n, device_ops_per_step=prof["device_ops_per_call"] / n,
+                host_syncs_per_step={k: v / n for k, v in where.items()},
+                host_syncs_per_step_total=sum(where.values()) / n,
+                step_ms_median=statistics.median(step_ms), timed_steps=len(step_ms),
+                store_mb=rs.nbytes() / 1e6)
+
+
+def run_resident(dev, root, golden_root, counts_by_split) -> dict:
+    """The resident phase: on the cache of the epoch phase (b), the training
+    CLI with -device_resident -trim_remainder beside the host-loop CLI, in
+    turns (resident, host loop, resident), 2 epochs each; profiled, sync-
+    counted and step-timed resident epochs; the resident fit golden with
+    replayed draws."""
+    from equidock_public_tpu_torch.cli import train as cli
+    from equidock_public_tpu_torch.data.dataset import DockingDataset
+
+    base = db5_sized_argv(root)
+    flags = ["-device_resident", "-trim_remainder"]
+    runs = {}
+    for i, mode in enumerate(("resident", "host", "resident")):
+        argv = base + (flags if mode == "resident" else []) + [
+            "-checkpoint_dir", os.path.join(root, f"ckpt_{mode}_{i}")]
+        run = run_cli(argv, os.path.join(root, f"run_{mode}_{i}"))
+        cfg = cli.config_from_args(cli._parser().parse_args(argv))
+        steps = sum(r["train"]["num_batches"] for r in run["records"])
+        evals = (2 * resident_eval_steps(DockingDataset.from_cache(cfg, "val"), cfg, cfg.train.bs)
+                 + resident_eval_steps(DockingDataset.from_cache(cfg, "test"), cfg, cfg.train.bs)
+                 if mode == "resident" else
+                 2 * -(-counts_by_split["val"] // cfg.train.bs)
+                 + -(-counts_by_split["test"] // cfg.train.bs))
+        expect_counts(f"{mode} CLI run {i}", run["launches"], steps, evals, fused=True)
+        require(all(np.isfinite(r["train"]["loss"]) for r in run["records"]),
+                f"{mode} CLI run {i}: non-finite training loss")
+        if mode == "resident":
+            require("device-resident epochs:" in run["log"], "no store size in the log")
+        runs[f"{mode}_{i}"] = dict(epoch_summary(run, counts_by_split["train"]), steps=steps,
+                                   forwards_without_gradient=evals, launches=run["launches"],
+                                   launches_per_step={k: v / steps
+                                                      for k, v in run["launches"].items()})
+        if i == 0:
+            first_cfg, first_launches = cfg, run["launches"]
+    ckpt = os.path.join(first_cfg.checkpoint_dir, first_cfg.banner(), "db5_model_best")
+    return dict(runs=runs, launches=first_launches,
+                order="resident, host loop, resident (each 2 epochs, its own checkpoints, "
+                      "no synchronization added); epoch 1 is the steady one; the resident "
+                      "step median is profile_one_epoch's timed epoch, the host loop's is "
+                      "the epoch_db5_sized phase's",
+                profile_one_epoch=resident_profile(dev, first_cfg, ckpt),
+                golden_fit=run_resident_golden(dev, golden_root))
+
+
+def run_curriculum(dev, root) -> dict:
+    """The curriculum phase: synthetic DIPS shards (6 of 8 pairs for train,
+    one of 8 for val and for test, kNN graphs of the tracked chains' sizes)
+    through `cli/train.py`'s default run (no -toy, no -max_epochs) with
+    -device_resident -stream_dips -stream_window 1, 1 epoch a stage: the DIPS
+    stage streams its train groups, then the DB5 stage on the DB5-sized
+    cache. At the end the shard LRU holds at most 1 shard, every uploaded
+    group's tensors are released (held by weak references), and the device
+    memory after the streamed epoch is that before it plus the new train
+    state (params and Adam moments; the old one is still held)."""
+    from equidock_public_tpu_torch.cli import train as cli
+    from equidock_public_tpu_torch.data import dataset as dsmod
+    from equidock_public_tpu_torch.data.synth import write_synth_shards
+    from equidock_public_tpu_torch.train import loop, resident
+
+    argv = db5_sized_argv(root, epochs=None) + [
+        "-device_resident", "-stream_dips", "-stream_window", "1", "-num_epochs", "1",
+        "-checkpoint_dir", os.path.join(root, "ckpt_curriculum")]
+    cfg = cli.config_from_args(cli._parser().parse_args(argv))
+    dips = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, data="dips"))
+    sizes = db5_sized_sizes(64, seed=11)
+    t0 = time.perf_counter()
+    for split, (n_shards, start) in {"train": (6, 0), "val": (1, 48), "test": (1, 56)}.items():
+        write_synth_shards(dips.cache_path(), split, n_shards=n_shards, per_shard=8,
+                           seed=start, k=cfg.graph.graph_max_neighbor,
+                           sizes=sizes[start:start + 8 * n_shards])
+    shard_s = time.perf_counter() - t0
+    made, epochs, uploaded = [], [], []
+    from_cache, streamed, upload = (dsmod.DockingDataset.from_cache,
+                                    loop.run_train_epoch_resident_streamed, resident._upload)
+
+    def recording_from_cache(cfg_, split, *a, **kw):
+        ds = from_cache(cfg_, split, *a, **kw)
+        made.append((cfg_, split, ds))
+        return ds
+
+    def recording_epoch(*a, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        n0 = len(uploaded)
+        out = streamed(*a, **kw)
+        torch.cuda.synchronize()
+        gc.collect()
+        # the new state (params, mu, nu: one size); the caller still holds the old
+        state_bytes = 3 * sum(t.numel() * t.element_size() for t in out[0].mu.values())
+        epochs.append(dict(allocated_before=before, allocated_after=torch.cuda.memory_allocated(),
+                           new_state_bytes=state_bytes, uploads=len(uploaded) - n0,
+                           live_tensors=sum(r() is not None for _, refs in uploaded[n0:]
+                                            for r in refs)))
+        return out
+
+    def recording_upload(group, *a, **kw):
+        out = upload(group, *a, **kw)
+        uploaded.append((group.nbytes(), [weakref.ref(t) for t in out[0].tensors()]))
+        return out
+
+    dsmod.DockingDataset.from_cache = recording_from_cache
+    loop.run_train_epoch_resident_streamed = recording_epoch
+    resident._upload = recording_upload
+    try:
+        run = run_cli(argv, os.path.join(root, "run_curriculum"))
+    finally:
+        dsmod.DockingDataset.from_cache = from_cache
+        loop.run_train_epoch_resident_streamed = streamed
+        resident._upload = upload
+    records = run["records"]
+    stages = [r for r in records if "epoch" in r]
+    require(len(stages) == 2 and len(epochs) == 1,
+            f"{len(stages)} epochs and {len(epochs)} streamed epochs in the curriculum run")
+    train_dips = next(ds for c, s, ds in made if c.data.data == "dips" and s == "train")
+    require(train_dips.index is not None and train_dips._lru.resident() <= 1,
+            f"the DIPS train LRU holds {train_dips._lru.resident()} shards")
+    e = epochs[0]
+    require(e["uploads"] > 0 and e["live_tensors"] == 0,
+            f"{e['live_tensors']} tensors of the {e['uploads']} streamed groups still held "
+            "after the epoch")
+    grown = e["allocated_after"] - e["allocated_before"]
+    require(grown <= e["new_state_bytes"] + 2**20,
+            f"{grown} bytes more on the device after the streamed epoch than before it, "
+            f"{e['new_state_bytes']} of them the new train state (smallest group "
+            f"{min(n for n, _ in uploaded)} bytes)")
+    steps = sum(r["train"]["num_batches"] for r in stages)
+    evals = sum(resident_eval_steps(ds, c, c.train.bs) for c, s, ds in made
+                if s in ("val", "test"))          # one epoch a stage, one test
+    expect_counts("curriculum", run["launches"], steps, evals, fused=True)
+    require(all(np.isfinite(r["train"]["loss"]) for r in stages), "non-finite curriculum loss")
+    return dict(shards={"train": 6, "val": 1, "test": 1}, pairs_per_shard=8,
+                shard_seconds=shard_s, stages=[dict(epoch_seconds=r["train_seconds"]
+                                                    + r["val_seconds"],
+                                                    num_batches=r["train"]["num_batches"],
+                                                    loss=r["train"]["loss"],
+                                                    resident_mb=r.get("resident_mb"))
+                                               for r in stages],
+                streamed_epoch=e, corpus_bytes=sum(n for n, _ in uploaded),
+                groups=len(uploaded),
+                lru_resident=train_dips._lru.resident(), lru_loads=train_dips._lru.loads,
+                steps=steps, forwards_without_gradient=evals, launches=run["launches"],
+                cli_seconds=run["seconds"], peak_device_memory_gb=run["peak_gb"])
+
+
+# --------------------------------------------------------------------------- #
 # Main
 # --------------------------------------------------------------------------- #
 
@@ -2324,9 +2774,19 @@ def main() -> int:
     try:
         epoch_golden = run_epoch_golden(dev, os.path.join(root, "golden"))
         epoch_db5 = run_epoch_db5_sized(dev, os.path.join(root, "db5_sized"))
+        emit("epoch", golden_fit=epoch_golden, db5_sized=epoch_db5)
+
+        # -- models, resident, curriculum: the main paths of slice 6 ---------
+        os.makedirs(os.path.join(root, "models"))
+        models = run_models(dev, os.path.join(root, "models"))
+        emit("models", **models)
+        resident = run_resident(dev, os.path.join(root, "db5_sized"),
+                                os.path.join(root, "golden"), DB5_SIZED_SPLIT)
+        emit("resident", card=smi, **resident)
+        curriculum = run_curriculum(dev, os.path.join(root, "db5_sized"))
+        emit("curriculum", **curriculum)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    emit("epoch", golden_fit=epoch_golden, db5_sized=epoch_db5)
 
     # -- halo: the main path of slice 4 -----------------------------------------
     halo = run_halo(dev, requests, train_golden)
@@ -2546,6 +3006,10 @@ def main() -> int:
                    "clashes_served": clashes["served"]["launches"][name],
                    "clashes_shifted": clashes["shifted"]["launches"][name],
                    "batched_serve": batched["launches"][name],
+                   "models": models["launches"][name],
+                   "resident": resident["launches"][name],
+                   "resident_golden": resident["golden_fit"]["launches"][name],
+                   "curriculum": curriculum["launches"][name],
                    **{p: directories[p]["launches"][name]
                       for p in ("inference_dir", "batch_inference", "ensemble")}}
         table.append(dict(name=name, route="cuda",

@@ -14,10 +14,9 @@ from ..config import Config, DataConfig, GraphConfig, ModelConfig, TrainConfig
 REFUSED = {
     "fine_tune_from": "two-stage fine-tuning", "freeze_original": "fine-tuning",
     "fine_tune_init": "fine-tuning", "pack": "packed batches",
-    "pack_max_per_slot": "packed batches", "device_resident": "device-resident epochs",
-    "trim_remainder": "device-resident epochs", "dp": "mesh training",
+    "pack_max_per_slot": "packed batches",
+    "dp": "mesh training and dp-resident epochs",
     "gp": "mesh training", "pallas_ring_halo": "mesh training",
-    "stream_dips": "DIPS streaming", "stream_window": "DIPS streaming",
     "distill_dir": "pose distillation", "distill_alpha": "pose distillation",
     "pad_cache_gb": "the JAX collate cache", "compile_cache": "the XLA compile cache",
     "n_jobs": "building caches from PDB files", "raw_data_path": "building caches",
@@ -80,11 +79,17 @@ def add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-node_buckets", default="", help="comma-separated node buckets")
     p.add_argument("-pocket_buckets", default="", help="comma-separated pocket buckets")
     p.add_argument("-checkpoint_dir", default="./checkpts")
+    p.add_argument("-device_resident", action="store_true",
+                   help="hold the padded splits on the device, draw the augmentation there")
+    p.add_argument("-trim_remainder", action="store_true",
+                   help="device-resident epochs: a group's n %% bs leftover pairs as one "
+                        "narrow step")
+    p.add_argument("-stream_dips", action="store_true",
+                   help="stream DIPS shards through a bounded LRU instead of loading them all")
+    p.add_argument("-stream_window", type=int, default=DataConfig().stream_window)
     for flag in REFUSED:
         p.add_argument("-" + flag, nargs="?", const=True, default=None,
                        help=f"not ported ({REFUSED[flag]})")
-
-
 
 
 def refuse_unported(a: argparse.Namespace) -> None:
@@ -128,13 +133,16 @@ def config_from_args(a: argparse.Namespace) -> Config:
         intersection_surface_ct=a.intersection_surface_ct, random_seed=a.random_seed,
         save_every_epochs=a.save_every_epochs,
         use_fused_intersection=a.use_fused_intersection, val_repeats=a.val_repeats,
-        ot_solver=a.ot_solver, select_metric=a.select_metric)
+        ot_solver=a.ot_solver, select_metric=a.select_metric,
+        trim_remainder=a.trim_remainder)
     d = DataConfig()
     data = DataConfig(data=a.data, data_fraction=a.data_fraction, split=a.split,
                       cache_dir=a.cache_dir,
                       node_buckets=_buckets("node_buckets", a.node_buckets, d.node_buckets),
                       pocket_buckets=_buckets("pocket_buckets", a.pocket_buckets,
-                                              d.pocket_buckets))
+                                              d.pocket_buckets),
+                      device_resident=a.device_resident, stream_dips=a.stream_dips,
+                      stream_window=a.stream_window)
     graph = GraphConfig(graph_cutoff=a.graph_cutoff, graph_max_neighbor=a.graph_max_neighbor,
                         pocket_cutoff=a.pocket_cutoff,
                         translation_interval=a.translation_interval)

@@ -1,17 +1,20 @@
 """Training CLI: the port of `equidock_public_tpu/cli/train.py`, cut down to
-what the port trains (DB5-layout npz caches on one device).
+what the port trains (npz caches and DIPS shards on one device).
 
-    python -m equidock_public_tpu_torch.cli.train -toy [-max_epochs N] [flags]
+    python -m equidock_public_tpu_torch.cli.train [-toy] [-max_epochs N] [flags]
 
 The caches are read from `<cache_dir>/<data>_residues_..._pocketCut_<c>/
-cv_<split>/{train,val,test}.npz` (`Config.cache_path`), in the layout
-either package writes (`data/dataset.py::write_cache`, `data/synth.py`).
+cv_<split>/` (`Config.cache_path`): `{train,val,test}.npz` for DB5, in the
+layout either package writes (`data/dataset.py::write_cache`,
+`data/synth.py`), and `<split>_shardNNNN.npz` for DIPS (`data/dips.py`).
 With `-max_epochs` or `-max_seconds`, `fit` runs with the flags as given;
-without them, `-toy` runs the DB5 stage of the curriculum (lr 1e-4,
-patience 500), and a run without `-toy` would start with the DIPS stage,
-which is not ported. The flags of the JAX CLI that the port does not honour
-raise NotImplementedError with their name. `-device` chooses the device
-(default the card; `cpu` runs the plain PyTorch versions).
+without them, the DIPS -> DB5 curriculum runs (`train/loop.py::curriculum`),
+or with `-toy` its DB5 stage alone. `-device_resident` (with
+`-trim_remainder`) holds the splits on the device; with `-data dips` and
+`-stream_dips` the DIPS train split streams group by group. The flags of the
+JAX CLI that the port does not honour raise NotImplementedError with their
+name. `-device` chooses the device (default the card; `cpu` runs the plain
+PyTorch versions).
 """
 
 from __future__ import annotations
@@ -52,13 +55,10 @@ def kernel_path_report(cfg: Config, device) -> str:
 
 def main(argv: Optional[List[str]] = None) -> int:
     from ..train.checkpoint import load_checkpoint
-    from ..train.loop import check_fit_supported, fit, make_logger
+    from ..train.loop import check_fit_supported, curriculum, fit, make_logger
 
     a = _parser().parse_args(argv)
     refuse_unported(a)
-    if a.max_epochs is None and a.max_seconds is None and not a.toy:
-        raise NotImplementedError("a run without -toy, -max_epochs or -max_seconds starts "
-                                  "with the DIPS stage of the curriculum, which is not ported")
     cfg = config_from_args(a)
     dev = resolve_device(a.device)
     state = None
@@ -66,17 +66,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         state, cfg_ckpt, epoch = load_checkpoint(a.continue_train_model, dev)
         cfg = dataclasses.replace(cfg, model=cfg_ckpt.model)
         print(f"Continuing from {a.continue_train_model} (epoch {epoch})")
-    if a.max_epochs is None and a.max_seconds is None:
-        # the DB5 stage of `curriculum(cfg, toy=True)`
-        cfg = dataclasses.replace(
-            cfg, data=dataclasses.replace(cfg.data, data="db5"),
-            train=dataclasses.replace(cfg.train, lr=1e-4, patience=500))
     check_fit_supported(cfg)
     log = make_logger(cfg)
     log("Model name ===> ", cfg.banner())
     log("Kernel paths ===> ", kernel_path_report(cfg, dev))
-    fit(cfg, state=state, max_epochs=a.max_epochs, log=log, max_seconds=a.max_seconds,
-        device=dev)
+    if a.max_epochs is not None or a.max_seconds is not None:
+        fit(cfg, state=state, max_epochs=a.max_epochs, log=log, max_seconds=a.max_seconds,
+            device=dev)
+    else:
+        curriculum(cfg, toy=a.toy, log=log, state=state, device=dev)
     return 0
 
 

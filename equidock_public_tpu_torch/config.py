@@ -2,9 +2,9 @@
 and data settings of `equidock_public_tpu/config.py`, plus the
 `*.config.json` sidecar loader. Field names and defaults are the JAX
 package's, so a sidecar written by either package loads here unchanged.
-Settings of paths the port does not take (packing, device-resident epochs,
-distillation, auto buckets) are kept so that a config that sets them is
-refused by name instead of trained without them.
+Settings of paths the port does not take (packing, distillation, auto
+buckets) are kept so that a config that sets them is refused by name
+instead of trained without them.
 """
 
 from __future__ import annotations
@@ -99,6 +99,10 @@ class TrainConfig:
     val_repeats: int = 1             # val epochs averaged per epoch (fresh poses)
     freeze_original: bool = False    # fine-tuning (not ported)
     select_metric: str = "crmsd"     # 'crmsd' | 'irmsd' | 'sum' | 'bar'
+    # Device-resident epochs: each bucket group's n % bs leftover pairs run
+    # as one narrow step of width n % bs (no dead slots) instead of a
+    # bs-wide step with masked copies; the same step membership and update.
+    trim_remainder: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +119,13 @@ class DataConfig:
     auto_pocket_max: int = 0         # not ported
     swap_train: bool = True          # 50% ligand/receptor swap of training samples
     pack: bool = False               # packed batches (not ported)
-    device_resident: bool = False    # not ported
+    # DIPS shards streamed through a shard LRU of `stream_window` shards
+    # (at most 2 x stream_window resident) instead of loaded whole.
+    stream_dips: bool = False
+    stream_window: int = 4
+    # The padded split held on the device, the augmentation drawn there
+    # (`train/resident.py`).
+    device_resident: bool = False
     distill_dir: str = ""            # pose distillation (not ported)
 
 

@@ -1,6 +1,7 @@
 """Training samples and batches: the port of the unpacked part of
 `equidock_public_tpu/data/dataset.py` (`ComplexSample`, `_process_one`, the
-npz split cache, `DockingDataset.sample` and `batches`).
+npz split cache, DIPS shards whole or streamed, `DockingDataset.sample` and
+`batches`).
 
 Augmentation is the JAX package's: a 50% ligand/receptor swap (train split),
 then the ligand is centred and moved by a uniform random rotation and a
@@ -12,7 +13,9 @@ per complex from the same generator).
 The split cache is the JAX package's layout: one `<split>.npz` with, for
 complex i, `c{i}/lig/<field>`, `c{i}/rec/<field>` (res_id, x, mu_r_norm,
 nbr, nbr_mask, edge_feat), `c{i}/gt_lig`, `c{i}/gt_rec`, `c{i}/pocket`, and
-`codes`. Either package reads what the other writes.
+`codes`. Either package reads what the other writes. A DIPS split is the
+same layout cut into shards (`data/dips.py`); with `stream_dips` only a
+window of shards is held at a time (`DockingDataset._stream_batches`).
 """
 
 from __future__ import annotations
@@ -107,51 +110,90 @@ def read_cache(path: str):
 
 
 class DockingDataset:
-    """Complexes of one split, held in memory, that yield augmented, padded
-    PairBatches. A sample swaps sides when `swap` is on: by default on the
-    train split as `cfg.data.swap_train` says, off elsewhere."""
+    """Complexes of one split that yield augmented, padded PairBatches. A
+    sample swaps sides when `swap` is on: by default on the train split as
+    `cfg.data.swap_train` says, off elsewhere. The complexes are held in
+    memory (`samples`), or, for a streamed DIPS split, read through a shard
+    LRU by the shard index (`index`); `pair_max_nodes`, `pocket_size` and
+    `get_sample` serve both."""
 
-    def __init__(self, cfg: Config, samples: Sequence[ComplexSample],
+    def __init__(self, cfg: Config, samples: Optional[Sequence[ComplexSample]],
                  codes: Optional[Sequence[str]] = None, split: str = "train",
-                 swap: Optional[bool] = None):
+                 swap: Optional[bool] = None, index=None, lru=None):
         if cfg.data.pack:
             raise NotImplementedError("pack: packed batches are not ported")
         self.cfg = cfg
-        self.samples: List[ComplexSample] = list(samples)
-        self.codes = list(codes) if codes is not None else [str(i) for i in
-                                                             range(len(self.samples))]
+        self.index, self._lru = index, lru
+        self.samples: Optional[List[ComplexSample]] = (
+            None if samples is None else list(samples))
+        if codes is not None:
+            self.codes = list(codes)
+        elif index is not None:
+            self.codes = list(index.codes)
+        else:
+            self.codes = [str(i) for i in range(len(self.samples))]
         self.swap = (split == "train" and cfg.data.swap_train) if swap is None else swap
 
     @classmethod
     def from_cache(cls, cfg: Config, split: str, swap: Optional[bool] = None,
                    cache_path: Optional[str] = None) -> "DockingDataset":
-        """The split's npz cache, at `cache_path` or `cfg.cache_path()/<split>.npz`
-        (the JAX `DockingDataset(cfg, split)`); the train split keeps its
-        leading `data_fraction`."""
+        """The split's cache (the JAX `DockingDataset(cfg, split)`): the npz
+        at `cache_path` or `cfg.cache_path()/<split>.npz`; for `data='dips'`
+        without `cache_path`, the split's shards, streamed through a shard
+        LRU of `stream_window` shards with `stream_dips`, else loaded whole
+        (a split without shards raises: the port does not build them). The
+        train split keeps its leading `data_fraction`."""
         dc = cfg.data
-        if cache_path is None and dc.data == "dips":
-            raise NotImplementedError("data='dips': DIPS shards and stream_dips are "
-                                      "not ported (pass cache_path for an npz split)")
         if split == "train" and dc.distill_dir:
             raise NotImplementedError("distill_dir: pose distillation is not ported")
-        codes, samples = read_cache(cache_path or os.path.join(cfg.cache_path(),
-                                                               f"{split}.npz"))
+        index = lru = samples = None
+        if dc.data == "dips" and cache_path is None:
+            from .dips import DipsShardIndex, ShardLRU, load_dips_shards, shard_files
+
+            if not shard_files(cfg.cache_path(), split):
+                raise NotImplementedError(
+                    f"data='dips': no DIPS shards of split {split!r} under {cfg.cache_path()} "
+                    "(the curriculum's DIPS stage reads them); building them from the raw "
+                    "DIPS pair files is not ported")
+            if dc.stream_dips:
+                index = DipsShardIndex(cfg.cache_path(), split)
+                lru = ShardLRU(index.shard_paths, capacity=max(1, dc.stream_window))
+                codes = list(index.codes)
+            else:
+                samples, codes = load_dips_shards(cfg, split)
+        else:
+            codes, samples = read_cache(cache_path or os.path.join(cfg.cache_path(),
+                                                                   f"{split}.npz"))
         if dc.data_fraction < 1.0 and split == "train":
             n = max(1, int(dc.data_fraction * len(codes)))
-            codes, samples = codes[:n], samples[:n]
-        return cls(cfg, samples, codes, split, swap)
+            codes = codes[:n]
+            samples = samples[:n] if samples is not None else None
+        return cls(cfg, samples, codes, split, swap, index=index, lru=lru)
 
     def __len__(self) -> int:
-        return len(self.samples)
+        return len(self.codes)
 
     def pair_max_nodes(self, idx: int) -> int:
+        if self.index is not None:
+            return max(self.index.n_lig[idx], self.index.n_rec[idx])
         s = self.samples[idx]
         return max(s.lig.num_nodes, s.rec.num_nodes)
+
+    def pocket_size(self, idx: int) -> int:
+        if self.index is not None:
+            return self.index.n_pocket[idx]
+        return self.samples[idx].pocket.shape[0]
+
+    def get_sample(self, idx: int) -> ComplexSample:
+        if self.index is not None:
+            shard = self._lru.get(self.index.shard_of[idx])
+            return shard[self.index.index_in_shard[idx]]
+        return self.samples[idx]
 
     def sample(self, idx: int, rng: np.random.Generator):
         """One augmented complex: (lig_graph, rec_graph, lig_new_x, gt_lig,
         pocket_lig, pocket_rec)."""
-        s = self.samples[idx]
+        s = self.get_sample(idx)
         if self.swap and rng.uniform() > 0.5:
             lig, rec, gt_lig = s.rec, s.lig, s.gt_rec
         else:
@@ -170,14 +212,22 @@ class DockingDataset:
         with masked copies, on the card unless `device` says otherwise
         (`pin_memory`: on the CPU, in page-locked memory for an asynchronous
         copy to the card). With `shuffle`: shuffle, sort by size
-        (stable), cut into chunks, shuffle the chunks; without, the same in
-        the split's order. Either way every complex draws its pose from
-        `rng`, in the JAX package's order of draws."""
+        (stable), cut into chunks, shuffle the chunks;
+        without, the same in the split's order. Either way every complex
+        draws its pose from `rng`, in the JAX package's order of draws. A
+        streamed split does this within each window of shards."""
         dev = torch.device("cpu") if pin_memory else resolve_device(device)
-        bs = self.cfg.train.bs
-        order = np.arange(len(self.samples))
+        if self.index is not None:
+            yield from self._stream_batches(rng, dev, shuffle, pin_memory)
+            return
+        order = np.arange(len(self.codes))
         if shuffle:
             rng.shuffle(order)
+        yield from self._chunked(order, rng, dev, shuffle, pin_memory)
+
+    def _chunked(self, order: np.ndarray, rng: np.random.Generator, dev, shuffle: bool,
+                 pin_memory: bool) -> Iterator[PairBatch]:
+        bs = self.cfg.train.bs
         sizes = np.array([self.pair_max_nodes(int(i)) for i in order])
         order = order[np.argsort(sizes, kind="stable")]
         chunks = [order[i:i + bs] for i in range(0, len(order), bs)]
@@ -189,3 +239,31 @@ class DockingDataset:
             ligs, recs, new_xs, gts, pls, prs = zip(*items)
             yield collate(ligs, recs, new_xs, gts, pls, prs, dc.node_buckets,
                           dc.pocket_buckets, dev, batch_size=bs, pin_memory=pin_memory)
+
+    def _stream_batches(self, rng: np.random.Generator, dev, shuffle: bool,
+                        pin_memory: bool) -> Iterator[PairBatch]:
+        """A streamed epoch: the shard order shuffled, then the schedule of
+        `_chunked` within each window of `stream_window` shards, the next
+        window prefetched while this one collates. At most 2 x window
+        shards are held; shuffling mixes complexes within a window only."""
+        n = len(self.codes)
+        shard_of = self.index.shard_of
+        n_shards = (max(shard_of[:n]) + 1) if n else 0
+        by_shard: List[List[int]] = [[] for _ in range(n_shards)]
+        for i in range(n):
+            by_shard[shard_of[i]].append(i)
+        shard_order = np.arange(n_shards)
+        if shuffle:
+            rng.shuffle(shard_order)
+        W = max(1, self.cfg.data.stream_window)
+        windows = [shard_order[w:w + W] for w in range(0, n_shards, W)]
+        for wi, window in enumerate(windows):
+            for si in window:
+                self._lru.get(int(si))              # held for the whole window
+            if wi + 1 < len(windows):
+                for si in windows[wi + 1]:
+                    self._lru.prefetch(int(si))
+            order = np.concatenate([np.array(by_shard[int(si)], np.int64) for si in window])
+            if shuffle:
+                rng.shuffle(order)
+            yield from self._chunked(order, rng, dev, shuffle, pin_memory)

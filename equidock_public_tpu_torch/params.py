@@ -170,11 +170,24 @@ def load_checkpoint(path: str, device="cpu") -> Tuple[Dict[str, object], Config]
     return params_from_flat(flat, cfg.model, device), cfg
 
 
+# The models shipped with the package, converted from the tracked JAX
+# checkpoints `artifacts/<name>`: the DB5 paper model first.
+TRACKED_MODELS = ("db5_model_best", "db5_model_curriculum", "dips_model_pretrained",
+                  "db5_model_small", "db5_model_small_s2", "db5_model_small_l3",
+                  "db5_model_finetuned")
+
+
+def model_checkpoint(name: str) -> str:
+    """The weight file of the shipped model `name` (`TRACKED_MODELS`)."""
+    if name not in TRACKED_MODELS:
+        raise KeyError(f"{name!r} is not a shipped model: {TRACKED_MODELS}")
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                        name + WEIGHTS_SUFFIX)
+
+
 def default_checkpoint() -> str:
     """The DB5 paper model's weights shipped with the package."""
-    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "assets", "db5_model_best.pt.xz")
-
+    return model_checkpoint("db5_model_best")
 
 
 def train_state_from_numpy(params: Mapping, opt_state, step, cfg: ModelConfig,

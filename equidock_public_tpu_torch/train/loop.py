@@ -1,5 +1,6 @@
 """Epoch runner and early stopping: the port of `prefetch_to_device`,
-`run_train_epoch`, `run_eval_epoch`, `selection_value` and `fit` of
+`run_train_epoch`, `run_eval_epoch`, `selection_value`, `fit` (with its
+device-resident branch, `train/resident.py`) and `curriculum` of
 `equidock_public_tpu/train/loop.py`, single device.
 
 The random streams are the JAX package's: `fit` seeds one numpy generator
@@ -7,7 +8,11 @@ with `cfg.train.random_seed`; the train epoch's batches draw from it on the
 prefetch thread, the choice of metered train batches from a generator of
 its own (`(seed, 7919, epoch)`), and the val and test epochs draw their
 poses from it on the calling thread after the train epoch has finished
-with it. So both packages see the same batches in the same order.
+with it. So both packages see the same batches in the same order. With
+`device_resident` the numpy generator orders the bucket groups and their
+schedules as in the JAX package, and the swaps and poses are drawn on the
+device from a generator per purpose and epoch (`resident.draws_factory`),
+or replayed from a source that `fit`'s `draws` argument gives.
 
 Scalars go to the text log (`<log_dir>/<banner>.txt`, and stdout) and, one
 JSON object per epoch, to `<log_dir>/<banner>.scalars.jsonl`.
@@ -15,6 +20,7 @@ JSON object per epoch, to `<log_dir>/<banner>.scalars.jsonl`.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -34,6 +40,9 @@ from ..params import flatten, init_params
 from .checkpoint import load_checkpoint, save_checkpoint
 from .meter import RmsdMeter
 from .optim import ReduceOnPlateau, epoch_lr_factor
+from .resident import (StreamedResidentSplit, build_resident_split, draws_factory,
+                       run_eval_epoch_resident, run_train_epoch_resident,
+                       run_train_epoch_resident_streamed)
 from .step import TrainState, check_train_supported, create_train_state, eval_step, train_step
 
 LOSS_KEYS = ("loss", "ligand_coors_loss", "ot_loss", "intersection_loss")
@@ -192,7 +201,8 @@ def check_fit_supported(cfg: Config) -> None:
     check_train_supported(cfg)
     dc = cfg.data
     problems = [name for name, on in (
-        ("device_resident (device-resident epochs)", dc.device_resident),
+        ("pack with device_resident (the resident store is unpacked)",
+         dc.pack and dc.device_resident),
         ("auto_buckets_max (auto node buckets)", dc.auto_buckets_max),
         ("auto_pocket_max (auto pocket buckets)", dc.auto_pocket_max)) if on]
     if problems:
@@ -207,7 +217,7 @@ def _json_scalars(d: dict) -> dict:
 def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[int] = None,
         log=None, checkpoint_name: Optional[str] = None,
         max_seconds: Optional[float] = None, device=None,
-        history: Optional[List[dict]] = None) -> TrainState:
+        history: Optional[List[dict]] = None, draws=None) -> TrainState:
     """Train on the cached train split with early stopping on the val
     selection metric (a new best must beat the old by 2% of its size, sign
     safe), `patience` epochs, the epoch LR factor (cyclic or
@@ -216,7 +226,11 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
     test split. A fresh state starts from `init_params` seeded with
     `random_seed`. `history`, if given, gets one dict per epoch (train and
     val averages, seconds, the best epoch so far) and a last one with the
-    test averages."""
+    test averages. With `device_resident` the splits live on the device
+    (`train/resident.py`; the train split streamed group by group for
+    `data='dips'` with `stream_dips`), and `draws`, if given, maps
+    (purpose, epoch) to the draw source of that epoch's train ('train'),
+    val ('val') or test ('test') pass."""
     check_fit_supported(cfg)
     dev = resolve_device(device)
     log = log or make_logger(cfg)
@@ -230,6 +244,10 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
     if state is None:
         state = create_train_state(init_params(cfg.model, tc.random_seed, dev), cfg, dev)
         log(f"Number of parameters = {sum(v.numel() for v in state.mu.values()):,}")
+
+    resident = _resident_splits(cfg, (train_ds, val_ds, test_ds), dev, log)
+    if resident is not None and draws is None:
+        draws = draws_factory(cfg, dev)
 
     ckpt_dir = os.path.join(cfg.checkpoint_dir, cfg.banner())
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -248,11 +266,22 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
             break
         t0 = time.perf_counter()
         lr_scale = epoch_lr_factor(tc, epoch, plateau)
-        state, tr = run_train_epoch(state, train_ds, cfg, rng, epoch, log, lr_scale=lr_scale)
-        t1 = time.perf_counter()
-        reps = [run_eval_epoch(state.params, val_ds, cfg, rng)
-                for _ in range(max(tc.val_repeats, 1))]
-        va = {k: float(np.mean([r[k] for r in reps])) for k in reps[0]}
+        if resident is not None:
+            runner = (run_train_epoch_resident_streamed
+                      if isinstance(resident["train"], StreamedResidentSplit)
+                      else run_train_epoch_resident)
+            state, tr = runner(state, resident["train"], cfg, rng, draws("train", epoch), epoch,
+                               log, lr_scale=lr_scale, do_swap=train_ds.swap)
+            t1 = time.perf_counter()
+            va = run_eval_epoch_resident(state.params, resident["val"], cfg,
+                                         draws("val", epoch), repeats=max(tc.val_repeats, 1))
+        else:
+            state, tr = run_train_epoch(state, train_ds, cfg, rng, epoch, log,
+                                        lr_scale=lr_scale)
+            t1 = time.perf_counter()
+            reps = [run_eval_epoch(state.params, val_ds, cfg, rng)
+                    for _ in range(max(tc.val_repeats, 1))]
+            va = {k: float(np.mean([r[k] for r in reps])) for k in reps[0]}
         t2 = time.perf_counter()
         if plateau is not None:
             new_scale = plateau.step(va["loss"])
@@ -292,6 +321,8 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
                   "val": _json_scalars(va), "train_seconds": t1 - t0,
                   "val_seconds": t2 - t1, "checkpoint_seconds": ckpt_s,
                   "best_epoch": best_epoch, "rss_gb": rss}
+        if resident is not None:
+            record["resident_mb"] = resident["mb"]
         with open(scalars_path, "a") as f:
             f.write(json.dumps(record) + "\n")
         if history is not None:
@@ -302,9 +333,54 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
 
     if os.path.exists(ckpt_path):
         state, _, _ = load_checkpoint(ckpt_path, dev)
-    te = run_eval_epoch(state.params, test_ds, cfg, rng)
+    if resident is not None:
+        te = run_eval_epoch_resident(state.params, resident["test"], cfg, draws("test", 0))
+    else:
+        te = run_eval_epoch(state.params, test_ds, cfg, rng)
     log(f"[FINAL TEST {cfg.data.data}] crmsd med {te['complex_rmsd_median']:.4f} "
         f"mean {te['complex_rmsd_mean']:.4f} loss {te['loss']:.4f}")
     if history is not None:
         history.append({"test": _json_scalars(te), "best_epoch": best_epoch})
+    return state
+
+
+def _resident_splits(cfg: Config, datasets, dev, log) -> Optional[dict]:
+    """With `device_resident`: {"train", "val", "test": the resident splits
+    (the train split a `StreamedResidentSplit` for streamed DIPS), "mb":
+    the stores' MB on the device}; else None."""
+    if not cfg.data.device_resident:
+        return None
+    train_ds, val_ds, test_ds = datasets
+    streamed = cfg.data.data == "dips" and cfg.data.stream_dips
+    if streamed:
+        train = StreamedResidentSplit.build(train_ds, cfg)
+        log("streamed-resident epochs: groups uploaded per epoch (prefetch 1), "
+            f"{len(train.by_bucket)} bucket groups")
+    else:
+        train = build_resident_split(train_ds, cfg, dev)
+    out = {"train": train, "val": build_resident_split(val_ds, cfg, dev),
+           "test": build_resident_split(test_ds, cfg, dev)}
+    n_bytes = sum(rs.nbytes() for rs in out.values() if not isinstance(rs, StreamedResidentSplit))
+    groups = {k: sorted(getattr(rs, "groups", None) or rs.by_bucket) for k, rs in out.items()}
+    out["mb"] = n_bytes / 1e6
+    log(f"device-resident epochs: {n_bytes / 1e6:.1f} MB on {dev}"
+        + (" (train streams per epoch)" if streamed else "") + f", groups/split = {groups}")
+    return out
+
+
+def curriculum(cfg: Config, toy: bool = False, log=None, state: Optional[TrainState] = None,
+               device=None, history: Optional[List[dict]] = None) -> TrainState:
+    """The DIPS -> DB5 curriculum: `fit` on DIPS (lr 2e-4, patience 100),
+    then on DB5 from the DIPS stage's best state (lr 1e-4, patience 500);
+    `toy` runs the DB5 stage only. `history`, if given, gets each stage's
+    records (`fit`'s) after a {"stage": name} record."""
+    log = log or make_logger(cfg)
+    stages = ([] if toy else [("dips", 2e-4, 100)]) + [("db5", 1e-4, 500)]
+    for data, lr, patience in stages:
+        stage_cfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, data=data),
+            train=dataclasses.replace(cfg.train, lr=lr, patience=patience))
+        if history is not None:
+            history.append({"stage": data})
+        state = fit(stage_cfg, state, log=log, device=device, history=history)
     return state

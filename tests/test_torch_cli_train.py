@@ -64,6 +64,64 @@ def test_unported_flags_raise_with_their_name(tmp_path, flag):
     ([], "DIPS stage"), (["-toy", "-node_buckets", "auto:4"], "auto"),
     (["-toy", "-layer_norm", "BN"], "layer_norm"), (["-toy", "-fine_tune"], "fine_tune"),
     (["-toy", "-ot_solver", "exact"], "ot_solver")])
-def test_runs_outside_the_port_raise(tmp_path, extra, match):
+def test_runs_outside_the_port_raise(tmp_path, monkeypatch, extra, match):
+    """A run without -toy starts the curriculum's DIPS stage, which raises
+    when no DIPS shards exist (the port does not build them); the other
+    cases are options outside the port."""
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         cli.main(TINY + (["-max_seconds", "1"] if "-toy" in extra else []) + extra)
+
+
+def test_the_resident_and_streaming_flags_are_honoured():
+    a = cli._parser().parse_args(TINY + ["-device_resident", "-trim_remainder", "-stream_dips",
+                                         "-stream_window", "2", "-data", "dips"])
+    cli.refuse_unported(a)
+    cfg = cli.config_from_args(a)
+    assert cfg.data.device_resident and cfg.train.trim_remainder
+    assert (cfg.data.stream_dips, cfg.data.stream_window, cfg.data.data) == (True, 2, "dips")
+    d = cli.config_from_args(cli._parser().parse_args(TINY))
+    assert not (d.data.device_resident or d.train.trim_remainder or d.data.stream_dips)
+    assert d.data.stream_window == 4
+    for flag in ("device_resident", "trim_remainder", "stream_dips", "stream_window"):
+        assert flag not in cli.REFUSED
+
+
+@pytest.mark.parametrize("flag", [["-dp", "2"], ["-pack"]])
+def test_dp_and_pack_with_device_resident_raise_by_name(flag):
+    with pytest.raises(NotImplementedError, match=flag[0]):
+        cli.main(TINY + ["-toy", "-max_epochs", "1", "-device_resident"] + flag)
+
+
+def test_a_resident_run_writes_a_checkpoint(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    args = _args(tmp_path)
+    assert cli.main(args + ["-toy", "-max_epochs", "1", "-device_resident",
+                            "-trim_remainder"]) == 0
+    cfg = cli.config_from_args(cli._parser().parse_args(args + ["-device_resident"]))
+    state, saved, _ = load_checkpoint(os.path.join(cfg.checkpoint_dir, cfg.banner(),
+                                                   "db5_model_best"), "cpu")
+    assert saved.data.device_resident and state.step == 2     # 4 pairs: 2 + 2 (trimmed)
+    log = open(os.path.join("stdouterr", cfg.banner() + ".txt")).read()
+    assert "device-resident epochs:" in log and " MB on cpu" in log
+
+
+def test_the_default_run_reaches_the_dips_stage(tmp_path, monkeypatch):
+    """No -toy, no -max_epochs: the curriculum, its DIPS stage on
+    synthetic shards (streamed, resident), then the DB5 stage."""
+    from equidock_public_tpu_torch.data.synth import write_synth_shards
+
+    monkeypatch.chdir(tmp_path)
+    args = _args(tmp_path) + ["-num_epochs", "1", "-device_resident", "-stream_dips",
+                              "-stream_window", "1"]
+    cfg = cli.config_from_args(cli._parser().parse_args(args))
+    dips = Config(data=DataConfig(data="dips", cache_dir=cfg.data.cache_dir))
+    for i, split in enumerate(("train", "val", "test")):
+        write_synth_shards(dips.cache_path(), split, n_shards=2, per_shard=3, seed=i)
+    assert cli.main(args) == 0
+    ckpt = os.path.join(cfg.checkpoint_dir, cfg.banner())
+    assert os.path.exists(os.path.join(ckpt, "dips_model_best"))
+    assert os.path.exists(os.path.join(ckpt, "db5_model_best"))
+    log = open(os.path.join("stdouterr", cfg.banner() + ".txt")).read()
+    assert "streamed-resident epochs" in log and "[FINAL TEST dips]" in log
+    assert "[FINAL TEST db5]" in log

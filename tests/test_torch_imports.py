@@ -5,7 +5,8 @@ none of them. Checked statically (ast) and by running the port's serving
 path, one training step and one halo forward and step in a process where
 those modules cannot be imported; likewise the inference surface (native
 builder, clash removal, directory, batched and ensemble inference, the
-evaluator, batched serving)."""
+evaluator, batched serving), and a resident epoch, the curriculum on
+streamed DIPS shards and the shipped models' weight files."""
 
 import ast
 import os
@@ -305,6 +306,76 @@ def test_the_inference_surface_runs_with_jax_and_the_jax_package_unimportable():
                           timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "INFERRED" in proc.stdout
+
+
+RESIDENT_MODULES = ("data/dips.py", "data/dataset.py", "data/synth.py", "train/resident.py",
+                    "train/loop.py", "cli/train.py", "cli/_common.py", "params.py")
+
+BLOCKED_RESIDENT = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint",
+             "equidock_public_tpu"):
+    sys.modules[name] = None
+import dataclasses, os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from equidock_public_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+from equidock_public_tpu_torch.data.dataset import DockingDataset
+from equidock_public_tpu_torch.data.synth import write_synth_shards, write_synth_split
+from equidock_public_tpu_torch.params import TRACKED_MODELS, init_params, load_checkpoint, model_checkpoint
+from equidock_public_tpu_torch.train import resident
+from equidock_public_tpu_torch.train.loop import curriculum
+from equidock_public_tpu_torch.train.step import create_train_state
+tmp = tempfile.mkdtemp()
+cfg = Config(model=ModelConfig(residue_emb_dim=8, iegmn_lay_hid_dim=8, iegmn_n_lays=2,
+                               num_att_heads=4),
+             train=TrainConfig(sinkhorn_iters=10, bs=2, num_epochs=1, trim_remainder=True),
+             data=DataConfig(node_buckets=(16, 32), pocket_buckets=(8, 16), device_resident=True,
+                             stream_dips=True, stream_window=1,
+                             cache_dir=os.path.join(tmp, "cache")),
+             checkpoint_dir=os.path.join(tmp, "ckpt"), log_dir=os.path.join(tmp, "logs"))
+for i, split in enumerate(("train", "val", "test")):
+    write_synth_split(os.path.join(cfg.cache_path(), split + ".npz"), [(9, 12), (14, 20)] * 2,
+                      seed=i, k=4)
+# one resident epoch
+ds = DockingDataset.from_cache(cfg, "train")
+rs = resident.build_resident_split(ds, cfg, "cpu")
+state = create_train_state(init_params(cfg.model), cfg, "cpu")
+state, avg = resident.run_train_epoch_resident(state, rs, cfg, np.random.default_rng(0),
+                                               resident.draws_factory(cfg, "cpu")("train", 0), 0)
+assert np.isfinite(avg["loss"]) and avg["num_batches"] == 2
+# the curriculum: streamed resident DIPS shards, then DB5
+dips = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, data="dips"))
+for i, split in enumerate(("train", "val", "test")):
+    write_synth_shards(dips.cache_path(), split, n_shards=2, per_shard=3, seed=i)
+history = []
+curriculum(cfg, device="cpu", history=history, log=lambda *a: None)
+assert [h["stage"] for h in history if "stage" in h] == ["dips", "db5"]
+for name in TRACKED_MODELS:
+    load_checkpoint(model_checkpoint(name))
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "equidock_public_tpu")]
+assert not loaded, loaded
+print("RESIDENT")
+"""
+
+
+@pytest.mark.parametrize("module", RESIDENT_MODULES)
+def test_resident_modules_are_under_the_guard(module):
+    path = os.path.join(PKG, module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{module} imports {bad}"
+
+
+def test_a_resident_epoch_and_the_curriculum_run_with_jax_and_the_jax_package_unimportable():
+    code = f"REPO = {REPO!r}\n" + BLOCKED_RESIDENT
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "RESIDENT" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -146,7 +146,7 @@ def test_fit_two_epochs_matches_jax(tmp_path, monkeypatch):
 
 def test_unported_loop_options_raise(tmp_path):
     _, pcfg, _ = _setup(tmp_path)
-    for field in ("device_resident", "auto_buckets_max"):
+    for field in ("auto_pocket_max", "auto_buckets_max"):
         cfg = dataclasses.replace(pcfg, data=dataclasses.replace(pcfg.data, **{field: 1}))
         with pytest.raises(NotImplementedError, match=field):
             tloop.fit(cfg, max_epochs=1, device="cpu", log=lambda *a: None)

@@ -10,6 +10,14 @@ full atom count). Shared by the tests and the command that writes the files:
     JAX_PLATFORMS=cpu python -m tests.torch_golden           # all of them
     JAX_PLATFORMS=cpu python -m tests.torch_golden fit       # the fit file only
     JAX_PLATFORMS=cpu python -m tests.torch_golden clashes   # the clash file only
+    JAX_PLATFORMS=cpu python -m tests.torch_golden models    # the six other models
+    JAX_PLATFORMS=cpu python -m tests.torch_golden resident  # the resident fit file
+
+`models` converts the six other tracked checkpoints (`MODELS`) into the
+port's weight files with golden values of their served requests;
+`resident` writes `db5_resident_fit.golden.json`, the fit golden's run with
+device-resident epochs and trimmed remainders, with the augmentation draws
+the JAX package made, which the port replays.
 """
 
 import json
@@ -396,14 +404,269 @@ def jax_clashes_golden():
     return out
 
 
-def orbax_params_numpy():
-    """The checkpoint's params pytree as nested dicts of numpy arrays."""
+def orbax_params_numpy(checkpoint=CHECKPOINT):
+    """A tracked orbax checkpoint's params pytree (nested dicts of numpy
+    arrays) and its JAX config: `artifacts/db5_model_best` unless another
+    checkpoint directory is named."""
     import jax
 
     from equidock_public_tpu.train.checkpoint import load_checkpoint
 
-    payload, cfg, _ = load_checkpoint(CHECKPOINT)
+    payload, cfg, _ = load_checkpoint(checkpoint)
     return jax.tree.map(np.asarray, payload["params"]), cfg
+
+
+# The other tracked models (artifacts/<name>), each converted to
+# assets/<name>.pt.xz + .config.json with a golden file <name>.golden.json of
+# the serving requests whose buckets its config has.
+MODELS = ("db5_model_curriculum", "dips_model_pretrained", "db5_model_small",
+          "db5_model_small_s2", "db5_model_small_l3", "db5_model_finetuned")
+
+
+def model_golden_path(name):
+    return os.path.join(ASSETS, f"{name}.golden.json")
+
+
+def residue_count(stem):
+    from equidock_public_tpu_torch.data.featurize import filter_residues
+    from equidock_public_tpu_torch.data.pdb import group_residues, read_pdb
+
+    return len(filter_residues(group_residues(read_pdb(os.path.join(REPO, pdb_path(stem))))))
+
+
+def pairs_that_fit(node_buckets, pairs=PAIRS):
+    """(kept, dropped) of the serving pairs: a pair is kept when both sides
+    fit the config's largest node bucket."""
+    kept, dropped = [], []
+    for lig, rec in pairs:
+        fits = max(residue_count(lig), residue_count(rec)) <= max(node_buckets)
+        (kept if fits else dropped).append((lig, rec))
+    return kept, dropped
+
+
+def jax_dock_outputs(checkpoint, pairs):
+    """R, t, the first N_CA moved CA coordinates and the keypoints per pair
+    from the JAX
+    package's `dock_one` on the CPU (its own featurization and forward; the
+    forward's outputs recorded as `dock_one` computes them)."""
+    import tempfile
+
+    import jax
+
+    from equidock_public_tpu.eval.inference import dock_one
+    from equidock_public_tpu.models.iegmn import docking_forward
+    from equidock_public_tpu.train.checkpoint import load_checkpoint
+
+    payload, cfg, _ = load_checkpoint(checkpoint)
+    fwd = jax.jit(lambda p, b: docking_forward(p, cfg.model, b))
+    seen = []
+
+    def recording(p, b):
+        seen.append(fwd(p, b))
+        return seen[-1]
+
+    out = []
+    with tempfile.TemporaryDirectory() as d:
+        for lig, rec in pairs:
+            dock_one(payload["params"], cfg, os.path.join(REPO, pdb_path(lig)),
+                     os.path.join(REPO, pdb_path(rec)), os.path.join(d, "out.pdb"),
+                     forward_fn=recording)
+            o = seen[-1]
+            out.append({"ligand": pdb_path(lig), "receptor": pdb_path(rec),
+                        "R": np.asarray(o["R"][0]).tolist(),
+                        "t": np.asarray(o["t"][0, 0]).tolist(),
+                        "ca": np.asarray(o["ligand_coords"][0, :N_CA]).tolist(),
+                        "keypts_lig": np.asarray(o["keypts_lig"][0]).tolist(),
+                        "keypts_rec": np.asarray(o["keypts_rec"][0]).tolist()})
+    return out
+
+
+def write_model(name):
+    """assets/<name>.pt.xz, its whole-config sidecar and <name>.golden.json
+    from the tracked checkpoint artifacts/<name>."""
+    import dataclasses
+
+    from equidock_public_tpu_torch.config import load_config
+    from equidock_public_tpu_torch.params import params_from_numpy, save_params
+
+    checkpoint = os.path.join(REPO, "artifacts", name)
+    cfg = load_config(checkpoint + ".config.json")
+    with open(os.path.join(ASSETS, f"{name}.config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    tree, _ = orbax_params_numpy(checkpoint)
+    save_params(os.path.join(ASSETS, f"{name}.pt.xz"), params_from_numpy(tree, cfg.model))
+    kept, dropped = pairs_that_fit(cfg.data.node_buckets)
+    with open(model_golden_path(name), "w") as f:
+        json.dump({"source": f"equidock_public_tpu on the CPU (dock_one), artifacts/{name}",
+                   "node_buckets": list(cfg.data.node_buckets),
+                   "dropped": [list(p) for p in dropped],
+                   "requests": jax_dock_outputs(checkpoint, kept)}, f, indent=1)
+
+
+RESIDENT_FIT_GOLDEN = os.path.join(ASSETS, "db5_resident_fit.golden.json")
+
+
+class ResidentRecorder:
+    """Records, while the JAX package's resident `fit` runs, each pass's
+    averages (train epochs, val and test evaluations, in call order) and the
+    augmentation draws its scans make: the keys that reach
+    `train_epoch_scan` / `eval_epoch_scan` are expanded outside the scan
+    with the scan's own splits (`draws_of_*`), step by step in order."""
+
+    def __init__(self):
+        from equidock_public_tpu.train import resident
+
+        self.resident = resident
+        self.passes = []          # [{"kind", "averages", "scans": [...]}]
+
+    def __enter__(self):
+        r = self.resident
+        self.saved = (r.train_epoch_scan, r.eval_epoch_scan, r.run_train_epoch_resident,
+                      r.run_eval_epoch_resident)
+        scan_t, scan_e, run_t, run_e = self.saved
+
+        def train_scan(state, store, idx, valid, key, scale, cfg, do_swap, emit_coords=True):
+            self.passes[-1]["scans"].append(("train", np.asarray(key), idx.shape, do_swap))
+            return scan_t(state, store, idx, valid, key, scale, cfg, do_swap,
+                          emit_coords=emit_coords)
+
+        def eval_scan(params, store, idx, valid, keys, bn_state, cfg):
+            self.passes[-1]["scans"].append(("eval", np.asarray(keys), idx.shape, False))
+            return scan_e(params, store, idx, valid, keys, bn_state, cfg)
+
+        def run(kind, fn):
+            def wrapped(*a, **kw):
+                self.passes.append({"kind": kind, "scans": []})
+                out = fn(*a, **kw)
+                self.passes[-1]["averages"] = out[1] if kind == "train" else out
+                return out
+            return wrapped
+
+        r.train_epoch_scan, r.eval_epoch_scan = train_scan, eval_scan
+        r.run_train_epoch_resident = run("train", run_t)
+        r.run_eval_epoch_resident = run("eval", run_e)
+        return self
+
+    def __exit__(self, *exc):
+        r = self.resident
+        (r.train_epoch_scan, r.eval_epoch_scan, r.run_train_epoch_resident,
+         r.run_eval_epoch_resident) = self.saved
+
+    def draws(self, translation_interval):
+        """Per pass, the (swap, rot, tr) of every step in order."""
+        import jax
+
+        out = []
+        for p in self.passes:
+            steps = []
+            for kind, key, shape, do_swap in p["scans"]:
+                if kind == "train":
+                    k = key
+                    for _ in range(shape[0]):
+                        k, k_aug, _ = jax.random.split(k, 3)
+                        steps.append(self.resident.draw_augmentations(
+                            k_aug, shape[1], do_swap, translation_interval))
+                else:
+                    for row in range(shape[0]):
+                        steps.append(self.resident.draw_augmentations(
+                            key[row], shape[1], False, translation_interval))
+            out.append([tuple(np.asarray(x) for x in d) for d in steps])
+        return out
+
+
+def jax_resident_fit_golden():
+    """The JAX package's `fit` with `device_resident` and `trim_remainder`,
+    FIT_EPOCHS epochs from the trained weights on the fit golden's
+    partition (its own featurizer's caches): per epoch the train and val
+    averages, the best epoch, the test averages, and the draws of every
+    pass. Products at "highest" precision."""
+    import dataclasses
+    import tempfile
+
+    import jax
+
+    from equidock_public_tpu.data.dataset import _graph_to_npz
+    from equidock_public_tpu.train import loop
+    from equidock_public_tpu.train.checkpoint import load_checkpoint
+    from equidock_public_tpu.train.step import create_train_state
+
+    payload, cfg, _ = load_checkpoint(CHECKPOINT)
+    parts = fit_partition()
+    best = []
+    with tempfile.TemporaryDirectory() as root:
+        cfg = resident_fit_config(fit_config(cfg, root))
+        for split, codes in parts.items():
+            out = {"codes": np.array(codes)}
+            for i, code in enumerate(codes):
+                smp = jax_split_chain(code, cfg.graph)
+                _graph_to_npz(f"c{i}/lig/", smp.lig, out)
+                _graph_to_npz(f"c{i}/rec/", smp.rec, out)
+                out[f"c{i}/gt_lig"], out[f"c{i}/gt_rec"] = smp.gt_lig, smp.gt_rec
+                out[f"c{i}/pocket"] = smp.pocket
+            os.makedirs(cfg.cache_path(), exist_ok=True)
+            np.savez(os.path.join(cfg.cache_path(), f"{split}.npz"), **out)
+        save = loop.save_checkpoint
+
+        def save_best(path, state, cfg_, epoch):
+            best.append(epoch)
+            save(path, state, cfg_, epoch)
+
+        loop.save_checkpoint = save_best
+        cwd = os.getcwd()
+        os.chdir(root)                     # the JAX loop writes ./tb_logs
+        try:
+            with ResidentRecorder() as rec, jax.default_matmul_precision("highest"):
+                loop.fit(cfg, create_train_state(payload["params"], cfg),
+                         max_epochs=FIT_EPOCHS, log=lambda *a: None)
+        finally:
+            os.chdir(cwd)
+            loop.save_checkpoint = save
+    draws = rec.draws(cfg.graph.translation_interval)
+    keep = lambda d, keys: {k: float(d[k]) for k in keys}
+    trains = [p["averages"] for p in rec.passes if p["kind"] == "train"]
+    evals = [p["averages"] for p in rec.passes if p["kind"] == "eval"]
+    return {
+        "source": "equidock_public_tpu on the CPU (fit with device_resident and "
+                  "trim_remainder, Pallas soft-min kernel in interpret mode), "
+                  "artifacts/db5_model_best",
+        "partition": parts,
+        "split": "as db5_fit.golden.json",
+        "epochs": FIT_EPOCHS, "train_config": dataclasses.asdict(cfg.train),
+        "tolerance": FIT_TOL,
+        "history": [{"train": dict(keep(tr, FIT_LOSS_KEYS + ("complex_rmsd_median",)),
+                                   num_batches=int(tr["num_batches"]),
+                                   num_clips=int(tr["num_clips"])),
+                     "val": keep(va, FIT_LOSS_KEYS + FIT_MEDIAN_KEYS)}
+                    for tr, va in zip(trains, evals)],
+        "best_epoch": best[-1],
+        "test": keep(evals[-1], FIT_LOSS_KEYS + FIT_MEDIAN_KEYS),
+        "passes": [p["kind"] for p in rec.passes],
+        "draws": [[{"swap": d[0].astype(int).tolist(), "rot": d[1].tolist(),
+                    "tr": d[2].tolist()} for d in steps] for steps in draws],
+    }
+
+
+def resident_fit_config(cfg):
+    """The fit golden's config with device-resident epochs and trimmed
+    remainders (either package's Config)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, device_resident=True),
+        train=dataclasses.replace(cfg.train, trim_remainder=True))
+
+
+def replay_sources(golden, device="cpu"):
+    """(purpose, epoch) -> a ReplayDraws of the golden file's draws for the
+    port's `fit(draws=...)`: the passes run train, val per epoch, then test."""
+    from equidock_public_tpu_torch.train.resident import ReplayDraws
+
+    triples = [[(d["swap"], d["rot"], d["tr"]) for d in steps] for steps in golden["draws"]]
+    order = {}
+    for e in range(golden["epochs"]):
+        order[("train", e)], order[("val", e)] = 2 * e, 2 * e + 1
+    order[("test", 0)] = 2 * golden["epochs"]
+    return lambda purpose, epoch: ReplayDraws(triples[order[(purpose, epoch)]], device)
 
 
 if __name__ == "__main__":
@@ -425,6 +688,14 @@ if __name__ == "__main__":
         with open(CLASH_GOLDEN, "w") as f:
             json.dump(jax_clashes_golden(), f, indent=1)
         sys.exit(0)
+    if sys.argv[1:] == ["models"]:
+        for name in MODELS:
+            write_model(name)
+        sys.exit(0)
+    if sys.argv[1:] == ["resident"]:
+        with open(RESIDENT_FIT_GOLDEN, "w") as f:
+            json.dump(jax_resident_fit_golden(), f, indent=1)
+        sys.exit(0)
     sidecar = os.path.join(ASSETS, "db5_model_best.config.json")
     with open(sidecar, "w") as f:     # the whole config, as the port reads it
         cfg = load_config(CHECKPOINT + ".config.json")
@@ -443,3 +714,7 @@ if __name__ == "__main__":
         json.dump(jax_fit_golden(), f, indent=1)
     with open(CLASH_GOLDEN, "w") as f:
         json.dump(jax_clashes_golden(), f, indent=1)
+    for name in MODELS:
+        write_model(name)
+    with open(RESIDENT_FIT_GOLDEN, "w") as f:
+        json.dump(jax_resident_fit_golden(), f, indent=1)
