@@ -103,6 +103,31 @@ non-zero without printing a result.
            references) and the device memory
            after the streamed epoch is that before it plus the new train
            state
+  options  slice 7, full width (the paper DB5 model), on the DB5-sized
+           split of epoch (b): (a) the training CLI one epoch each, packed
+           (-pack -pack_max_per_slot 4), unpacked, packed, in turns (epoch
+           seconds, pairs/s, slots a step, dead-node share; rows 1-5 10
+           launches a step, rows 6-7 none when packed); the training
+           golden's complexes packed 4 a slot (digest of
+           assets/db5_train_step_packed.golden.json): a step's loss terms
+           within 1e-5 and gradient norm within 1e-4 of the unpacked step's,
+           3 packed steps against the packed golden's JAX steps, rows 1-2
+           on its ligand and receptor tables (block-diagonal, the pad tail
+           self-looping with mask 0) and rows 3-5 with its tags (up to 4)
+           against their plain versions; (b) 3 train
+           steps of the paper model from its committed weights with
+           layer_norm and final_h_layer_norm 'BN', final_h 'BN' alone,
+           swish, coordinate LN and dropout 0.1 (the CPU's masks replayed),
+           each step against a step of the CPU's plain path from the same
+           state at the training gate's first-step tolerances, with its
+           kernel-path line and the rows it launched (rows 1-2 only where
+           the edge kernel covers the config, else the plain layer body,
+           counted); (c) the CLI's -fine_tune_from the unpacked epoch's
+           checkpoint with -freeze_original -fine_tune_init copy, one epoch:
+           the original stage bit-equal, the fine-tune stage moved; (d) a
+           gradient with and without remat (bit-equal, peak memory); (e) a
+           step with the exact OT solver: its OT loss against the same plan
+           on the CPU, the host LP's ms
   halo     the halo graph-parallel path (shards stacked on the card): the
            4 served requests through `make_halo_forward` at padded gp=2,
            ragged gp=4 and gp=4 with a forced residual tier, each against
@@ -513,14 +538,6 @@ COMBINES = (("cross_attention", "combine_launches", "cross_attention_combine",
              "cross_attention_dq"),
             ("cross_attention", "dkv_combine_launches", "cross_attention_dkv_combine",
              "cross_attention_dkv"))
-# Launches a training step makes of each kernel (5 layers x 2 sides; the
-# soft-min field kernels once a direction) and a forward without gradient.
-PER_STEP = {"edge_message": 10, "edge_message_bwd": 10, "cross_attention": 10,
-            "cross_attention_dq": 10, "cross_attention_dkv": 10}
-PER_STEP_FUSED = dict(PER_STEP, softmin_field=2, softmin_field_bwd=2)
-PER_EVAL_FUSED = {"edge_message": 10, "cross_attention": 10, "softmin_field": 2}
-
-
 def kernel_counters():
     """(module, launch-counter attribute, kernel name) of every kernel, of
     the edge backward's scatter, of the inverse lists and halo tables built
@@ -550,25 +567,44 @@ def read_counts() -> dict:
     return {name: getattr(mod, attr) for mod, attr, name in kernel_counters()}
 
 
-def expect_counts(what: str, counts: dict, steps: int, evals: int, fused: bool) -> None:
-    """Each kernel launched exactly as `steps` training steps and `evals`
-    forwards without gradient make it, the scatter once per backward, and
-    one inverse neighbour list built per side per step (none for the
-    forwards without gradient)."""
-    per_step = PER_STEP_FUSED if fused else PER_STEP
-    per_eval = PER_EVAL_FUSED if fused else {"edge_message": 10, "cross_attention": 10}
+def expect_launches(what: str, counts: dict, want: dict, inverse: int) -> None:
+    """Each kernel launched exactly as `want` says (0 where it says nothing),
+    the scatter once a backward, `inverse` inverse neighbour lists built,
+    no halo table, each combine pass once with its kernel."""
     for name, *_ in KERNELS:
-        want = per_step.get(name, 0) * steps + per_eval.get(name, 0) * evals
-        require(counts[name] == want, f"{what}: {name} launched {counts[name]} times, "
-                                      f"expected {want} ({steps} steps, {evals} forwards)")
+        require(counts[name] == want.get(name, 0),
+                f"{what}: {name} launched {counts[name]} times, expected {want.get(name, 0)}")
     require(counts["edge_message_scatter"] == counts["edge_message_bwd"],
             f"{what}: the edge backward's scatter launched {counts['edge_message_scatter']} "
             f"times for {counts['edge_message_bwd']} backwards")
-    require(counts[HALO_TABLES[2]] == 0, f"{what}: halo exchange tables built on a dense path")
-    want = PER_STEP_INVERSE * steps
-    require(counts[INVERSE[2]] == want, f"{what}: {counts[INVERSE[2]]} inverse neighbour "
-                                        f"lists built, expected {want}")
+    require(counts[HALO_TABLES[2]] == 0, f"{what}: halo exchange tables built")
+    require(counts[INVERSE[2]] == inverse,
+            f"{what}: {counts[INVERSE[2]]} inverse neighbour lists built, expected {inverse}")
     expect_combines(what, counts)
+
+
+def step_launches(layers: int, steps: int, evals: int, edge: bool = True,
+                  softmin: bool = False) -> dict:
+    """Launches of `steps` train steps and `evals` forwards without gradient
+    of a model of `layers` layers: rows 1 and 3 two a layer a forward, rows
+    2, 4 and 5 two a layer a step (rows 1-2 only with `edge`), rows 6-7 two
+    a forward / a step with `softmin`."""
+    per = SIDES * layers
+    want = {"cross_attention": per * (steps + evals), "cross_attention_dq": per * steps,
+            "cross_attention_dkv": per * steps}
+    if edge:
+        want.update(edge_message=per * (steps + evals), edge_message_bwd=per * steps)
+    if softmin:
+        want.update(softmin_field=2 * (steps + evals), softmin_field_bwd=2 * steps)
+    return want
+
+
+def expect_counts(what: str, counts: dict, steps: int, evals: int, fused: bool) -> None:
+    """The paper model's launches for `steps` training steps and `evals`
+    forwards without gradient (`step_launches`, the soft-min field kernels
+    with `fused`), one inverse neighbour list built per side per step."""
+    expect_launches(f"{what} ({steps} steps, {evals} forwards)", counts,
+                    step_launches(LAYERS, steps, evals, softmin=fused), PER_STEP_INVERSE * steps)
 
 
 def rel_err(got, want) -> float:
@@ -2257,7 +2293,8 @@ def run_cli(argv, cwd) -> dict:
     """`cli/train.py::main(argv)` from `cwd` (its text and scalars logs go to
     ./stdouterr there), as a user runs it: no synchronization added; every
     kernel count set to 0 just before and read just after. Returns the
-    launches, the records of the scalars file (one an epoch and one a test,
+    launches, the banner of the model the run trained (as its log names
+    it), the records of the scalars file (one an epoch and one a test,
     stage after stage), the seconds, the text logged and the peak device
     memory."""
     from equidock_public_tpu_torch.cli import train as cli
@@ -2275,10 +2312,11 @@ def run_cli(argv, cwd) -> dict:
     finally:
         os.chdir(here)
     counts = read_counts()
-    cfg = cli.config_from_args(cli._parser().parse_args(argv))
-    with open(os.path.join(cwd, cfg.log_dir, cfg.banner() + ".scalars.jsonl")) as f:
+    banner = logged(out.getvalue(), "Model name")
+    log_dir = cli.config_from_args(cli._parser().parse_args(argv)).log_dir
+    with open(os.path.join(cwd, log_dir, banner + ".scalars.jsonl")) as f:
         records = [json.loads(line) for line in f]
-    return dict(launches=counts, records=records, seconds=seconds,
+    return dict(launches=counts, banner=banner, records=records, seconds=seconds,
                 log=out.getvalue(), peak_gb=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -2568,6 +2606,432 @@ def run_curriculum(dev, root) -> dict:
 # Main
 # --------------------------------------------------------------------------- #
 
+# --------------------------------------------------------------------------- #
+# Slice 7: packed batches, BatchNorm, dropout, fine-tuning, remat, exact OT
+# --------------------------------------------------------------------------- #
+
+PACK_MAX = 4            # complexes a slot, as the packed golden file
+# A packed step against the unpacked step on the same complexes, on the
+# card: the same per-complex sums, but the attention's key tiles split
+# another way, so f32 rounding in another order. Loss terms relative; the
+# global gradient norm (a sum over 10^5 leaves' elements) relative.
+PACKED_LOSS_RTOL, PACKED_GNORM_RTOL = 1e-5, 1e-4
+# The exact OT loss on the card against the same plan applied on the CPU.
+EXACT_OT_RTOL = 1e-5
+# Remat against the plain forward's gradients: the recompute launches the
+# same kernels on the same inputs, each bit-equal on two launches.
+REMAT_REL_TOL = 1e-6
+OPTION_STEPS = 3
+OPTION_CONFIGS = (("bn", dict(layer_norm="BN", final_h_layer_norm="BN")),
+                  ("final_h_bn", dict(final_h_layer_norm="BN")),
+                  ("swish", dict(nonlin="swish")),
+                  ("coors_ln", dict(layer_norm_coors="LN")),
+                  ("dropout", dict(dropout=0.1)))
+
+
+def logged(log: str, key: str) -> str:
+    """The value of the training log's first "<key> ===> " line."""
+    mark = key + " ===> "
+    return next(ln.split(mark, 1)[1].strip() for ln in log.splitlines() if mark in ln)
+
+
+def batch_shapes(cfg) -> dict:
+    """Slots a step and the dead-node share (padded node slots of both sides
+    that hold no node) of the train split's batches under seed 0, on the
+    host."""
+    from equidock_public_tpu_torch.data.dataset import DockingDataset
+
+    slots, valid, padded = [], 0.0, 0
+    for b in DockingDataset.from_cache(cfg, "train").batches(np.random.default_rng(0),
+                                                              device="cpu"):
+        slots.append(b.pair_mask.shape[0])
+        for side in (b.lig, b.rec):
+            valid += float(side.node_mask.sum())
+            padded += side.node_mask.numel()
+    return dict(batches=len(slots), slots_per_step=float(np.mean(slots)),
+                dead_node_share=1.0 - valid / padded)
+
+
+def run_packed_epochs(root) -> tuple:
+    """Options (a): the training CLI, one epoch each, packed (-pack
+    -pack_max_per_slot 4), unpacked, packed, in turns, on the DB5-sized
+    split of epoch (b) (fused intersection asked for: the packed loss is
+    the plain packed one, so rows 6-7 do not launch). Returns (report,
+    the unpacked run's checkpoint)."""
+    from equidock_public_tpu_torch.cli import train as cli
+
+    base = db5_sized_argv(root, epochs=1)
+    evals = sum(-(-DB5_SIZED_SPLIT[s] // 10) for s in ("val", "test"))
+    out, ckpt = {"packed": [], "unpacked": []}, None
+    for i, kind in enumerate(("packed", "unpacked", "packed")):
+        argv = base + ["-checkpoint_dir", os.path.join(root, "options", f"ckpt{i}")]
+        if kind == "packed":
+            argv += ["-pack", "-pack_max_per_slot", str(PACK_MAX)]
+        run = run_cli(argv, os.path.join(root, "options", f"run{i}"))
+        steps = run["records"][0]["train"]["num_batches"]
+        packed = kind == "packed"
+        expect_launches(f"options {kind} epoch", run["launches"],
+                        step_launches(LAYERS, steps, evals, softmin=not packed),
+                        PER_STEP_INVERSE * steps)
+        paths = logged(run["log"], "Kernel paths")
+        require(("intersection: the plain packed loss" in paths) == packed
+                and ("(packed seg tags)" in paths) == packed, f"kernel paths: {paths}")
+        out[kind].append(dict(epoch_summary(run, DB5_SIZED_SPLIT["train"]), steps=steps,
+                              launches=run["launches"],
+                              launches_per_step={k: v / steps for k, v in run["launches"].items()},
+                              kernel_paths=paths))
+        if not packed:
+            ckpt = os.path.join(root, "options", f"ckpt{i}", run["banner"], "db5_model_best")
+    pcfg = cli.config_from_args(cli._parser().parse_args(
+        base + ["-pack", "-pack_max_per_slot", str(PACK_MAX)]))
+    out["batches"] = {"packed": batch_shapes(pcfg),
+                      "unpacked": batch_shapes(cli.config_from_args(cli._parser().parse_args(base)))}
+    return out, ckpt
+
+
+def packed_tag_cases(pbatch, dev) -> dict:
+    """Rows 3-5 with the packed golden batch's tags (seg + 1) * mask, up to
+    4, both directions, at D 64 (and 69, layer 0's width) against their
+    plain versions: forward, dQ and dK/dV."""
+    from equidock_public_tpu_torch.ops.cuda import cross_attention as ca
+
+    tag = lambda side: ((side.seg_id.to(torch.float32) + 1.0) * side.node_mask).contiguous()
+    out = []
+    for qs, ks, D in ((pbatch.lig, pbatch.rec, 64), (pbatch.rec, pbatch.lig, 64),
+                      (pbatch.lig, pbatch.rec, 69)):
+        qt, kt = tag(qs), tag(ks)
+        B, N, M = qt.shape[0], qt.shape[1], kt.shape[1]
+        gen = torch.Generator().manual_seed(D + N)
+        q, k, v, do = ((torch.randn(B, n, D, generator=gen) * s).to(dev).contiguous()
+                       for n, s in ((N, 0.3), (M, 0.3), (M, 1.0), (N, 1.0)))
+        shape = f"B={B} N={N} M={M} D={D} packed tags up to {int(qt.max())}"
+        got = ca.cross_attention_fwd(q, k, v, qt, kt)
+        synced("cross_attention (packed tags)")
+        o, lse = ca.cross_attention_plain(q, k, v, qt, kt)
+        fwd_err = check_close("cross_attention " + shape, got, (o, lse), ATT_TOL)
+        gb = ca.cross_attention_bwd(q, k, v, qt, kt, o.contiguous(), lse.contiguous(), do)
+        synced("cross_attention_dq, cross_attention_dkv (packed tags)")
+        want = ca.cross_attention_bwd_plain(q, k, v, qt, kt, do)
+        out.append(dict(shape=shape, fwd_max_abs_err=fwd_err,
+                        dq=check_grads("cross_attention_dq", shape, gb[:1], want[:1]),
+                        dkv=check_grads("cross_attention_dkv", shape, gb[1:], want[1:])))
+    require(max(int(((c.seg_id + 1) * c.node_mask).max()) for c in (pbatch.lig, pbatch.rec)) > 2,
+            "the packed golden batch has no tag above 2")
+    return out
+
+
+def packed_edge_cases(params, pbatch, cfg, dev) -> list:
+    """Rows 1-2 on the packed golden batch's ligand and receptor tables as
+    `collate_packed` built them (block-diagonal nbr, the pad tail
+    self-looping from the slot's last member node with mask 0), with layer
+    0's weights (h 69 wide) and the shared layer's (h 64 wide), random h
+    and output cotangents; checked as every edge case is (check_edge_case:
+    forward, backward, the scatter through the inverse neighbour list)."""
+    from equidock_public_tpu_torch.models.iegmn import edge_kernel_inputs
+
+    hid, cases = cfg.model.iegmn_lay_hid_dim, []
+    for name, side in (("lig", pbatch.lig), ("rec", pbatch.rec)):
+        B, N, K = side.nbr.shape
+        tail = (side.node_mask == 0)[..., None].expand(B, N, K)
+        rows = torch.arange(N, device=dev, dtype=side.nbr.dtype)[None, :, None].expand(B, N, K)
+        require(bool(tail.any()) and torch.equal(side.nbr[tail], rows[tail])
+                and float(side.nbr_mask[tail].abs().sum()) == 0.0,
+                f"packed {name}: the pad tail does not self-loop with mask 0")
+        for layer, Dh in (("layer0", cfg.model.input_node_feats_dim), ("rest", hid)):
+            gen = torch.Generator().manual_seed(Dh + N)
+            h = torch.randn(B, N, Dh, generator=gen).to(dev)
+            he = side.edge_feat.contiguous()
+            src, dst, kp = edge_kernel_inputs(params["original"][layer], side.x.contiguous(),
+                                              h, he)
+            grads = (torch.randn(B, N, hid, generator=gen).to(dev),
+                     torch.randn(B, N, 3, generator=gen).to(dev))
+            cases.append(dict(shape=f"packed {name}, {layer} weights: B={B} N={N} K={K} "
+                                    f"h {Dh} D={hid} E={he.shape[-1]}",
+                              args=(src, dst, he, side.nbr.contiguous(),
+                                    side.nbr_mask.contiguous(), kp), grads=grads))
+    return cases
+
+
+def run_packed_golden(dev, train_golden) -> dict:
+    """Options (a): on the training golden's complexes packed 4 a slot
+    (checked against assets/db5_train_step_packed.golden.json's digest),
+    a step's loss and gradient norm against the unpacked step's, 3 packed
+    train_steps against the packed golden's JAX steps (rows 1-5 10 a step,
+    rows 6-7 none), rows 1-2 on the packed tables and rows 3-5 with packed
+    tags against their plain versions."""
+    from equidock_public_tpu_torch.data.dataset import DockingDataset
+    from equidock_public_tpu_torch.graph import batch_digest, digests_agree
+    from equidock_public_tpu_torch.params import flatten
+    from equidock_public_tpu_torch.train.optim import global_norm
+    from equidock_public_tpu_torch.train.step import (create_train_state, loss_and_grads,
+                                                      train_step)
+
+    _, params, cfg, batch, _ = train_golden
+    pgold = load_asset("db5_train_step_packed.golden.json")
+    pcfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, pack=True, pack_max_per_slot=pgold["pack_max_per_slot"]))
+    pbatch = next(DockingDataset(pcfg, split_chain_samples(pgold["codes"], cfg.graph)).batches(
+        np.random.default_rng(pgold["seed"]), device=dev))
+    bad = digests_agree(batch_digest(pbatch), pgold["batch_digest"])
+    require(not bad, f"the packed batch differs from the packed golden one in {bad}")
+    ug, um, _ = loss_and_grads(params, cfg, batch)
+    reset_counts()
+    pg, pm, _ = loss_and_grads(params, pcfg, pbatch)
+    expect_launches("packed gradient", read_counts(), step_launches(LAYERS, 1, 0),
+                    PER_STEP_INVERSE)
+    vs_unpacked = {}
+    for key in ("loss", "ligand_coors_loss", "ot_loss", "intersection_loss"):
+        got, want = float(pm[key]), float(um[key])
+        vs_unpacked[key] = abs(got - want) / max(abs(want), 1e-12)
+        require(vs_unpacked[key] <= PACKED_LOSS_RTOL,
+                f"packed step {key}: {got:.8g}, unpacked {want:.8g}")
+    gp, gu = float(global_norm(pg)), float(global_norm(ug))
+    vs_unpacked["grad_norm"] = abs(gp - gu) / gu
+    require(vs_unpacked["grad_norm"] <= PACKED_GNORM_RTOL,
+            f"packed gradient norm {gp:.8g}, unpacked {gu:.8g}")
+    state = create_train_state(params, pcfg, dev)
+    p0 = {k: v.clone() for k, v in flatten(state.params).items()}
+    reset_counts()
+    metrics = []
+    for _ in range(OPTION_STEPS):
+        state, m = train_step(state, pbatch, pcfg)
+        metrics.append(m)
+    launches = read_counts()
+    expect_launches("packed golden steps", launches, step_launches(LAYERS, OPTION_STEPS, 0),
+                    PER_STEP_INVERSE * OPTION_STEPS)
+    worst = check_step_golden("packed golden", metrics, state, p0, pgold, pcfg)
+    return dict(slots=pbatch.pair_mask.shape[0], buckets=[pbatch.lig.x.shape[1],
+                                                          pbatch.rec.x.shape[1]],
+                rel_err_vs_unpacked=vs_unpacked,
+                tolerance={"loss_rtol": PACKED_LOSS_RTOL, "grad_norm_rtol": PACKED_GNORM_RTOL},
+                golden_worst_rel_err=worst, launches=launches,
+                edge=[check_edge_case(c, cfg.model.leakyrelu_neg_slope)
+                      for c in packed_edge_cases(params, pbatch, cfg, dev)],
+                tags=packed_tag_cases(pbatch, dev))
+
+
+def state_on(state, dev):
+    """A copy of a train state on `dev`."""
+    from equidock_public_tpu_torch.params import flatten, unflatten
+    from equidock_public_tpu_torch.train.step import TrainState
+
+    to = lambda d: {k: v.to(dev) for k, v in d.items()}
+    return TrainState(unflatten(to(flatten(state.params))), to(state.mu), to(state.nu),
+                      state.step, {s: to(st) for s, st in state.bn_state.items()})
+
+
+def run_option_config(name, model_kw, train_golden, dev) -> dict:
+    """Options (b): OPTION_STEPS train steps of the paper model's config
+    with `model_kw`, from the committed weights (a norm's leaves that the
+    config adds at their initial values: gain 1, shift 0), on the training
+    golden batch on the card, each held to a step of the CPU's plain path
+    from the same state (the card's, copied), with the same dropout masks
+    (the CPU's, replayed on the card): loss terms and the gradient norm at
+    the training gate's first-step tolerances, each leaf's move and the
+    running statistics; which rows launched, how many sides ran the plain
+    layer body, and the config's kernel-path line."""
+    from equidock_public_tpu_torch.graph import batch_to
+    from equidock_public_tpu_torch.models import iegmn
+    from equidock_public_tpu_torch.models.layers import Dropout
+    from equidock_public_tpu_torch.params import flatten, init_params, unflatten
+    from equidock_public_tpu_torch.train.step import create_train_state, eval_step, train_step
+
+    golden, trained, cfg, batch, _ = train_golden
+    tol = golden["tolerance"]
+    mcfg = dataclasses.replace(cfg.model, **model_kw)
+    ocfg = dataclasses.replace(cfg, model=mcfg)
+    base = flatten(trained)
+    params = unflatten({k: base[k].cpu() if k in base and base[k].shape == v.shape else v
+                        for k, v in flatten(init_params(mcfg, 0, "cpu")).items()})
+
+    class Recording(Dropout):
+        def __init__(self, rate, gen):
+            super().__init__(rate, gen)
+            self.kept = []
+
+        def mask(self, shape, device):
+            m = super().mask(shape, device)
+            self.kept.append(m)
+            return m
+
+    cpu_batch = batch_to(batch, "cpu")
+    state = create_train_state(params, ocfg, dev)
+    worst, launches, plain = {}, {}, 0
+    atol = tol["delta_norm_atol_lr"] * cfg.train.lr
+    for i in range(OPTION_STEPS):
+        before = state_on(state, "cpu")
+        drop = Recording(mcfg.dropout, torch.Generator().manual_seed(i)) if mcfg.dropout else None
+        host, want = train_step(before, cpu_batch, ocfg, drop=drop)
+        reset_counts()
+        iegmn.plain_body_calls = 0
+        state, got = train_step(state, batch, ocfg,
+                                drop=Dropout(mcfg.dropout, masks=drop.kept) if drop else None)
+        launches = {k: launches.get(k, 0) + v for k, v in read_counts().items()}
+        plain += iegmn.plain_body_calls
+        for key in ("loss", "ligand_coors_loss", "ot_loss", "intersection_loss", "grad_norm"):
+            r = tol["grad_norm_rtol"] if key == "grad_norm" else tol["loss_rtol_step1"]
+            g, w = float(got[key]), float(want[key])
+            worst[key] = max(worst.get(key, 0.0), abs(g - w) / max(abs(w), 1e-12))
+            require(np.isfinite(g) and abs(g - w) <= r * abs(w) + tol["loss_atol"],
+                    f"option {name} step {i + 1} {key}: card {g:.7g}, CPU {w:.7g}")
+        p0, after = flatten(before.params), flatten(state_on(state, "cpu").params)
+        for key, v in flatten(host.params).items():
+            g, w = float((after[key] - p0[key]).norm()), float((v - p0[key]).norm())
+            worst["delta_norm"] = max(worst.get("delta_norm", 0.0), abs(g - w) / max(w, 1e-12))
+            require(abs(g - w) <= tol["delta_norm_rtol"] * w + atol,
+                    f"option {name} step {i + 1} {key}: moved {g:.6g} on the card, {w:.6g} "
+                    "on the CPU")
+        for site, st in state.bn_state.items():
+            for k in ("mean", "var"):
+                err = rel_err(st[k].cpu(), host.bn_state[site][k])
+                worst["bn_state"] = max(worst.get("bn_state", 0.0), err)
+                require(err <= tol["delta_norm_rtol"], f"option {name} {site}/{k}: {err:.3g}")
+    eligible = iegmn.fused_edge_eligible(mcfg, train=True)
+    expect_launches(f"option {name}", launches, step_launches(LAYERS, OPTION_STEPS, 0, eligible),
+                    PER_STEP_INVERSE * OPTION_STEPS if eligible else 0)
+    want_plain = 0 if eligible else SIDES * LAYERS * OPTION_STEPS
+    require(plain == want_plain, f"option {name}: {plain} sides through the plain layer body, "
+                                 f"expected {want_plain}")
+    out = dict(config=model_kw, start="the committed weights; leaves the config adds at "
+               "their initial values", kernel_path_report=iegmn.kernel_path_report(mcfg),
+               edge_kernels=eligible, launches=launches, plain_body_sides=plain,
+               worst_rel_err_vs_cpu=worst)
+    if mcfg.dropout:        # an evaluation forward is eligible: rows 1 and 3, no plain body
+        reset_counts()
+        iegmn.plain_body_calls = 0
+        eval_step(state.params, batch, ocfg, state.bn_state)
+        ev = read_counts()
+        require(ev["edge_message"] == SIDES * LAYERS and iegmn.plain_body_calls == 0,
+                f"option {name}: an evaluation forward launched {ev['edge_message']} edge "
+                f"kernels, {iegmn.plain_body_calls} plain sides")
+        out["eval_forward_launches"] = ev
+    return out
+
+
+def run_fine_tune(root, stage1) -> dict:
+    """Options (c): the training CLI, one epoch, -fine_tune_from the
+    unpacked epoch's checkpoint with -freeze_original -fine_tune_init copy:
+    the original stage bit-equal to stage 1 afterwards, the fine-tune stage
+    moved from its copy; rows 1-7 launched for both stages (5 + 2 layers)."""
+    from equidock_public_tpu_torch.params import flatten
+    from equidock_public_tpu_torch.train.checkpoint import load_checkpoint
+
+    argv = db5_sized_argv(root, epochs=1) + [
+        "-checkpoint_dir", os.path.join(root, "options", "ft_ckpt"), "-fine_tune_from", stage1,
+        "-freeze_original", "-fine_tune_init", "copy"]
+    run = run_cli(argv, os.path.join(root, "options", "ft_run"))
+    steps = run["records"][0]["train"]["num_batches"]
+    evals = sum(-(-DB5_SIZED_SPLIT[s] // 10) for s in ("val", "test"))
+    want = step_launches(LAYERS + 2, steps, evals, softmin=True)
+    # the fine-tune stage's own attention (ft_att_*) is plain, as in the JAX package
+    expect_launches("fine-tune epoch", run["launches"], want, 2 * PER_STEP_INVERSE * steps)
+    s1, _, _ = load_checkpoint(stage1, "cpu")
+    done, saved, _ = load_checkpoint(os.path.join(root, "options", "ft_ckpt", run["banner"],
+                                                  "db5_model_best"), "cpu")
+    require(saved.train.freeze_original and saved.model.fine_tune, "the fine-tune sidecar")
+    orig = flatten(s1.params["original"])
+    for k, v in flatten(done.params["original"]).items():
+        require(torch.equal(v, orig[k]), f"fine-tune: the frozen original/{k} moved")
+    moved = [k for k, v in flatten(done.params["finetune"]).items()
+             if k in orig and v.shape == orig[k].shape and not torch.equal(v, orig[k])]
+    require(moved, "fine-tune: the fine-tune stage did not move from its copy")
+    return dict(epoch_summary(run, DB5_SIZED_SPLIT["train"]), steps=steps,
+                launches=run["launches"],
+                launches_per_step={k: v / steps for k, v in run["launches"].items()},
+                original_bit_equal=True, finetune_leaves_moved=len(moved),
+                kernel_paths=logged(run["log"], "Kernel paths"))
+
+
+def run_remat_and_exact(dev, train_golden) -> dict:
+    """Options (d): one gradient with and without remat from the committed
+    weights on the training golden batch (bit-equal, else within
+    REMAT_REL_TOL), peak device memory both ways, rows 1 and 3 relaunched
+    for layers 1-4 in the recompute. (e): one train step with the exact OT
+    solver; its OT loss against the same plan applied to the card's cost
+    on the CPU, the host LP's milliseconds."""
+    from equidock_public_tpu_torch.ops import sinkhorn as sk
+    from equidock_public_tpu_torch.train import losses
+    from equidock_public_tpu_torch.train.step import create_train_state, loss_and_grads, train_step
+
+    _, params, cfg, batch, _ = train_golden
+    remat = {}
+    for on in (False, True):
+        rcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=on))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        grads, m, _ = loss_and_grads(params, rcfg, batch)
+        torch.cuda.synchronize()
+        remat[on] = dict(grads=grads, loss=float(m["loss"]), launches=read_counts(),
+                         peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    want = step_launches(LAYERS, 1, 0)
+    expect_launches("no remat", remat[False]["launches"], want, PER_STEP_INVERSE)
+    again = LAYERS - 1              # layers 1..4 run forward a second time
+    want_r = dict(want, edge_message=want["edge_message"] + SIDES * again,
+                  cross_attention=want["cross_attention"] + SIDES * again)
+    expect_launches("remat", remat[True]["launches"], want_r, PER_STEP_INVERSE)
+    g0, g1 = remat[False]["grads"], remat[True]["grads"]
+    bit_equal = all(torch.equal(g0[k], g1[k]) for k in g0)
+    worst = max(rel_err(g1[k], g0[k]) for k in g0)
+    require(bit_equal or worst <= REMAT_REL_TOL, f"remat gradients: relative error {worst:.3g}")
+
+    ecfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, ot_solver="exact"))
+    lp_ms, seen = [], {}
+    plan_fn, loss_fn = sk.exact_emd_plan_host, losses.pocket_ot_loss_exact
+
+    def timed_plan(*a):
+        t0 = time.perf_counter()
+        out = plan_fn(*a)
+        lp_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def recording_loss(cost, mask):
+        out = loss_fn(cost, mask)
+        seen.update(cost=cost.detach().cpu(), mask=mask.detach().cpu(), ot=out.detach().cpu())
+        return out
+
+    sk.exact_emd_plan_host, losses.pocket_ot_loss_exact = timed_plan, recording_loss
+    try:
+        state = create_train_state(params, ecfg, dev)
+        reset_counts()
+        state, m = train_step(state, batch, ecfg)
+        launches = read_counts()
+    finally:
+        sk.exact_emd_plan_host, losses.pocket_ot_loss_exact = plan_fn, loss_fn
+    expect_launches("exact OT step", launches, step_launches(LAYERS, 1, 0), PER_STEP_INVERSE)
+    plan = torch.from_numpy(plan_fn(seen["cost"].numpy(), seen["mask"].numpy()))
+    ot_cpu = (plan * seen["cost"]).sum(dim=(1, 2))
+    err = rel_err(seen["ot"], ot_cpu)
+    pm = batch.pair_mask.cpu()
+    step_err = abs(float(m["ot_loss"]) - float((ot_cpu * pm).sum() / pm.sum())) / float(
+        (ot_cpu * pm).sum() / pm.sum())
+    require(err <= EXACT_OT_RTOL and step_err <= EXACT_OT_RTOL,
+            f"exact OT: card {seen['ot'].tolist()} against the CPU's {ot_cpu.tolist()}")
+    require(np.isfinite(float(m["loss"])), "exact OT step: non-finite loss")
+    return dict(remat=dict(grads_bit_equal=bit_equal, worst_rel_err=worst,
+                           loss=[remat[False]["loss"], remat[True]["loss"]],
+                           peak_device_memory_gb={"plain": remat[False]["peak_gb"],
+                                                  "remat": remat[True]["peak_gb"]},
+                           launches={"plain": remat[False]["launches"],
+                                     "remat": remat[True]["launches"]}),
+                exact_ot=dict(ot_loss=float(m["ot_loss"]), rel_err_vs_cpu_plan=err,
+                              step_rel_err=step_err, host_lp_ms=lp_ms, launches=launches,
+                              pocket=list(seen["cost"].shape)))
+
+
+def run_options(dev, root, train_golden) -> dict:
+    """The options phase (slice 7), full width, the paper DB5 model."""
+    t0 = time.perf_counter()
+    epochs, stage1 = run_packed_epochs(root)
+    packed = run_packed_golden(dev, train_golden)
+    configs = {name: run_option_config(name, kw, train_golden, dev)
+               for name, kw in OPTION_CONFIGS}
+    fine_tune = run_fine_tune(root, stage1)
+    rest = run_remat_and_exact(dev, train_golden)
+    return dict(packed_epochs=epochs, packed=packed, configs=configs, fine_tune=fine_tune,
+                **rest, seconds=round(time.perf_counter() - t0, 1))
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2785,6 +3249,10 @@ def main() -> int:
         emit("resident", card=smi, **resident)
         curriculum = run_curriculum(dev, os.path.join(root, "db5_sized"))
         emit("curriculum", **curriculum)
+
+        # -- options: the main paths of slice 7 --------------------------------
+        options = run_options(dev, os.path.join(root, "db5_sized"), train_golden)
+        emit("options", card=smi, **options)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3010,6 +3478,13 @@ def main() -> int:
                    "resident": resident["launches"][name],
                    "resident_golden": resident["golden_fit"]["launches"][name],
                    "curriculum": curriculum["launches"][name],
+                   "options_packed_epoch": options["packed_epochs"]["packed"][0]["launches"][name],
+                   "options_packed_golden": options["packed"]["launches"][name],
+                   **{f"options_{n}": options["configs"][n]["launches"][name]
+                      for n, _ in OPTION_CONFIGS},
+                   "options_fine_tune": options["fine_tune"]["launches"][name],
+                   "options_remat": options["remat"]["launches"]["remat"][name],
+                   "options_exact_ot": options["exact_ot"]["launches"][name],
                    **{p: directories[p]["launches"][name]
                       for p in ("inference_dir", "batch_inference", "ensemble")}}
         table.append(dict(name=name, route="cuda",

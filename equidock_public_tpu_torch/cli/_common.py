@@ -12,9 +12,6 @@ from ..config import Config, DataConfig, GraphConfig, ModelConfig, TrainConfig
 # Flags of the JAX package's CLIs that the port does not honour: what each
 # selects there.
 REFUSED = {
-    "fine_tune_from": "two-stage fine-tuning", "freeze_original": "fine-tuning",
-    "fine_tune_init": "fine-tuning", "pack": "packed batches",
-    "pack_max_per_slot": "packed batches",
     "dp": "mesh training and dp-resident epochs",
     "gp": "mesh training", "pallas_ring_halo": "mesh training",
     "distill_dir": "pose distillation", "distill_alpha": "pose distillation",
@@ -87,13 +84,21 @@ def add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-stream_dips", action="store_true",
                    help="stream DIPS shards through a bounded LRU instead of loading them all")
     p.add_argument("-stream_window", type=int, default=DataConfig().stream_window)
+    p.add_argument("-pack", action="store_true",
+                   help="training: bin-pack several small complexes into one padded slot")
+    p.add_argument("-pack_max_per_slot", type=int, default=DataConfig().pack_max_per_slot)
     for flag in REFUSED:
         p.add_argument("-" + flag, nargs="?", const=True, default=None,
                        help=f"not ported ({REFUSED[flag]})")
 
 
-def refuse_unported(a: argparse.Namespace) -> None:
-    """Raise NotImplementedError naming every refused flag that was given."""
+def refuse_unported(a: argparse.Namespace, training: bool = True) -> None:
+    """Raise NotImplementedError naming every refused flag that was given,
+    and, for the CLIs that do not train, `-pack` (they collate one complex
+    a slot)."""
+    if not training and a.pack:
+        raise NotImplementedError("-pack: packing is a training option; the inference "
+                                  "CLIs collate one complex a slot")
     given = [f"-{f}" for f in REFUSED if getattr(a, f) is not None]
     if given:
         raise NotImplementedError("flags not ported: " + ", ".join(
@@ -134,7 +139,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
         save_every_epochs=a.save_every_epochs,
         use_fused_intersection=a.use_fused_intersection, val_repeats=a.val_repeats,
         ot_solver=a.ot_solver, select_metric=a.select_metric,
-        trim_remainder=a.trim_remainder)
+        trim_remainder=a.trim_remainder,
+        freeze_original=bool(getattr(a, "freeze_original", False)))
     d = DataConfig()
     data = DataConfig(data=a.data, data_fraction=a.data_fraction, split=a.split,
                       cache_dir=a.cache_dir,
@@ -142,7 +148,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
                       pocket_buckets=_buckets("pocket_buckets", a.pocket_buckets,
                                               d.pocket_buckets),
                       device_resident=a.device_resident, stream_dips=a.stream_dips,
-                      stream_window=a.stream_window)
+                      stream_window=a.stream_window, pack=a.pack,
+                      pack_max_per_slot=a.pack_max_per_slot)
     graph = GraphConfig(graph_cutoff=a.graph_cutoff, graph_max_neighbor=a.graph_max_neighbor,
                         pocket_cutoff=a.pocket_cutoff,
                         translation_interval=a.translation_interval)

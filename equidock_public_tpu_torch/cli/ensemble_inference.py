@@ -34,7 +34,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         "select on VAL, never on test")
     p.add_argument("-device", default=None, help="cuda (default) or cpu")
     a = p.parse_args(argv)
-    refuse_unported(a)
+    refuse_unported(a, training=False)
     base_cfg = config_from_args(a)
     dev = resolve_device(a.device)
     members = [Member(c.strip(), base_cfg, dev) for c in a.checkpoints.split(",") if c.strip()]

@@ -37,7 +37,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("-batch_size", type=int, default=5)
     p.add_argument("-device", default=None, help="cuda (default) or cpu")
     a = p.parse_args(argv)
-    refuse_unported(a)
+    refuse_unported(a, training=False)
     if a.batched and a.remove_clashes:
         raise ValueError("-remove_clashes runs per complex; it cannot go with -batched")
     cfg = config_from_args(a)

@@ -2,9 +2,9 @@
 and data settings of `equidock_public_tpu/config.py`, plus the
 `*.config.json` sidecar loader. Field names and defaults are the JAX
 package's, so a sidecar written by either package loads here unchanged.
-Settings of paths the port does not take (packing, distillation, auto
-buckets) are kept so that a config that sets them is refused by name
-instead of trained without them.
+Settings of paths the port does not take (distillation, auto buckets) are
+kept so that a config that sets them is refused by name instead of
+trained without them.
 """
 
 from __future__ import annotations
@@ -45,7 +45,9 @@ class ModelConfig:
     param_dtype: str = "float32"
     # Kernel-path flags of the JAX package. They select TPU code paths there;
     # the port reads them only to accept sidecars that carry them: its CUDA
-    # path always runs the edge-message and cross-attention kernels.
+    # path runs the cross-attention kernels always and the edge-message
+    # kernels wherever they cover the config (`models/iegmn.py::
+    # fused_edge_eligible`); `remat` recomputes layers 1..n-1 in the backward.
     use_fused_attention: bool = False
     factored_edge_mlp: bool = False
     fused_edge_message: bool = False
@@ -90,14 +92,16 @@ class TrainConfig:
     intersection_sigma: float = 25.0
     intersection_surface_ct: float = 10.0
     random_seed: int = 8
-    ot_solver: str = "sinkhorn"      # 'sinkhorn' | 'exact' (a host LP: not ported)
+    ot_solver: str = "sinkhorn"      # 'sinkhorn' | 'exact' (scipy's HiGHS LP on the host)
     sinkhorn_epsilon: float = 0.01
     sinkhorn_iters: int = 200
     train_rmsd_fraction: float = 0.1  # train batches whose RMSD is metered
     use_fused_intersection: bool = False  # the soft-min field kernels
     save_every_epochs: int = 0       # periodic checkpoint (0: only the best)
     val_repeats: int = 1             # val epochs averaged per epoch (fresh poses)
-    freeze_original: bool = False    # fine-tuning (not ported)
+    # Two-stage fine-tuning: the original stage's gradients and updates are
+    # zeroed, so only the fine-tune stage trains.
+    freeze_original: bool = False
     select_metric: str = "crmsd"     # 'crmsd' | 'irmsd' | 'sum' | 'bar'
     # Device-resident epochs: each bucket group's n % bs leftover pairs run
     # as one narrow step of width n % bs (no dead slots) instead of a
@@ -118,7 +122,12 @@ class DataConfig:
     auto_buckets_max: int = 0        # not ported
     auto_pocket_max: int = 0         # not ported
     swap_train: bool = True          # 50% ligand/receptor swap of training samples
-    pack: bool = False               # packed batches (not ported)
+    # Complex packing: up to pack_max_per_slot complexes share one padded
+    # slot (block-diagonal neighbour tables, segment tags in the attention,
+    # per-complex losses); the slot count pads to a slot_count_buckets entry.
+    pack: bool = False
+    pack_max_per_slot: int = 4
+    slot_count_buckets: Tuple[int, ...] = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
     # DIPS shards streamed through a shard LRU of `stream_window` shards
     # (at most 2 x stream_window resident) instead of loaded whole.
     stream_dips: bool = False

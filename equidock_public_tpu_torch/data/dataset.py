@@ -1,7 +1,7 @@
-"""Training samples and batches: the port of the unpacked part of
+"""Training samples and batches: the port of
 `equidock_public_tpu/data/dataset.py` (`ComplexSample`, `_process_one`, the
 npz split cache, DIPS shards whole or streamed, `DockingDataset.sample` and
-`batches`).
+`batches`, unpacked or packed with `cfg.data.pack`).
 
 Augmentation is the JAX package's: a 50% ligand/receptor swap (train split),
 then the ligand is centred and moved by a uniform random rotation and a
@@ -29,7 +29,7 @@ import torch
 
 from ..config import Config, GraphConfig
 from ..device import resolve_device
-from ..graph import PairBatch, collate
+from ..graph import PairBatch, collate, collate_packed
 from .featurize import (ProteinGraph, alpha_carbon_array, build_protein_graph,
                         extract_pocket, uniform_rotation_translation)
 from .pdb import GroupedResidue
@@ -120,8 +120,6 @@ class DockingDataset:
     def __init__(self, cfg: Config, samples: Optional[Sequence[ComplexSample]],
                  codes: Optional[Sequence[str]] = None, split: str = "train",
                  swap: Optional[bool] = None, index=None, lru=None):
-        if cfg.data.pack:
-            raise NotImplementedError("pack: packed batches are not ported")
         self.cfg = cfg
         self.index, self._lru = index, lru
         self.samples: Optional[List[ComplexSample]] = (
@@ -209,7 +207,9 @@ class DockingDataset:
                 device: Optional[Union[str, torch.device]] = None, shuffle: bool = True,
                 pin_memory: bool = False) -> Iterator[PairBatch]:
         """Padded PairBatches of `cfg.train.bs` slots, the last one filled
-        with masked copies, on the card unless `device` says otherwise
+        with masked copies (with `cfg.data.pack`, the chunk of bs complexes
+        packed by `collate_packed` instead), on the card unless `device`
+        says otherwise
         (`pin_memory`: on the CPU, in page-locked memory for an asynchronous
         copy to the card). With `shuffle`: shuffle, sort by size
         (stable), cut into chunks, shuffle the chunks;
@@ -237,8 +237,13 @@ class DockingDataset:
         for chunk in chunks:
             items = [self.sample(int(i), rng) for i in chunk]
             ligs, recs, new_xs, gts, pls, prs = zip(*items)
-            yield collate(ligs, recs, new_xs, gts, pls, prs, dc.node_buckets,
-                          dc.pocket_buckets, dev, batch_size=bs, pin_memory=pin_memory)
+            if dc.pack and dc.pack_max_per_slot > 1:
+                yield collate_packed(ligs, recs, new_xs, gts, pls, prs, dc.node_buckets,
+                                     dc.pocket_buckets, dc.pack_max_per_slot,
+                                     dc.slot_count_buckets, dev, pin_memory=pin_memory)
+            else:
+                yield collate(ligs, recs, new_xs, gts, pls, prs, dc.node_buckets,
+                              dc.pocket_buckets, dev, batch_size=bs, pin_memory=pin_memory)
 
     def _stream_batches(self, rng: np.random.Generator, dev, shuffle: bool,
                         pin_memory: bool) -> Iterator[PairBatch]:

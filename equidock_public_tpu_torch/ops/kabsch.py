@@ -56,3 +56,14 @@ def rigid_fit(keypts_src: torch.Tensor,
 def apply_rigid(x: torch.Tensor, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """x (B, N, 3), R (B, 3, 3), t (B, 1, 3) -> R x + t."""
     return torch.einsum("bij,bnj->bni", R, x) + t
+
+
+def apply_rigid_packed(x: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
+                       seg_id: torch.Tensor, n_segs: int) -> torch.Tensor:
+    """Packed slots: node n of slot b moved by its own complex's (R, t).
+    x (B, N, 3), R (B, C, 3, 3), t (B, C, 1, 3), seg_id (B, N) -> (B, N, 3),
+    through the segment one-hot as in the JAX package."""
+    oh = (seg_id[..., None] == torch.arange(n_segs, device=seg_id.device,
+                                            dtype=seg_id.dtype)).to(x.dtype)
+    Rx = torch.einsum("bcij,bnj->bnci", R, x)
+    return torch.einsum("bnci,bnc->bni", Rx, oh) + torch.einsum("bckj,bnc->bnj", t, oh)

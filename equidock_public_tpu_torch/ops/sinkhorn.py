@@ -1,6 +1,8 @@
 """Entropic optimal transport for the pocket OT loss: the port of
-`sq_dist_mat`, `sinkhorn_log` and `pocket_ot_loss` of
-`equidock_public_tpu/ops/sinkhorn.py`, plain PyTorch.
+`sq_dist_mat`, `sinkhorn_log`, `pocket_ot_loss`, `exact_emd_plan_host` and
+`pocket_ot_loss_exact` of `equidock_public_tpu/ops/sinkhorn.py`: the
+Sinkhorn solver in plain PyTorch, the exact one as scipy's HiGHS LP on the
+host.
 
 The reference detaches the transport plan, so gradients flow through the
 cost only. The solver runs under `torch.no_grad()` on a detached cost, and
@@ -66,4 +68,50 @@ def pocket_ot_loss(cost: torch.Tensor, pocket_mask: torch.Tensor, epsilon: float
                    iters: int = 200) -> torch.Tensor:
     """Per-complex OT distance (B,): <plan, cost> with the plan detached."""
     plan = sinkhorn_log(cost, pocket_mask, epsilon=epsilon, iters=iters)
+    return (plan * cost).sum(dim=(1, 2))
+
+
+def exact_emd_plan_host(cost, row_mask):
+    """Exact EMD transport plans on the host (numpy in, float32 numpy out):
+    per complex the linear program of the reference's `ot.emd`, rows
+    summing to 1 / n_valid and columns to 1 / K, through scipy's HiGHS.
+    Padded rows carry no mass. The constraint matrix is dense, so pockets
+    past P * K = 1e6 are refused."""
+    import numpy as np
+    from scipy.optimize import linprog
+
+    cost = np.asarray(cost, np.float64)
+    row_mask = np.asarray(row_mask)
+    B, P, K = cost.shape
+    assert P * K <= 1_000_000, (
+        f"exact_emd_plan_host builds a dense ({P}+{K}-1, {P}*{K}) LP "
+        f"(~{(P + K) * P * K * 8 / 1e9:.1f} GB); use the Sinkhorn solver for pockets this large")
+    plans = np.zeros((B, P, K), np.float32)
+    for b in range(B):
+        valid = np.flatnonzero(row_mask[b] > 0)
+        n = valid.size
+        if n == 0:
+            continue
+        # marginals: rows 1 / n, columns 1 / K; one redundant constraint dropped
+        A_eq = np.zeros((n + K - 1, n * K))
+        b_eq = np.empty(n + K - 1)
+        for i in range(n):
+            A_eq[i, i * K:(i + 1) * K] = 1.0
+            b_eq[i] = 1.0 / n
+        for j in range(K - 1):
+            A_eq[n + j, j::K] = 1.0
+            b_eq[n + j] = 1.0 / K
+        res = linprog(cost[b, valid].ravel(), A_eq=A_eq, b_eq=b_eq, bounds=(0, None),
+                      method="highs")
+        assert res.status == 0, f"exact EMD LP failed: {res.message}"
+        plans[b, valid] = res.x.reshape(n, K).astype(np.float32)
+    return plans
+
+
+def pocket_ot_loss_exact(cost: torch.Tensor, pocket_mask: torch.Tensor) -> torch.Tensor:
+    """Per-complex exact OT distance (B,): the plan solved on the host from
+    the detached cost (one copy each way a call), the gradient through the
+    cost only."""
+    plan = exact_emd_plan_host(cost.detach().cpu().numpy(), pocket_mask.detach().cpu().numpy())
+    plan = torch.from_numpy(plan).to(cost.device)
     return (plan * cost).sum(dim=(1, 2))

@@ -45,8 +45,8 @@ import torch
 
 from ..config import Config, ModelConfig
 from ..graph import PairBatch, ProteinBatch
-from ..models.iegmn import (check_supported, iegmn_layer_forward, keypoint_head,
-                            layer_params, trunk_inputs)
+from ..models.iegmn import (check_supported, fused_edge_eligible, iegmn_layer_forward,
+                            keypoint_head, layer_params, trunk_inputs, uses_batch_norm)
 from ..ops.cuda.edge_message import inverse_neighbors
 from ..ops.cuda.halo_ring import (ExchangeTable, halo_exchange_pair, halo_exchange_sides,
                                    ring_exchange, ring_ship, take_rows)
@@ -554,6 +554,11 @@ def check_halo_supported(cfg: ModelConfig) -> None:
     check_supported(cfg)
     if cfg.dropout != 0.0:
         raise NotImplementedError(f"dropout={cfg.dropout}: the halo path runs dropout 0 only")
+    if not fused_edge_eligible(cfg, train=True) or uses_batch_norm(cfg):
+        raise NotImplementedError(
+            f"the halo path runs the edge kernels without BatchNorm only: nonlin={cfg.nonlin!r}, "
+            f"layer_norm={cfg.layer_norm!r}, layer_norm_coors={cfg.layer_norm_coors!r}, "
+            f"final_h_layer_norm={cfg.final_h_layer_norm!r}")
     if cfg.final_h_layer_norm == "GN":
         raise NotImplementedError("final_h_layer_norm='GN' in the halo path: GraphNorm "
                                   "statistics summed across shards are not ported")

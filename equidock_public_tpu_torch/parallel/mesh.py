@@ -93,4 +93,5 @@ class ParallelMesh:
     def shard_protein(self, side: ProteinBatch) -> ProteinBatch:
         """Every per-node array of one side, folded."""
         return ProteinBatch(**{f.name: self.fold(getattr(side, f.name))
-                               for f in dataclasses.fields(side)})
+                               for f in dataclasses.fields(side)
+                               if getattr(side, f.name) is not None})

@@ -190,14 +190,37 @@ def default_checkpoint() -> str:
     return model_checkpoint("db5_model_best")
 
 
+def bn_state_from_flat(flat: Mapping[str, object], cfg: ModelConfig,
+                       device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
+    """BatchNorm running statistics, flat ({"<site>/mean": array or tensor,
+    "<site>/var": ...}) -> {site: {"mean", "var"}} of f32 tensors on
+    `device`, checked against the sites and widths the config implies
+    (`models.iegmn.init_bn_state`)."""
+    from .models.iegmn import init_bn_state
+
+    want = flatten(init_bn_state(cfg))
+    if set(flat) != set(want):
+        raise KeyError(f"BatchNorm statistics do not match the config: missing "
+                       f"{sorted(set(want) - set(flat))}, extra {sorted(set(flat) - set(want))}")
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key, ref in want.items():
+        v = flat[key]
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)}, config implies {tuple(ref.shape)}")
+        site, stat = key.rsplit("/", 1)
+        out.setdefault(site, {})[stat] = t.to(device=device, dtype=torch.float32).contiguous()
+    return out
+
+
 def train_state_from_numpy(params: Mapping, opt_state, step, cfg: ModelConfig,
-                           device="cpu"):
+                           device="cpu", bn_state=()):
     """A JAX `TrainState`'s leaves as numpy (params pytree, optax chain
-    state, step) -> the port's `train.step.TrainState` on `device`. The
-    chain's Adam state is the element with `mu` and `nu` (optax's
-    ScaleByAdamState); its `count` must equal `step`, since the port's
-    optimizer derives both the bias correction and the schedule from the
-    step."""
+    state, step, BatchNorm statistics) -> the port's `train.step.TrainState`
+    on `device`. The chain's Adam state is the element with `mu` and `nu`
+    (optax's ScaleByAdamState); its `count` must equal `step`, since the
+    port's optimizer derives both the bias correction and the schedule from
+    the step."""
     from .train.step import TrainState
 
     adam = [s for s in opt_state if hasattr(s, "mu") and hasattr(s, "nu")]
@@ -209,4 +232,5 @@ def train_state_from_numpy(params: Mapping, opt_state, step, cfg: ModelConfig,
                          f"{int(np.asarray(step))}")
     moments = [flatten(params_from_numpy(m, cfg, device)) for m in (adam.mu, adam.nu)]
     return TrainState(params=params_from_numpy(params, cfg, device), mu=moments[0],
-                      nu=moments[1], step=int(np.asarray(step)))
+                      nu=moments[1], step=int(np.asarray(step)),
+                      bn_state=bn_state_from_flat(flatten(dict(bn_state or {})), cfg, device))

@@ -5,7 +5,8 @@ cannot read.
 
 A checkpoint is one `torch.save` file at `path` holding the parameters and
 the Adam moments (flat `{key: f32 tensor}` dicts under the JAX package's
-keys), the optimizer step and the epoch, and beside it a
+keys), the BatchNorm running statistics (flat `{"<site>/mean": tensor}`,
+empty unless an option is 'BN'), the optimizer step and the epoch, and beside it a
 `<path>.config.json` sidecar of the whole config (model, graph, data,
 train, directories), so a run resumes with the settings it was started
 with. Resume rule: a step from a loaded state equals, bit for bit, the step
@@ -24,7 +25,7 @@ import torch
 
 from ..config import Config, config_from_dict
 from ..device import resolve_device
-from ..params import flatten, params_from_flat
+from ..params import bn_state_from_flat, flatten, params_from_flat
 from .step import TrainState
 
 FORMAT = "equidock_public_tpu_torch/train_state/1"
@@ -49,6 +50,7 @@ def save_checkpoint(path: str, state: TrainState, cfg: Config, epoch: int) -> No
     host = lambda d: {k: v.detach().cpu().contiguous() for k, v in d.items()}
     payload = {"format": FORMAT, "params": host(flatten(state.params)),
                "mu": host(state.mu), "nu": host(state.nu), "step": int(state.step),
+               "bn_state": host(flatten(state.bn_state)),
                "epoch": int(epoch)}
     _write_atomic(path, lambda p: torch.save(payload, p))
 
@@ -72,5 +74,6 @@ def load_checkpoint(path: str, device: Optional[str] = None
         raise ValueError(f"{path}: not a checkpoint of the port's format {FORMAT}")
     moments = [flatten(params_from_flat(payload[k], cfg.model, dev)) for k in ("mu", "nu")]
     state = TrainState(params=params_from_flat(payload["params"], cfg.model, dev),
-                       mu=moments[0], nu=moments[1], step=int(payload["step"]))
+                       mu=moments[0], nu=moments[1], step=int(payload["step"]),
+                       bn_state=bn_state_from_flat(payload.get("bn_state", {}), cfg.model, dev))
     return state, cfg, int(payload["epoch"])

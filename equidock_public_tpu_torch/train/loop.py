@@ -36,6 +36,7 @@ from ..config import Config
 from ..data.dataset import DockingDataset
 from ..device import resolve_device
 from ..graph import PairBatch, batch_to
+from ..models.iegmn import check_supported
 from ..params import flatten, init_params
 from .checkpoint import load_checkpoint, save_checkpoint
 from .meter import RmsdMeter
@@ -43,7 +44,7 @@ from .optim import ReduceOnPlateau, epoch_lr_factor
 from .resident import (StreamedResidentSplit, build_resident_split, draws_factory,
                        run_eval_epoch_resident, run_train_epoch_resident,
                        run_train_epoch_resident_streamed)
-from .step import TrainState, check_train_supported, create_train_state, eval_step, train_step
+from .step import TrainState, create_train_state, eval_step, make_dropout, train_step
 
 LOSS_KEYS = ("loss", "ligand_coors_loss", "ot_loss", "intersection_loss")
 
@@ -119,19 +120,22 @@ def _batches(ds: DockingDataset, rng, device, shuffle: bool):
 
 def run_train_epoch(state: TrainState, ds: DockingDataset, cfg: Config,
                     rng: np.random.Generator, epoch: int, log=print,
-                    lr_scale: float = 1.0):
+                    lr_scale: float = 1.0, drop=None):
     """One training epoch. Returns (state, averages): the loss terms over
     the batches, the complex-RMSD median and mean of the metered batches
     (the first, and each further one with probability
-    `train_rmsd_fraction`), num_clips and num_batches."""
+    `train_rmsd_fraction`), num_clips and num_batches. Dropout above 0
+    draws from `drop`, by default a generator of the epoch
+    (`step.make_dropout`)."""
     dev = next(iter(flatten(state.params).values())).device
+    drop = drop if drop is not None else make_dropout(cfg, dev, epoch)
     meter_rng = np.random.default_rng((cfg.train.random_seed, 7919, epoch))
     meter = RmsdMeter()
     sums: Dict[str, torch.Tensor] = {}
     clips = []
     num_batches = 0
     for batch in _batches(ds, rng, dev, shuffle=True):
-        state, metrics = train_step(state, batch, cfg, lr_scale)
+        state, metrics = train_step(state, batch, cfg, lr_scale, drop=drop)
         num_batches += 1
         for k in LOSS_KEYS:           # summed in float64 on the device: no sync a step
             sums[k] = sums.get(k, 0.0) + metrics[k].double()
@@ -155,17 +159,18 @@ def run_train_epoch(state: TrainState, ds: DockingDataset, cfg: Config,
 
 
 def run_eval_epoch(params, ds: DockingDataset, cfg: Config,
-                   rng: np.random.Generator) -> Dict[str, float]:
+                   rng: np.random.Generator, bn_state: Optional[dict] = None
+                   ) -> Dict[str, float]:
     """One evaluation epoch: no shuffle and no swap, but a fresh random pose
     per complex from `rng`, so the metric is noisy (`val_repeats` averages
     it). Loss terms, and ligand, complex and interface RMSD medians and
-    means."""
+    means. BatchNorm normalises by the running statistics `bn_state`."""
     dev = next(iter(flatten(params).values())).device
     meter = RmsdMeter()
     sums: Dict[str, torch.Tensor] = {}
     num_batches = 0
     for batch in _batches(ds, rng, dev, shuffle=False):
-        out = eval_step(params, batch, cfg)
+        out = eval_step(params, batch, cfg, bn_state)
         num_batches += 1
         for k in LOSS_KEYS:
             sums[k] = sums.get(k, 0.0) + out[k].double()
@@ -197,11 +202,14 @@ def selection_value(va: Dict[str, float], metric: str) -> float:
 
 def check_fit_supported(cfg: Config) -> None:
     """Raise NotImplementedError naming every loop option outside the port
-    (and, through `check_train_supported`, every step option)."""
-    check_train_supported(cfg)
+    (and, through `models.iegmn.check_supported`, every model option)."""
+    check_supported(cfg.model)
     dc = cfg.data
+    if dc.pack and cfg.model.final_h_layer_norm == "GN":
+        raise ValueError("-pack with final_h_layer_norm='GN': GraphNorm normalizes per graph "
+                         "and is not segment-aware; train packed batches with 'LN'/'0'")
     problems = [name for name, on in (
-        ("pack with device_resident (the resident store is unpacked)",
+        ("-pack with -device_resident (the resident store is unpacked)",
          dc.pack and dc.device_resident),
         ("auto_buckets_max (auto node buckets)", dc.auto_buckets_max),
         ("auto_pocket_max (auto pocket buckets)", dc.auto_pocket_max)) if on]
@@ -274,12 +282,13 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
                                log, lr_scale=lr_scale, do_swap=train_ds.swap)
             t1 = time.perf_counter()
             va = run_eval_epoch_resident(state.params, resident["val"], cfg,
-                                         draws("val", epoch), repeats=max(tc.val_repeats, 1))
+                                         draws("val", epoch), repeats=max(tc.val_repeats, 1),
+                                         bn_state=state.bn_state)
         else:
             state, tr = run_train_epoch(state, train_ds, cfg, rng, epoch, log,
                                         lr_scale=lr_scale)
             t1 = time.perf_counter()
-            reps = [run_eval_epoch(state.params, val_ds, cfg, rng)
+            reps = [run_eval_epoch(state.params, val_ds, cfg, rng, state.bn_state)
                     for _ in range(max(tc.val_repeats, 1))]
             va = {k: float(np.mean([r[k] for r in reps])) for k in reps[0]}
         t2 = time.perf_counter()
@@ -334,9 +343,10 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
     if os.path.exists(ckpt_path):
         state, _, _ = load_checkpoint(ckpt_path, dev)
     if resident is not None:
-        te = run_eval_epoch_resident(state.params, resident["test"], cfg, draws("test", 0))
+        te = run_eval_epoch_resident(state.params, resident["test"], cfg, draws("test", 0),
+                                     bn_state=state.bn_state)
     else:
-        te = run_eval_epoch(state.params, test_ds, cfg, rng)
+        te = run_eval_epoch(state.params, test_ds, cfg, rng, state.bn_state)
     log(f"[FINAL TEST {cfg.data.data}] crmsd med {te['complex_rmsd_median']:.4f} "
         f"mean {te['complex_rmsd_mean']:.4f} loss {te['loss']:.4f}")
     if history is not None:

@@ -1,5 +1,5 @@
 """RMSD metering on the host (numpy): the port's copy of
-`equidock_public_tpu/train/meter.py` for unpacked batches.
+`equidock_public_tpu/train/meter.py`, unpacked and packed batches.
 
 - ligand / receptor RMSD: unaligned RMSD of CA coordinates;
 - complex RMSD: RMSD after the Kabsch fit of the whole predicted complex
@@ -48,22 +48,38 @@ class RmsdMeter:
     def update_batch(self, batch, lig_pred_padded: np.ndarray,
                      meter_interface: bool = False) -> None:
         """Meter every valid complex of a padded PairBatch (tensors on any
-        device) from the predicted ligand coordinates (B, N_l, 3)."""
+        device) from the predicted ligand coordinates (B, N_l, 3); a packed
+        batch's complexes are found by their segment ids."""
         host = lambda t: t.detach().cpu().numpy()
         lig_mask, rec_mask = host(batch.lig.node_mask), host(batch.rec.node_mask)
-        gt_lig, rec_x, pair_mask = host(batch.gt_lig), host(batch.rec.x), host(batch.pair_mask)
+        gt_lig, rec_x = host(batch.gt_lig), host(batch.rec.x)
         pred = np.asarray(lig_pred_padded)
-        for b in range(lig_mask.shape[0]):
-            if pair_mask[b] == 0:
-                continue
-            nl, nr = int(lig_mask[b].sum()), int(rec_mask[b].sum())
-            lp, lt, rt = pred[b, :nl], gt_lig[b, :nl], rec_x[b, :nr]
+
+        def meter_one(lp, lt, rt):
             self.update(lp, rt, lt, rt)
             if meter_interface:
                 d = np.linalg.norm(lt[:, None, :] - rt[None, :, :], axis=-1)
                 ai, aj = np.where(d < 8.0)
                 if ai.size:
                     self.interface.append(complex_rmsd(lp[ai], rt[aj], lt[ai], rt[aj])[2])
+
+        if batch.n_segs > 1:
+            seg_l, seg_r = host(batch.lig.seg_id), host(batch.rec.seg_id)
+            seg_mask = host(batch.seg_mask)
+            for b in range(lig_mask.shape[0]):
+                for c in range(batch.n_segs):
+                    if seg_mask[b, c] == 0:
+                        continue
+                    il = np.where((lig_mask[b] > 0) & (seg_l[b] == c))[0]
+                    ir = np.where((rec_mask[b] > 0) & (seg_r[b] == c))[0]
+                    meter_one(pred[b, il], gt_lig[b, il], rec_x[b, ir])
+            return
+        pair_mask = host(batch.pair_mask)
+        for b in range(lig_mask.shape[0]):
+            if pair_mask[b] == 0:
+                continue
+            nl, nr = int(lig_mask[b].sum()), int(rec_mask[b].sum())
+            meter_one(pred[b, :nl], gt_lig[b, :nl], rec_x[b, :nr])
 
     def summarize_interface(self, reduction: str = "median") -> float:
         red = np.median if reduction == "median" else np.mean

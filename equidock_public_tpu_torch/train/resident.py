@@ -28,7 +28,12 @@ does not fit at once (DIPS): a producer thread materializes the next group
 in pinned host memory and copies it on a side CUDA stream while the
 current group trains; a group's tensors are dropped once its results are on
 the host. The data-parallel twin is not ported (`build_resident_split_dp`,
-`run_train_epoch_resident_dp` raise).
+`run_train_epoch_resident_dp` raise), and neither is a packed store (the
+store is unpacked, as in the JAX package).
+
+The train state's BatchNorm statistics go through every step and evaluation
+as in the JAX package's scans; dropout above 0 draws its masks from a
+generator of the epoch (`step.make_dropout`).
 """
 
 from __future__ import annotations
@@ -44,10 +49,11 @@ import torch
 from ..config import Config, bucket_for
 from ..graph import PairBatch, ProteinBatch, pad_protein
 from .meter import RmsdMeter, complex_rmsd
-from .step import TrainState, eval_step, train_step
+from .step import TrainState, eval_step, make_dropout, train_step
 
 _SCALARS = ("loss", "ligand_coors_loss", "ot_loss", "intersection_loss")
-_SIDE_FIELDS = tuple(f.name for f in dataclasses.fields(ProteinBatch))
+# the stores are unpacked: every side field but the packed segment ids
+_SIDE_FIELDS = tuple(f.name for f in dataclasses.fields(ProteinBatch) if f.name != "seg_id")
 # One generator per purpose of the draws (`make_generator`).
 DRAW_TAGS = {"train": 1, "val": 2, "test": 3}
 
@@ -148,6 +154,8 @@ def _materialize_group(ds, cfg: Config, b: int, idxs: Sequence[int]
 def build_resident_split(ds, cfg: Config, device) -> ResidentSplit:
     """Group a materialized dataset by bucket, pad, stack and put each group
     on `device` once."""
+    if cfg.data.pack:
+        raise NotImplementedError("-pack with -device_resident: the resident store is unpacked")
     groups: Dict[int, ResidentGroup] = {}
     metas: Dict[int, HostMeta] = {}
     for b, idxs in sorted(_group_by_bucket(ds, cfg).items()):
@@ -277,7 +285,7 @@ def assemble_batch(store: ResidentGroup, idx: torch.Tensor, valid: torch.Tensor,
 
 def train_chunk(state: TrainState, store: ResidentGroup, idx: torch.Tensor,
                 valid: torch.Tensor, draws, lr_scale: torch.Tensor, cfg: Config,
-                do_swap: bool, emit_coords: bool = True):
+                do_swap: bool, emit_coords: bool = True, drop=None):
     """S train steps over the rows of idx / valid (S, w), on the device.
     Returns (state, outs): the loss terms and `clipped` stacked (S,), and
     with `emit_coords` the predicted ligand coordinates (S, w, N, 3) and the
@@ -287,7 +295,7 @@ def train_chunk(state: TrainState, store: ResidentGroup, idx: torch.Tensor,
     for s in range(idx.shape[0]):
         swap, rot, tr = draws.draw(idx.shape[1], do_swap)
         state, m = train_step(state, assemble_batch(store, idx[s], valid[s], swap, (rot, tr)),
-                              cfg, lr_scale)
+                              cfg, lr_scale, drop=drop)
         for k in outs:
             outs[k].append(m[k])
         if emit_coords:
@@ -300,13 +308,14 @@ def train_chunk(state: TrainState, store: ResidentGroup, idx: torch.Tensor,
 
 
 def eval_chunk(params, store: ResidentGroup, idx: torch.Tensor, valid: torch.Tensor,
-               draws, cfg: Config) -> Dict[str, torch.Tensor]:
+               draws, cfg: Config, bn_state: Optional[dict] = None) -> Dict[str, torch.Tensor]:
     """S forwards without gradient (no swap, a fresh pose each): the loss
     terms (S,) and the predicted ligand coordinates (S, w, N, 3)."""
     outs: Dict[str, list] = {k: [] for k in _SCALARS + ("coords",)}
     for s in range(idx.shape[0]):
         swap, rot, tr = draws.draw(idx.shape[1], False)
-        m = eval_step(params, assemble_batch(store, idx[s], valid[s], swap, (rot, tr)), cfg)
+        m = eval_step(params, assemble_batch(store, idx[s], valid[s], swap, (rot, tr)), cfg,
+                      bn_state)
         for k in _SCALARS:
             outs[k].append(m[k])
         outs["coords"].append(m["ligand_coords"])
@@ -414,7 +423,8 @@ def _device_of(state: TrainState) -> torch.device:
 
 def _dispatch_group(state: TrainState, store: ResidentGroup, meta: HostMeta, bs: int,
                     cfg: Config, rng: np.random.Generator, meter_rng: np.random.Generator,
-                    draws, swap: bool, scale: torch.Tensor) -> Tuple[TrainState, int, list]:
+                    draws, swap: bool, scale: torch.Tensor, drop=None
+                    ) -> Tuple[TrainState, int, list]:
     """Run one group's chunks without reading a result back. Returns
     (state, steps, pending [(outs on the device, idx, valid, emit)])."""
     chunks, S = _group_chunks(len(meta.n_lig), bs, rng, meter_rng,
@@ -424,7 +434,8 @@ def _dispatch_group(state: TrainState, store: ResidentGroup, meta: HostMeta, bs:
     for idx, valid, emit in chunks:
         state, outs = train_chunk(
             state, store, torch.from_numpy(idx.astype(np.int64)).to(dev),
-            torch.from_numpy(valid).to(dev), draws, scale, cfg, swap, emit_coords=emit)
+            torch.from_numpy(valid).to(dev), draws, scale, cfg, swap, emit_coords=emit,
+            drop=drop)
         pending.append((outs, idx, valid, emit))
     return state, S, pending
 
@@ -448,11 +459,11 @@ def _sync_group(pending: list, meta: HostMeta, meter: RmsdMeter,
 
 
 def _run_group(state, store, meta, bs, cfg, rng, meter_rng, draws, swap, scale,
-               meter, sums) -> Tuple[TrainState, int, int]:
+               meter, sums, drop=None) -> Tuple[TrainState, int, int]:
     """One group's train-epoch slice, dispatched and read: (state, steps,
     clips). Shared by the whole and the streamed runners."""
     state, S, pending = _dispatch_group(state, store, meta, bs, cfg, rng, meter_rng,
-                                        draws, swap, scale)
+                                        draws, swap, scale, drop)
     return state, S, _sync_group(pending, meta, meter, sums)
 
 
@@ -475,13 +486,14 @@ def run_train_epoch_resident(state: TrainState, rs: ResidentSplit, cfg: Config,
     meter_rng = np.random.default_rng((cfg.train.random_seed, 7919, epoch))
     meter, sums = RmsdMeter(), {}
     scale = torch.tensor(lr_scale, dtype=torch.float32, device=_device_of(state))
+    drop = make_dropout(cfg, _device_of(state), epoch)
     buckets = list(rs.groups)
     rng.shuffle(buckets)
     swap = cfg.data.swap_train if do_swap is None else do_swap
     num_batches, deferred = 0, []
     for b in buckets:
         state, S, pending = _dispatch_group(state, rs.groups[b], rs.metas[b], rs.bs, cfg,
-                                            rng, meter_rng, draws, swap, scale)
+                                            rng, meter_rng, draws, swap, scale, drop)
         num_batches += S
         deferred.append((pending, rs.metas[b]))
     num_clips = sum(_sync_group(pending, meta, meter, sums) for pending, meta in deferred)
@@ -489,10 +501,12 @@ def run_train_epoch_resident(state: TrainState, rs: ResidentSplit, cfg: Config,
 
 
 def run_eval_epoch_resident(params, rs: ResidentSplit, cfg: Config, draws,
-                            repeats: int = 1) -> Dict[str, float]:
+                            repeats: int = 1, bn_state: Optional[dict] = None
+                            ) -> Dict[str, float]:
     """An evaluation epoch on the resident store: each repeat draws fresh
     poses; per repeat the loss terms averaged and the RMSD medians and
-    means, then the mean over repeats (the loop's `val_repeats`)."""
+    means, then the mean over repeats (the loop's `val_repeats`). BatchNorm
+    normalises by the running statistics `bn_state`."""
     reps: List[Dict[str, float]] = [dict() for _ in range(repeats)]
     meters = [RmsdMeter() for _ in range(repeats)]
     counts = [0] * repeats
@@ -503,7 +517,8 @@ def run_eval_epoch_resident(params, rs: ResidentSplit, cfg: Config, draws,
             S = idx.shape[0]
             outs = eval_chunk(params, store,
                               torch.from_numpy(np.tile(idx, (repeats, 1)).astype(np.int64)).to(dev),
-                              torch.from_numpy(np.tile(valid, (repeats, 1))).to(dev), draws, cfg)
+                              torch.from_numpy(np.tile(valid, (repeats, 1))).to(dev), draws, cfg,
+                              bn_state)
             host = {k: v.cpu().numpy() for k, v in outs.items()}
             for r in range(repeats):
                 for s in range(S):
@@ -572,6 +587,7 @@ def run_train_epoch_resident_streamed(
     meter, sums = RmsdMeter(), {}
     dev = _device_of(state)
     scale = torch.tensor(lr_scale, dtype=torch.float32, device=dev)
+    drop = make_dropout(cfg, dev, epoch)
     buckets = list(srs.by_bucket)
     rng.shuffle(buckets)
     swap = cfg.data.swap_train if do_swap is None else do_swap
@@ -605,7 +621,7 @@ def run_train_epoch_resident_streamed(
             for t in store.tensors():       # freed blocks wait for this stream's work
                 t.record_stream(main)
         state, S, clips = _run_group(state, store, meta, srs.bs, cfg, rng, meter_rng, draws,
-                                     swap, scale, meter, sums)
+                                     swap, scale, meter, sums, drop)
         num_batches += S
         num_clips += clips
         del store, item                     # its results are on the host now

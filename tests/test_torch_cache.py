@@ -100,8 +100,16 @@ def test_a_cache_the_port_writes_reads_in_the_jax_package(tmp_path):
 @pytest.mark.parametrize("data,field,value", [
     ("dips", "data", "dips"), ("db5", "distill_dir", "teacher"), ("db5", "pack", True)])
 def test_unported_data_options_raise(tmp_path, data, field, value):
+    """DIPS without shards and pose distillation raise; packing is ported
+    (`tests/test_torch_packing.py`): the split's batches come packed."""
     pcfg = port_config(_jcfg(tmp_path))
     pcfg = dataclasses.replace(pcfg, data=dataclasses.replace(pcfg.data, **{field: value}))
     tsynth.write_synth_split(os.path.join(pcfg.cache_path(), "train.npz"), SIZES, k=4)
+    if field == "pack":
+        ds = tds.DockingDataset.from_cache(pcfg, "train")
+        batches = list(ds.batches(np.random.default_rng(0), device="cpu"))
+        assert all(b.n_segs == pcfg.data.pack_max_per_slot for b in batches)
+        assert sum(int(b.seg_mask.sum()) for b in batches) == len(SIZES)
+        return
     with pytest.raises(NotImplementedError, match=field):
         tds.DockingDataset.from_cache(pcfg, "train")

@@ -54,8 +54,25 @@ def test_the_kernel_path_report_names_the_kernels():
     assert report.startswith("7 of 7") and "softmin_field_bwd" in report
 
 
-@pytest.mark.parametrize("flag", sorted(cli.REFUSED))
+# flags that were refused before packing and two-stage fine-tuning were
+# ported: parsed into the config now (their runs: tests/test_torch_finetune.py,
+# tests/test_torch_packing.py)
+PORTED = {"pack": ([], lambda a, c: c.data.pack),
+          "pack_max_per_slot": (["3"], lambda a, c: c.data.pack_max_per_slot == 3),
+          "freeze_original": ([], lambda a, c: c.train.freeze_original),
+          "fine_tune_from": (["stage1"], lambda a, c: a.fine_tune_from == "stage1"),
+          "fine_tune_init": (["copy"], lambda a, c: a.fine_tune_init == "copy")}
+
+
+@pytest.mark.parametrize("flag", sorted(cli.REFUSED) + sorted(PORTED))
 def test_unported_flags_raise_with_their_name(tmp_path, flag):
+    if flag in PORTED:
+        value, honoured = PORTED[flag]
+        assert flag not in cli.REFUSED
+        a = cli._parser().parse_args(TINY + [f"-{flag}"] + value)
+        cli.refuse_unported(a)
+        assert honoured(a, cli.config_from_args(a))
+        return
     with pytest.raises(NotImplementedError, match=f"-{flag}"):
         cli.main(TINY + ["-toy", "-max_epochs", "1", f"-{flag}", "1"])
 
@@ -66,11 +83,26 @@ def test_unported_flags_raise_with_their_name(tmp_path, flag):
     (["-toy", "-ot_solver", "exact"], "ot_solver")])
 def test_runs_outside_the_port_raise(tmp_path, monkeypatch, extra, match):
     """A run without -toy starts the curriculum's DIPS stage, which raises
-    when no DIPS shards exist (the port does not build them); the other
-    cases are options outside the port."""
+    when no DIPS shards exist (the port does not build them), and auto
+    buckets are not ported. BatchNorm, a fine-tune stage and the exact OT
+    solver are ported: their runs train an epoch and say which path the
+    layers take."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(TINY + (["-max_seconds", "1"] if "-toy" in extra else []) + extra)
+    if match in ("DIPS stage", "auto"):
+        with pytest.raises(NotImplementedError, match=match):
+            cli.main(TINY + (["-max_seconds", "1"] if "-toy" in extra else []) + extra)
+        return
+    args = _args(tmp_path) + extra + ["-max_epochs", "1"]
+    assert cli.main(args) == 0
+    cfg = cli.config_from_args(cli._parser().parse_args(args))
+    state, saved, _ = load_checkpoint(os.path.join(cfg.checkpoint_dir, cfg.banner(),
+                                                   "db5_model_best"), "cpu")
+    assert getattr(saved.model, match, None) or getattr(saved.train, match, None)
+    assert bool(state.bn_state) == (match == "layer_norm")
+    assert ("finetune" in state.params) == (match == "fine_tune")
+    log = open(os.path.join("stdouterr", cfg.banner() + ".txt")).read()
+    assert "edge-message: plain PyTorch layer body" in log if match == "layer_norm" \
+        else "edge-message: CUDA rows 1-2" in log
 
 
 def test_the_resident_and_streaming_flags_are_honoured():
@@ -91,6 +123,12 @@ def test_the_resident_and_streaming_flags_are_honoured():
 def test_dp_and_pack_with_device_resident_raise_by_name(flag):
     with pytest.raises(NotImplementedError, match=flag[0]):
         cli.main(TINY + ["-toy", "-max_epochs", "1", "-device_resident"] + flag)
+
+
+def test_pack_with_dp_raises_by_name():
+    """Packed batches on one device only: a mesh is refused by name."""
+    with pytest.raises(NotImplementedError, match="-dp"):
+        cli.main(TINY + ["-toy", "-max_epochs", "1", "-pack", "-dp", "2"])
 
 
 def test_a_resident_run_writes_a_checkpoint(tmp_path, monkeypatch):

@@ -569,7 +569,7 @@ def test_ring_ship_kernel_equals_plain(cuda, gp, dp, D):
     pairs = [_batch(rng, cuda) for _ in range(4)]
     cat = lambda objs: torch.cat(objs)
     side = lambda name: ProteinBatch(**{k: cat([vars(getattr(p, name))[k] for p in pairs])
-                                        for k in vars(pairs[0].lig)})
+                                        for k, v in vars(pairs[0].lig).items() if v is not None})
     pair = PairBatch(lig=side("lig"), rec=side("rec"), **{
         k: cat([getattr(p, k) for p in pairs])
         for k in ("gt_lig", "pocket_lig", "pocket_rec", "pocket_mask", "pair_mask")})

@@ -83,5 +83,11 @@ def test_batches_match_the_jax_dataset(bs, seed):
 
 
 def test_packed_batches_are_refused():
-    with pytest.raises(NotImplementedError, match="pack"):
-        tds.DockingDataset(tc.Config(data=tc.DataConfig(pack=True)), [])
+    """Packed batches are ported (`tests/test_torch_packing.py`); what still
+    refuses them is the device-resident store, which is unpacked (as the
+    JAX package's)."""
+    from equidock_public_tpu_torch.train.resident import build_resident_split
+
+    ds = tds.DockingDataset(tc.Config(data=tc.DataConfig(pack=True)), [])
+    with pytest.raises(NotImplementedError, match="-pack with -device_resident"):
+        build_resident_split(ds, ds.cfg, "cpu")

@@ -6,7 +6,8 @@ path, one training step and one halo forward and step in a process where
 those modules cannot be imported; likewise the inference surface (native
 builder, clash removal, directory, batched and ensemble inference, the
 evaluator, batched serving), and a resident epoch, the curriculum on
-streamed DIPS shards and the shipped models' weight files."""
+streamed DIPS shards and the shipped models' weight files, and a packed
+training step with BatchNorm, dropout, remat and the exact OT solver."""
 
 import ast
 import os
@@ -376,6 +377,73 @@ def test_a_resident_epoch_and_the_curriculum_run_with_jax_and_the_jax_package_un
                           timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "RESIDENT" in proc.stdout
+
+
+OPTIONS_MODULES = ("graph.py", "models/layers.py", "models/iegmn.py", "ops/kabsch.py",
+                   "ops/intersection.py", "ops/sinkhorn.py", "train/losses.py",
+                   "train/meter.py", "train/step.py", "train/checkpoint.py")
+
+BLOCKED_OPTIONS = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint",
+             "equidock_public_tpu"):
+    sys.modules[name] = None
+import os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from equidock_public_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+from equidock_public_tpu_torch.data.dataset import DockingDataset
+from equidock_public_tpu_torch.data.synth import write_synth_split
+from equidock_public_tpu_torch.models.layers import Dropout
+from equidock_public_tpu_torch.params import init_params
+from equidock_public_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from equidock_public_tpu_torch.train.step import create_train_state, train_step
+tmp = tempfile.mkdtemp()
+cfg = Config(model=ModelConfig(residue_emb_dim=8, iegmn_lay_hid_dim=8, iegmn_n_lays=3,
+                               num_att_heads=4, shared_layers=True, layer_norm="BN",
+                               final_h_layer_norm="BN", dropout=0.1, remat=True),
+             train=TrainConfig(sinkhorn_iters=10, bs=4, ot_solver="exact"),
+             data=DataConfig(node_buckets=(32, 64), pocket_buckets=(8, 16), pack=True,
+                             pack_max_per_slot=3))
+path = write_synth_split(os.path.join(tmp, "train.npz"), [(9, 12), (14, 20), (7, 9), (11, 8)],
+                         k=4)
+batch = next(DockingDataset.from_cache(cfg, "train", cache_path=path).batches(
+    np.random.default_rng(0), device="cpu"))
+assert batch.n_segs == 3
+state = create_train_state(init_params(cfg.model), cfg, "cpu")
+drop = Dropout(0.1, torch.Generator().manual_seed(0))
+state, m = train_step(state, batch, cfg, drop=drop)
+assert np.isfinite(float(m["loss"])) and state.step == 1 and drop.drawn > 0
+save_checkpoint(os.path.join(tmp, "ckpt"), state, cfg, 0)
+back = load_checkpoint(os.path.join(tmp, "ckpt"), "cpu")[0]
+assert set(back.bn_state) == set(state.bn_state) == {
+    "original/layer0/edge_mlp", "original/layer0/node_mlp", "original/layer0/final_h",
+    "original/rest/edge_mlp", "original/rest/node_mlp", "original/rest/final_h"}
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "equidock_public_tpu")]
+assert not loaded, loaded
+print("OPTIONS")
+"""
+
+
+@pytest.mark.parametrize("module", OPTIONS_MODULES)
+def test_options_modules_are_under_the_guard(module):
+    path = os.path.join(PKG, module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{module} imports {bad}"
+
+
+def test_a_packed_bn_step_runs_with_jax_and_the_jax_package_unimportable():
+    """Packing, BatchNorm, dropout, remat and the exact OT solver in one
+    training step, and the statistics through a checkpoint."""
+    code = f"REPO = {REPO!r}\n" + BLOCKED_OPTIONS
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "OPTIONS" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -123,7 +123,17 @@ def test_total_loss_with_the_fused_intersection(rng):
 
 @pytest.mark.parametrize("field,value", [("ot_solver", "exact")])
 def test_options_outside_the_slice_raise(rng, field, value):
+    """The exact OT solver is ported (slice 7): `total_loss` with it is the
+    JAX package's (the host LP's plan, the loss through the cost), to rtol
+    1e-5; a solver of neither package raises."""
     b = _batch(rng)
-    out = {k: t(v) for k, v in _outputs(rng, b).items()}
-    with pytest.raises(NotImplementedError, match=field):
-        tlo.total_loss(out, port_batch(b), TrainConfig(**{field: value}))
+    outs = _outputs(rng, b)
+    out = {k: t(v) for k, v in outs.items()}
+    _, got = tlo.total_loss(out, port_batch(b), TrainConfig(**{field: value}))
+    _, want = jlo.total_loss({k: jnp.asarray(v) for k, v in outs.items()}, b,
+                             JaxTrainConfig(**{field: value}))
+    for key in want:
+        np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=1e-5, atol=1e-6,
+                                   err_msg=key)
+    with pytest.raises(ValueError, match=field):
+        tlo.total_loss(out, port_batch(b), TrainConfig(**{field: "greedy"}))

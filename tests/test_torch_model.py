@@ -94,8 +94,18 @@ def test_one_layer_matches_jax(rng):
                                  dict(nonlin="swish"), dict(final_h_layer_norm="BN"),
                                  dict(dtype="bfloat16")])
 def test_configs_outside_the_kernels_raise(bad):
-    with pytest.raises(NotImplementedError):
-        tm.check_supported(PortModelConfig(**bad))
+    """bf16 operands are not ported and raise. The other options are ported
+    (`tests/test_torch_options.py` holds them to the JAX package): they pass
+    `check_supported`, and the edge kernel covers a 'BN' final norm but not
+    the others, which run the plain layer body in training."""
+    cfg = PortModelConfig(**bad)
+    if "dtype" in bad:
+        with pytest.raises(NotImplementedError, match="dtype"):
+            tm.check_supported(cfg)
+        return
+    tm.check_supported(cfg)
+    assert tm.fused_edge_eligible(cfg, train=True) == ("final_h_layer_norm" in bad)
+    assert tm.fused_edge_eligible(cfg, train=False) == ("final_h_layer_norm" in bad)
 
 
 def test_params_from_numpy_checks_keys_and_shapes():

@@ -2,7 +2,8 @@
 `equidock_public_tpu_torch/assets/db5_model_best.golden.json` (the served
 smoke requests), `db5_train_step.golden.json` (three training steps of
 the DB5 paper model from its trained weights on a batch of ten split
-chains), `db5_fit.golden.json` (two epochs of `fit` on the tracked
+chains), `db5_train_step_packed.golden.json` (the same three steps on the
+same complexes packed four a slot), `db5_fit.golden.json` (two epochs of `fit` on the tracked
 split chains, with the fused intersection loss) and `db5_clashes.golden.json`
 (a served request docked and then through the clash-removal descent, at
 full atom count). Shared by the tests and the command that writes the files:
@@ -10,6 +11,7 @@ full atom count). Shared by the tests and the command that writes the files:
     JAX_PLATFORMS=cpu python -m tests.torch_golden           # all of them
     JAX_PLATFORMS=cpu python -m tests.torch_golden fit       # the fit file only
     JAX_PLATFORMS=cpu python -m tests.torch_golden clashes   # the clash file only
+    JAX_PLATFORMS=cpu python -m tests.torch_golden packed    # the packed steps only
     JAX_PLATFORMS=cpu python -m tests.torch_golden models    # the six other models
     JAX_PLATFORMS=cpu python -m tests.torch_golden resident  # the resident fit file
 
@@ -192,6 +194,54 @@ def jax_train_golden():
         "steps": steps,
         "grad_norms_step1": {k: norm(v) for k, v in
                              flatten(jax.tree.map(np.asarray, grads)).items()},
+        "delta_norms_last": {k: norm(p3[k] - p0[k]) for k in p0},
+    }
+
+
+PACKED_GOLDEN = os.path.join(ASSETS, "db5_train_step_packed.golden.json")
+PACK_MAX = 4            # complexes a slot
+
+
+def jax_packed_train_golden():
+    """The JAX package's three training steps of `jax_train_golden` on the
+    same complexes packed (`pack`, PACK_MAX a slot): per step the metrics,
+    the per-leaf norms of params - params0 after the last step."""
+    import dataclasses
+
+    import jax
+
+    from equidock_public_tpu.train.checkpoint import load_checkpoint
+    from equidock_public_tpu.train.step import create_train_state, train_step
+    from equidock_public_tpu_torch.graph import batch_digest
+    from equidock_public_tpu_torch.params import flatten
+
+    from .torch_utils import port_batch
+
+    payload, cfg, _ = load_checkpoint(CHECKPOINT)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, pack=True,
+                                                            pack_max_per_slot=PACK_MAX))
+    tree0 = jax.tree.map(np.asarray, payload["params"])
+    codes, batch = jax_train_batch(cfg)
+    assert batch.n_segs == PACK_MAX
+    state = create_train_state(jax.tree.map(jax.numpy.array, tree0), cfg)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        state, m = train_step(state, batch, jax.random.PRNGKey(i), cfg, 1.0)
+        steps.append({k: float(m[k]) for k in METRIC_KEYS})
+    norm = lambda a: float(np.linalg.norm(np.asarray(a, np.float64)))
+    p0 = flatten(tree0)
+    p3 = flatten(jax.tree.map(np.asarray, state.params))
+    return {
+        "source": "equidock_public_tpu on the CPU (XLA path), artifacts/db5_model_best, "
+                  "packed batches",
+        "codes": codes, "split": "each chain cut at residue n // 2; ligand = first half",
+        "seed": TRAIN_SEED, "lr_scale": 1.0, "pack_max_per_slot": PACK_MAX,
+        "slots": int(batch.pair_mask.shape[0]),
+        "node_buckets": [int(batch.lig.x.shape[1]), int(batch.rec.x.shape[1])],
+        "train": dataclasses.asdict(cfg.train),
+        "batch_digest": batch_digest(port_batch(batch)),
+        "tolerance": TRAIN_TOL,
+        "steps": steps,
         "delta_norms_last": {k: norm(p3[k] - p0[k]) for k in p0},
     }
 
@@ -684,6 +734,10 @@ if __name__ == "__main__":
         with open(FIT_GOLDEN, "w") as f:
             json.dump(jax_fit_golden(), f, indent=1)
         sys.exit(0)
+    if sys.argv[1:] == ["packed"]:
+        with open(PACKED_GOLDEN, "w") as f:
+            json.dump(jax_packed_train_golden(), f, indent=1)
+        sys.exit(0)
     if sys.argv[1:] == ["clashes"]:
         with open(CLASH_GOLDEN, "w") as f:
             json.dump(jax_clashes_golden(), f, indent=1)
@@ -710,6 +764,8 @@ if __name__ == "__main__":
     train_golden = jax_train_golden()
     with open(TRAIN_GOLDEN, "w") as f:
         json.dump(train_golden, f, indent=1)
+    with open(PACKED_GOLDEN, "w") as f:
+        json.dump(jax_packed_train_golden(), f, indent=1)
     with open(FIT_GOLDEN, "w") as f:
         json.dump(jax_fit_golden(), f, indent=1)
     with open(CLASH_GOLDEN, "w") as f:

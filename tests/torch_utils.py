@@ -25,18 +25,23 @@ def t(a, dtype=None) -> torch.Tensor:
 
 
 def port_protein(pb) -> ProteinBatch:
+    seg = getattr(pb, "seg_id", None)
     return ProteinBatch(res_id=t(pb.res_id, torch.int64), x=t(pb.x),
                         mu_r_norm=t(pb.mu_r_norm), nbr=t(pb.nbr, torch.int32),
                         nbr_mask=t(pb.nbr_mask), edge_feat=t(pb.edge_feat),
-                        node_mask=t(pb.node_mask))
+                        node_mask=t(pb.node_mask),
+                        seg_id=None if seg is None else t(seg, torch.int32))
 
 
 def port_batch(b) -> PairBatch:
-    """JAX PairBatch (unpacked) -> the port's PairBatch on the CPU."""
+    """JAX PairBatch (unpacked or packed) -> the port's PairBatch on the CPU."""
+    seg_mask = getattr(b, "seg_mask", None)
     return PairBatch(lig=port_protein(b.lig), rec=port_protein(b.rec),
                      gt_lig=t(b.gt_lig), pocket_lig=t(b.pocket_lig),
                      pocket_rec=t(b.pocket_rec), pocket_mask=t(b.pocket_mask),
-                     pair_mask=t(b.pair_mask))
+                     pair_mask=t(b.pair_mask),
+                     seg_mask=None if seg_mask is None else t(seg_mask),
+                     n_segs=getattr(b, "n_segs", 1))
 
 
 def port_halo_batch(jhb):
