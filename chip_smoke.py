@@ -128,6 +128,36 @@ non-zero without printing a result.
            gradient with and without remat (bit-equal, peak memory); (e) a
            step with the exact OT solver: its OT loss against the same plan
            on the CPU, the host LP's ms
+  slice8   (slice 8, after options; one JSON line a part, each with its
+           seconds) (a) a 'BN' model (the paper's config with layer_norm
+           and final_h 'BN', its committed weights) and a bf16 model (the
+           16-wide db5_model_small at bf16), trained 2 steps through the
+           CLI (-continue_train_model of a step-0 checkpoint), every step
+           held to a CPU step from the same state (bf16: the loss terms
+           within 2^-8, the gradient norm within the CPU's bf16 - f32
+           distance), each training checkpoint served through
+           DockingServer.from_checkpoint on the 4 golden requests against
+           the CPU's forward of the same checkpoint ('BN': the serving
+           gates; bf16: R, t, CA and keypoints within d0 / 2 of the CPU's
+           bf16 and at least d0 / 4 off its f32, BF16_SHARE, and the
+           checkpoint served at f32 to the 16-wide models' serving gates)
+           and through cli.inference; (b) the paper model served at
+           -dtype bfloat16 against assets/db5_model_best_bf16.golden.json
+           (R, t, CA, keypoints within half of d0), request ms and the
+           forward's device profile at
+           bf16 and f32 in turns; (c) one CLI epoch with -node_buckets
+           auto:4 -pocket_buckets auto:4 on epoch (b)'s split (the
+           resolved ladders), rows 1-7 at the largest resolved bucket off a
+           multiple of 512 (keys 64 more) against their plain versions,
+           timed; (d) teacher poses written by directory inference on the
+           card, one distilled CLI epoch, its blended targets against the
+           host's; (e) slices 6-7's paths at 2 layers from the committed
+           weights, every train step held to a CPU step from the same
+           state: 'BN' with dropout and remat through a CLI and a resident
+           epoch, coordinate 'BN', -fine_tune_init random, -continue_train_
+           model of that fine-tune checkpoint, packed DIPS streaming with
+           -stream_window 2, a resident epoch with -val_repeats 2 under the
+           cyclic scheduler; each run's launches as counted
   halo     the halo graph-parallel path (shards stacked on the card): the
            4 served requests through `make_halo_forward` at padded gp=2,
            ragged gp=4 and gp=4 with a forced residual tier, each against
@@ -1438,6 +1468,21 @@ def db5_sized_argv(root, epochs=2) -> list:
             + ([] if epochs is None else ["-max_epochs", str(epochs)]))
 
 
+def write_db5_sized_split(root) -> None:
+    """The DB5-sized synthetic split (DB5_SIZED_SPLIT complexes, sizes of
+    the tracked chains, seed 7) as npz caches under root/cache."""
+    from equidock_public_tpu_torch.cli import train as cli
+    from equidock_public_tpu_torch.data.synth import write_synth_split
+
+    cfg = cli.config_from_args(cli._parser().parse_args(db5_sized_argv(root)))
+    sizes = db5_sized_sizes(sum(DB5_SIZED_SPLIT.values()))
+    start = 0
+    for i, (split, n) in enumerate(DB5_SIZED_SPLIT.items()):
+        write_synth_split(os.path.join(cfg.cache_path(), f"{split}.npz"),
+                          sizes[start:start + n], seed=i, k=cfg.graph.graph_max_neighbor)
+        start += n
+
+
 def run_epoch_db5_sized(dev, root) -> dict:
     """Epoch phase (b): the training CLI (`cli/train.py::main`), 2 epochs of
     a random full-width DB5 paper model (shared layers, 5 layers, 64 wide,
@@ -1446,20 +1491,14 @@ def run_epoch_db5_sized(dev, root) -> dict:
     synchronizations; then one more epoch under the profiler."""
     from equidock_public_tpu_torch.cli import train as cli
     from equidock_public_tpu_torch.data.dataset import DockingDataset
-    from equidock_public_tpu_torch.data.synth import write_synth_split
     from equidock_public_tpu_torch.train import loop
     from equidock_public_tpu_torch.train.checkpoint import load_checkpoint
 
     counts_by_split = DB5_SIZED_SPLIT
-    sizes = db5_sized_sizes(sum(counts_by_split.values()))
     argv = db5_sized_argv(root) + ["-checkpoint_dir", os.path.join(root, "ckpt")]
     cfg = cli.config_from_args(cli._parser().parse_args(argv))
     t0 = time.perf_counter()
-    start = 0
-    for i, (split, n) in enumerate(counts_by_split.items()):
-        write_synth_split(os.path.join(cfg.cache_path(), f"{split}.npz"),
-                          sizes[start:start + n], seed=i, k=cfg.graph.graph_max_neighbor)
-        start += n
+    write_db5_sized_split(root)
     cache_s = time.perf_counter() - t0
     step_ms = []
     plain_step = loop.train_step
@@ -3032,6 +3071,737 @@ def run_options(dev, root, train_golden) -> dict:
                 **rest, seconds=round(time.perf_counter() - t0, 1))
 
 
+# --------------------------------------------------------------------------- #
+# Slice 8: serving what the port trains, bf16, auto buckets, distillation,
+# and slices 6-7's paths held step by step to the CPU
+# --------------------------------------------------------------------------- #
+
+SLICE8_LAYERS = 2       # the depth of the A5 runs (shared layers, 64 wide)
+SLICE8_SPLIT = {"train": 8, "val": 4, "test": 4}
+SLICE8_BS = 4
+# A bf16 forward on the card against a reference's (the JAX package's
+# golden values, or the CPU's), over the 4 requests together: R, t, CA and
+# the keypoints within BF16_SHARE * d0 of the reference's bf16 outputs,
+# d0 = ||bf16 - f32|| of the reference, and at least d0 / 4 from its f32
+# outputs (the operands were rounded). bf16 rounding is discrete: another
+# order of f32 sums (the card's) flips some roundings, each by up to 2^-8
+# of the value, and the flips reach the outputs. scripts/bf16_sensitivity.py
+# reads how far a move of every weight by a relative 1e-6 that keeps its
+# bf16 rounding moves the bf16 forward, over d0: the paper model's and a
+# paper-width checkpoint's after 2 bf16 training steps move by a large
+# share of d0, up to 20 d0 a request, so the paper model is held to
+# JAX's fixed golden values at d0 / 2; the trained bf16 checkpoint served
+# on the card is the 16-wide db5_model_small's, whose forward moves by a
+# small share of d0 (PERF.md section 7). The sites rounded are pinned on
+# the CPU to d0 / 4 of JAX's at small width (tests/test_torch_bf16.py).
+BF16_SHARE = {"jax": 0.5, "cpu": 0.5}
+# A held bf16 train step (`held_to_cpu`): its loss terms within one bf16
+# rounding (2^-8, relative) of the CPU's bf16 step, above the f32 gate;
+# its gradient norm within the CPU's own bf16 - f32 distance, which must
+# be above the f32 gate (every linear's backward rounds the gradient to
+# bf16, so another order of f32 sums parts two bf16 steps by up to that
+# distance); the moves and statistics at the f32 gates (Adam divides each
+# gradient by its own scale).
+BF16_U = 2.0 ** -8
+BF16_ATOL = dict(GOLDEN_ATOL, keypts_lig=1e-3, keypts_rec=1e-3)
+DISTILL_CODES = ("2VDB", "2SNI", "6B0S", "1NW9", "1HCF", "2AYO", "1QA9", "1JIW",
+                 "5C7X", "4POU", "1ZHI", "7CEI", "1MLC", "1VFB", "3SZK", "1IRA")
+
+
+def small_sizes(n: int, seed: int, top: int = 256):
+    """(n_lig, n_rec) pairs drawn with replacement from the residue counts of
+    the tracked chains of at most `top` residues."""
+    pool = [s for pair in db5_sized_sizes(400, seed=seed) for s in pair if s <= top]
+    idx = np.random.default_rng(seed).integers(0, len(pool), (n, 2))
+    return [(pool[i], pool[j]) for i, j in idx]
+
+
+def small_argv(root, tag) -> list:
+    """The training CLI's flags of the slice-8 runs on the small split: the
+    paper model's widths at SLICE8_LAYERS shared layers, bs SLICE8_BS, one
+    epoch, the fused intersection loss, seed 0."""
+    return ["-shared_layers", "-iegmn_n_lays", str(SLICE8_LAYERS), "-iegmn_lay_hid_dim", "64",
+            "-residue_emb_dim", "64", "-num_att_heads", "50", "-bs", str(SLICE8_BS),
+            "-node_buckets", "128,256", "-pocket_buckets", "32,64",
+            "-use_fused_intersection", "-random_seed", "0", "-max_epochs", "1",
+            "-cache_dir", os.path.join(root, "cache"), "-device", "cuda",
+            "-checkpoint_dir", os.path.join(root, "ckpt", tag)]
+
+
+def write_small_split(root) -> None:
+    """The slice-8 split: SLICE8_SPLIT complexes of tracked-chain sizes up to
+    256 residues, as npz caches (DB5) and as DIPS shards of 2 complexes."""
+    from equidock_public_tpu_torch.cli import train as cli
+    from equidock_public_tpu_torch.data.synth import write_synth_shards, write_synth_split
+
+    cfg = cli.config_from_args(cli._parser().parse_args(small_argv(root, "x")))
+    dips = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, data="dips"))
+    sizes = small_sizes(sum(SLICE8_SPLIT.values()), seed=17)
+    start = 0
+    for i, (split, n) in enumerate(SLICE8_SPLIT.items()):
+        part = sizes[start:start + n]
+        write_synth_split(os.path.join(cfg.cache_path(), f"{split}.npz"), part, seed=i, k=10)
+        write_synth_shards(dips.cache_path(), split, n_shards=n // 2, per_shard=2, seed=i,
+                           k=10, sizes=part)
+        start += n
+
+
+def start_checkpoint(path, model_kw, layers=LAYERS, model="db5_model_best") -> str:
+    """A training checkpoint (step 0) of a shipped model's committed weights
+    (the paper model's by default) under `model_kw` at `layers` layers, the
+    leaves the config adds at their initial values: the start of a slice-8
+    CLI run (-continue_train_model, which adopts its model config)."""
+    from equidock_public_tpu_torch.params import (flatten, init_params, load_checkpoint,
+                                                  model_checkpoint, unflatten)
+    from equidock_public_tpu_torch.train.checkpoint import save_checkpoint
+    from equidock_public_tpu_torch.train.step import create_train_state
+
+    params, cfg = load_checkpoint(model_checkpoint(model), "cpu")
+    mcfg = dataclasses.replace(cfg.model, iegmn_n_lays=layers, **model_kw)
+    base = flatten(params)
+    start = unflatten({k: base[k] if k in base and base[k].shape == v.shape else v
+                       for k, v in flatten(init_params(mcfg, 0, "cpu")).items()})
+    scfg = dataclasses.replace(cfg, model=mcfg)
+    save_checkpoint(path, create_train_state(start, scfg, "cpu"), scfg, 0)
+    return path
+
+
+@contextlib.contextmanager
+def held_to_cpu(name):
+    """Every train step of the training loop and of the resident epochs
+    (`train_step` of train/loop.py and train/resident.py) followed by a step
+    of the CPU's plain path from the state before it (copied), on the same
+    batch (copied) with the same dropout masks (recorded on the card,
+    replayed): loss terms and the gradient norm at the training gate's
+    first-step tolerances, each leaf's move and the running statistics, as
+    `run_option_config` holds its steps. A bf16 step is held to the CPU's
+    bf16 step with the bf16 gates (BF16_U), its gradient norm against the
+    CPU's f32 step from the same state. Yields the report (steps, worst
+    relative errors)."""
+    from equidock_public_tpu_torch.graph import batch_to
+    from equidock_public_tpu_torch.models.layers import Dropout
+    from equidock_public_tpu_torch.params import flatten
+    from equidock_public_tpu_torch.train import loop, resident
+    from equidock_public_tpu_torch.train.step import train_step
+
+    tol = load_asset("db5_train_step.golden.json")["tolerance"]
+    report = {"steps": 0, "worst_rel_err_vs_cpu": {}}
+    worst = report["worst_rel_err_vs_cpu"]
+
+    def held(state, batch, cfg, lr_scale=1.0, loss_fn_=None, drop=None):
+        before = state_on(state, "cpu")
+        kept, drawing = [], drop is not None and drop.rate > 0
+        if drawing:
+            draw = drop.mask
+
+            def recording(shape, device):
+                kept.append(draw(shape, device))
+                return kept[-1]
+
+            drop.mask = recording
+        try:
+            new, got = train_step(state, batch, cfg, lr_scale, loss_fn_, drop)
+        finally:
+            if drawing:
+                del drop.mask
+        replay = lambda: Dropout(drop.rate, masks=[m.cpu() for m in kept]) if drawing else None
+        # resident epochs pass the epoch factor as a tensor on the card
+        scale = float(lr_scale)
+        counts = read_counts()          # the CPU step's inverse lists are not the path's
+        host_batch = batch_to(batch, "cpu")
+        host, want = train_step(before, host_batch, cfg, scale, drop=replay())
+        bf16 = cfg.model.dtype == "bfloat16"
+        if bf16:
+            cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                       dtype="float32"))
+            want32 = train_step(before, host_batch, cfg32, scale, drop=replay())[1]
+        for mod, attr, kname in kernel_counters():
+            setattr(mod, attr, counts[kname])
+        i = report["steps"] = report["steps"] + 1
+        for key in ("loss", "ligand_coors_loss", "ot_loss", "intersection_loss", "grad_norm"):
+            r = tol["grad_norm_rtol"] if key == "grad_norm" else tol["loss_rtol_step1"]
+            g, w = float(got[key]), float(want[key])
+            worst[key] = max(worst.get(key, 0.0), abs(g - w) / max(abs(w), 1e-12))
+            bound = r * abs(w) + tol["loss_atol"]
+            if bf16 and key == "grad_norm":
+                # within the CPU's own bf16 - f32 distance, which must be
+                # above the f32 gate (the step rounded)
+                d0 = abs(w - float(want32[key]))
+                require(d0 > r * abs(w), f"{name} step {i}: gradient norm at bf16 {w:.7g}, "
+                        f"at f32 {float(want32[key]):.7g}: not rounded")
+                worst["grad_norm_over_d0"] = max(worst.get("grad_norm_over_d0", 0.0),
+                                                 abs(g - w) / d0)
+                bound += d0
+            elif bf16:
+                bound += BF16_U * abs(w)
+            require(np.isfinite(g) and abs(g - w) <= bound,
+                    f"{name} step {i} {key}: card {g:.7g}, CPU {w:.7g} (bound {bound:.3g})")
+        atol = tol["delta_norm_atol_lr"] * cfg.train.lr * scale
+        p0, after = flatten(before.params), flatten(state_on(new, "cpu").params)
+        for key, v in flatten(host.params).items():
+            g, w = float((after[key] - p0[key]).norm()), float((v - p0[key]).norm())
+            worst["delta_norm"] = max(worst.get("delta_norm", 0.0), abs(g - w) / max(w, 1e-12))
+            require(abs(g - w) <= tol["delta_norm_rtol"] * w + atol,
+                    f"{name} step {i} {key}: moved {g:.6g} on the card, {w:.6g} on the CPU")
+        for site, st in new.bn_state.items():
+            for k in ("mean", "var"):
+                err = rel_err(st[k].cpu(), host.bn_state[site][k])
+                worst["bn_state"] = max(worst.get("bn_state", 0.0), err)
+                require(err <= tol["delta_norm_rtol"], f"{name} step {i} {site}/{k}: {err:.3g}")
+        return new, got
+
+    saved = (loop.train_step, resident.train_step)
+    loop.train_step = resident.train_step = held
+    try:
+        yield report
+    finally:
+        loop.train_step, resident.train_step = saved
+
+
+def eval_forwards(cfg, resident_mode: bool) -> int:
+    """Forwards without gradient of one epoch's validation (val_repeats
+    times) and the final test, as `fit` runs them: resident groups, or the
+    host loop's batches."""
+    from equidock_public_tpu_torch.data.dataset import DockingDataset
+
+    def count(split):
+        ds = DockingDataset.from_cache(cfg, split, swap=False)
+        if resident_mode:
+            return resident_eval_steps(ds, cfg, cfg.train.bs)
+        return sum(1 for _ in ds.batches(np.random.default_rng(0), device="cpu", shuffle=False))
+
+    return max(cfg.train.val_repeats, 1) * count("val") + count("test")
+
+
+def path_launches(mcfg, layers, steps, evals, packed=False, stages=1) -> tuple:
+    """(launches, inverse lists) of `steps` train steps and `evals` forwards
+    without gradient of a model config: rows 3-5 always; rows 1-2 where the
+    edge kernel covers the config in training, else row 1 in evaluation
+    only where it covers it there; rows 6-7 unless packed; remat relaunches
+    rows 1 and 3 for layers 1..n-1 in each backward; `stages` 2 for a
+    fine-tune model (one inverse list a side a stage)."""
+    from equidock_public_tpu_torch.models.iegmn import fused_edge_eligible, remat_active
+
+    train_edge = fused_edge_eligible(mcfg, train=True)
+    want = step_launches(layers, steps, evals, edge=train_edge, softmin=not packed)
+    if not train_edge and fused_edge_eligible(mcfg, train=False):
+        want["edge_message"] = SIDES * layers * evals
+    if remat_active(mcfg):
+        again = SIDES * (layers - 1) * steps
+        want["cross_attention"] += again
+        if train_edge:
+            want["edge_message"] += again
+    return want, (PER_STEP_INVERSE * stages * steps if train_edge else 0)
+
+
+def run_held(name, argv, root, mcfg, layers=SLICE8_LAYERS, resident_mode=False,
+             packed=False, stages=1) -> dict:
+    """A slice-8 CLI run with every train step held to the CPU
+    (`held_to_cpu`), its launches against `path_launches`."""
+    from equidock_public_tpu_torch.cli import train as cli
+
+    with held_to_cpu(name) as held:
+        run = run_cli(argv, os.path.join(root, "runs", name))
+    steps = sum(r["train"]["num_batches"] for r in run["records"] if "train" in r)
+    require(held["steps"] == steps and steps > 0,
+            f"{name}: {held['steps']} held steps, {steps} in the records")
+    cfg = cli.config_from_args(cli._parser().parse_args(argv))
+    evals = eval_forwards(cfg, resident_mode)
+    want, inverse = path_launches(mcfg, layers, steps, evals, packed, stages)
+    expect_launches(name, run["launches"], want, inverse)
+    require(all(np.isfinite(r["train"]["loss"]) for r in run["records"] if "train" in r),
+            f"{name}: non-finite training loss")
+    return dict(steps=steps, forwards_without_gradient=evals, launches=run["launches"],
+                kernel_paths=logged(run["log"], "Kernel paths"), cli_seconds=run["seconds"],
+                held_to_cpu=held, banner=run["banner"])
+
+
+def run_a5(root) -> dict:
+    """Slice 8 (e): slices 6-7's paths that had not run on the card, at
+    SLICE8_LAYERS layers from the committed weights, each step held to the
+    CPU: BN with dropout and remat through a CLI epoch and a resident epoch,
+    coordinate BN, -fine_tune_init random, -continue_train_model of that
+    fine-tune checkpoint, packed DIPS streaming with -stream_window 2, and a
+    resident epoch with -val_repeats 2 under the cyclic scheduler."""
+    from equidock_public_tpu_torch.config import ModelConfig
+
+    starts = os.path.join(root, "starts")
+    plain = start_checkpoint(os.path.join(starts, "plain"), {}, SLICE8_LAYERS)
+    base = lambda tag: small_argv(root, tag)
+    resident_flags = ["-device_resident", "-trim_remainder"]
+    paper = ModelConfig(iegmn_n_lays=SLICE8_LAYERS, shared_layers=True, num_att_heads=50)
+    out = {}
+    for tag, kw in (("bn_dropout", dict(layer_norm="BN", final_h_layer_norm="BN", dropout=0.1)),
+                    ("remat", dict(remat=True))):
+        ckpt = start_checkpoint(os.path.join(starts, tag), kw, SLICE8_LAYERS)
+        mcfg = dataclasses.replace(paper, **kw)
+        for mode, flags in (("cli", []), ("resident", resident_flags)):
+            name = f"{tag}_{mode}"
+            out[name] = run_held(name, base(name) + flags + ["-continue_train_model", ckpt],
+                                 root, mcfg, resident_mode=bool(flags))
+    ckpt = start_checkpoint(os.path.join(starts, "coors_bn"), dict(layer_norm_coors="BN"),
+                            SLICE8_LAYERS)
+    out["coors_bn"] = run_held("coors_bn", base("coors_bn") + ["-continue_train_model", ckpt],
+                               root, dataclasses.replace(paper, layer_norm_coors="BN"))
+    ft = dataclasses.replace(paper, fine_tune=True)
+    out["fine_tune_random"] = run_held(
+        "fine_tune_random", base("fine_tune_random") + ["-fine_tune_from", plain,
+                                                        "-fine_tune_init", "random"],
+        root, ft, layers=SLICE8_LAYERS + 2, stages=2)
+    ft_ckpt = os.path.join(root, "ckpt", "fine_tune_random", out["fine_tune_random"]["banner"],
+                           "db5_model_best")
+    out["continue_fine_tune"] = run_held(
+        "continue_fine_tune", base("continue_fine_tune") + ["-continue_train_model", ft_ckpt],
+        root, ft, layers=SLICE8_LAYERS + 2, stages=2)
+    dips_argv = base("dips_packed_stream") + ["-data", "dips", "-stream_dips", "-stream_window",
+                                              "2", "-pack", "-pack_max_per_slot", "4",
+                                              "-continue_train_model", plain]
+    out["dips_packed_stream"] = run_held("dips_packed_stream", dips_argv, root, paper,
+                                         packed=True)
+    out["resident_val2_cyclic"] = run_held(
+        "resident_val2_cyclic", base("resident_val2_cyclic") + resident_flags
+        + ["-val_repeats", "2", "-scheduler", "cyclic", "-continue_train_model", plain],
+        root, paper, resident_mode=True)
+    return out
+
+
+def golden_requests():
+    return load_asset("db5_model_best.golden.json")["requests"]
+
+
+def request_lines(golden, out_dir, tag):
+    return [json.dumps({"ligand": os.path.join(REPO, g["ligand"]),
+                        "receptor": os.path.join(REPO, g["receptor"]),
+                        "output": os.path.join(out_dir, f"{tag}{i}.pdb")})
+            for i, g in enumerate(golden)]
+
+
+def served_outputs(server, golden, out_dir, tag) -> tuple:
+    """The golden requests through `server.serve_lines`: (R, t, CA of each
+    forward, the launches)."""
+    outputs, inner = [], server.forward
+
+    def recording(batch):
+        out = inner(batch)
+        outputs.append({"R": out["R"][0].cpu().numpy(), "t": out["t"][0, 0].cpu().numpy(),
+                        "ca": out["ligand_coords"][0, :8].cpu().numpy(),
+                        "keypts_lig": out["keypts_lig"][0].cpu().numpy(),
+                        "keypts_rec": out["keypts_rec"][0].cpu().numpy()})
+        return out
+
+    server.forward = recording
+    buf = io.StringIO()
+    reset_counts()
+    try:
+        served = server.serve_lines(request_lines(golden, out_dir, tag), buf)
+    finally:
+        server.forward = inner
+    launches = read_counts()
+    resp = [json.loads(x) for x in buf.getvalue().splitlines()]
+    require(served == len(golden) == len(outputs) and all(r["ok"] for r in resp),
+            f"{tag}: requests failed: {resp}")
+    return outputs, launches
+
+
+def bf16_check(got, ref16, ref32, gated, share, what) -> dict:
+    """The card's bf16 forwards `got` against a reference's bf16 and f32
+    forwards, over all requests together, for R, t, CA and the keypoints:
+    d0 = ||ref16 - ref32||, ||got - ref16|| / d0 and ||got - ref32|| / d0
+    (and each request's), emitted before the keys in `gated` are held to
+    d0 above their f32 gate (BF16_ATOL), ||got - ref16|| <= share d0 and
+    ||got - ref32|| >= d0 / 4."""
+    dist = lambda a, b, k: [float(np.linalg.norm(np.asarray(x[k]) - np.asarray(y[k])))
+                            for x, y in zip(a, b)]
+    tot = lambda v: float(np.sqrt(np.sum(np.square(v))))
+    out = {}
+    for k in BF16_ATOL:
+        d0, err, off = (dist(ref16, ref32, k), dist(got, ref16, k), dist(got, ref32, k))
+        out[k] = {"d0": tot(d0), "vs_bf16_over_d0": tot(err) / tot(d0),
+                  "off_f32_over_d0": tot(off) / tot(d0), "d0_per_request": d0,
+                  "vs_bf16_per_request": err, "off_f32_per_request": off}
+    emit("slice8_bf16_check", what=what, gated=list(gated), share=share, **out)
+    for k in gated:
+        o = out[k]
+        require(o["d0"] > BF16_ATOL[k], f"{what} {k}: d0 {o['d0']:.3g} not above {BF16_ATOL[k]}")
+        require(o["vs_bf16_over_d0"] <= share and o["off_f32_over_d0"] >= 0.25,
+                f"{what} {k}: {o['vs_bf16_over_d0']:.3g} d0 from the reference's bf16, "
+                f"{o['off_f32_over_d0']:.3g} d0 from its f32 (d0 {o['d0']:.3g})")
+    return out
+
+
+def cpu_outputs(path, golden, dtype=None) -> list:
+    """The CPU's forward of the model at `path` (`load_model`) on the golden
+    requests, featurized as the server does: [{R, t, ca}]."""
+    from equidock_public_tpu_torch.cli.serve import DockingServer
+    from equidock_public_tpu_torch.eval import inference
+
+    server = DockingServer.from_checkpoint(path, "cpu", dtype)
+    out = []
+    for g in golden:
+        req = inference.featurize_request(server.cfg, os.path.join(REPO, g["ligand"]),
+                                          os.path.join(REPO, g["receptor"]), "cpu")
+        o = server.forward(req.batch)
+        out.append({"R": o["R"][0].numpy(), "t": o["t"][0, 0].numpy(),
+                    "ca": o["ligand_coords"][0, :8].numpy(),
+                    "keypts_lig": o["keypts_lig"][0].numpy(),
+                    "keypts_rec": o["keypts_rec"][0].numpy()})
+    return out
+
+
+def run_trained_serving(dev, root) -> dict:
+    """Slice 8 (a): a 'BN' model (the paper's config with layer_norm and
+    final_h 'BN', from its committed weights) and a bf16 model (the 16-wide
+    db5_model_small at bf16), each trained 2 steps through the CLI
+    (-continue_train_model of its start), every step held to the CPU
+    (`held_to_cpu`; the bf16 gates for the bf16 model); each one's training
+    checkpoint served through DockingServer.from_checkpoint on the 4 golden
+    requests against the CPU's forward of the same checkpoint ('BN': the
+    serving gates; bf16: `bf16_check` of R, t, CA and the keypoints at
+    BF16_SHARE, and the checkpoint served at f32 to the 16-wide models'
+    serving gates, `model_served_atol`), and through cli.inference on a
+    directory of the same requests (its written atoms against the server's
+    R, t)."""
+    from equidock_public_tpu_torch.cli import inference as inference_cli
+    from equidock_public_tpu_torch.cli.serve import DockingServer
+    from equidock_public_tpu_torch.data.pdb import read_pdb
+    from equidock_public_tpu_torch.models import iegmn
+    from equidock_public_tpu_torch.params import load_model, model_checkpoint
+
+    golden = golden_requests()
+    inp, gt = os.path.join(root, "serve_in"), os.path.join(root, "serve_gt")
+    os.makedirs(inp)
+    os.makedirs(gt)
+    for i, g in enumerate(golden):
+        shutil.copy(os.path.join(REPO, g["ligand"]), os.path.join(inp, f"R{i}_l_b.pdb"))
+        shutil.copy(os.path.join(REPO, g["receptor"]), os.path.join(gt, f"R{i}_r_b_COMPLEX.pdb"))
+    out = {}
+    for tag, kw, model in (("bn", dict(layer_norm="BN", final_h_layer_norm="BN"),
+                            "db5_model_best"),
+                           ("bf16", dict(dtype="bfloat16"), "db5_model_small")):
+        mcfg = load_model(model_checkpoint(model))[1].model
+        start = start_checkpoint(os.path.join(root, "starts", f"serve_{tag}"), kw,
+                                 mcfg.iegmn_n_lays, model)
+        mcfg = dataclasses.replace(mcfg, **kw)
+        name = f"serve_{tag}"
+        run = run_held(name, small_argv(root, name) + ["-continue_train_model", start], root,
+                       mcfg, layers=mcfg.iegmn_n_lays)
+        ckpt = os.path.join(root, "ckpt", name, run["banner"], "db5_model_best")
+        server = DockingServer.from_checkpoint(ckpt, dev)
+        require((server.bn_state is not None) == (tag == "bn")
+                and server.cfg.model.dtype == ("bfloat16" if tag == "bf16" else "float32"),
+                f"{tag}: the served checkpoint's config or statistics")
+        iegmn.plain_body_calls = 0
+        got, launches = served_outputs(server, golden, os.path.join(root, "served"), tag)
+        plain = iegmn.plain_body_calls
+        per = SIDES * mcfg.iegmn_n_lays * len(golden)
+        eligible = iegmn.fused_edge_eligible(server.cfg.model, train=False)
+        require(launches["cross_attention"] == per
+                and launches["edge_message"] == (per if eligible else 0)
+                and plain == (0 if eligible else per) and launches[INVERSE[2]] == 0,
+                f"{tag} serving: launches {launches}, {plain} plain sides")
+        cpu = cpu_outputs(ckpt, golden)
+        check = {}
+        if tag == "bf16":
+            ref = cpu_outputs(ckpt, golden, "float32")
+            check["bf16"] = bf16_check(got, cpu, ref, tuple(BF16_ATOL), BF16_SHARE["cpu"],
+                                       "bf16 training checkpoint, card vs CPU")
+            # the same checkpoint served at f32: the card to the 16-wide
+            # models' serving gates
+            card, _ = served_outputs(DockingServer.from_checkpoint(ckpt, dev, "float32"),
+                                     golden, os.path.join(root, "served"), "f32")
+            atols = [model_served_atol(c, g["R"]) for g, c in zip(card, ref)]
+        else:
+            card, ref, atols = got, cpu, [GOLDEN_ATOL] * len(golden)
+        for k in GOLDEN_ATOL:
+            errs = [float(np.abs(g[k] - c[k]).max()) for g, c in zip(card, ref)]
+            require(all(e <= a[k] for e, a in zip(errs, atols)),
+                    f"{tag} served {k} at f32: {errs} from the CPU, gates "
+                    f"{[a[k] for a in atols]}")
+            check[k] = max(errs)
+        d = os.path.join(root, f"cli_out_{tag}")
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            inference_cli.main(["-checkpoint", ckpt, "-input_dir", inp, "-ground_truth_dir", gt,
+                                "-output_dir", d, "-node_buckets",
+                                ",".join(map(str, server.cfg.data.node_buckets)),
+                                "-device", "cuda"])
+        cli_launches = read_counts()
+        cli_err = 0.0
+        for i, o in enumerate(got):
+            table = read_pdb(os.path.join(inp, f"R{i}_l_b.pdb"))
+            moved = table.coords @ o["R"].T + o["t"]
+            written = read_pdb(os.path.join(d, f"R{i}_l_b_EQUIDOCK_TPU.pdb")).coords
+            cli_err = max(cli_err, float(np.abs(written - moved).max()))
+        require(cli_err <= PATH_ATOL and cli_launches["cross_attention"] == per,
+                f"{tag} cli.inference: {cli_err:.3g} A from the server, launches {cli_launches}")
+        out[tag] = dict(model=model, train_steps=run["steps"], train_launches=run["launches"],
+                        train_held_to_cpu=run["held_to_cpu"],
+                        serve_launches=launches, plain_body_sides=plain, vs_cpu=check,
+                        cli_inference_vs_server_max_abs=cli_err, cli_launches=cli_launches,
+                        checkpoint_model=dict(layer_norm=server.cfg.model.layer_norm,
+                                              dtype=server.cfg.model.dtype))
+    return out
+
+
+def run_bf16_serving(dev, root) -> dict:
+    """Slice 8 (b): the paper model served at -dtype bfloat16 from its
+    committed weights on the 4 golden requests, against
+    assets/db5_model_best_bf16.golden.json (the JAX package's fused path
+    at bf16 and at f32: `bf16_check`, half of d0); request ms
+    (serve_lines) and the forward's device time at bf16 and f32, in turns
+    (f32, bf16, bf16, f32), the forward profiled on the 512 x 1024
+    request."""
+    from equidock_public_tpu_torch.cli.serve import DockingServer
+    from equidock_public_tpu_torch.eval import inference
+    from equidock_public_tpu_torch.params import default_checkpoint
+
+    gold = load_asset("db5_model_best_bf16.golden.json")
+    golden = golden_requests()
+    servers = {dt: DockingServer.from_checkpoint(default_checkpoint(), dev, dt)
+               for dt in ("float32", "bfloat16")}
+    for s in servers.values():
+        s.warmup(WARMUP_BUCKETS)
+    got, launches = served_outputs(servers["bfloat16"], golden, root, "bf16_")
+    per = SIDES * LAYERS * len(golden)
+    require(launches["edge_message"] == launches["cross_attention"] == per
+            and launches[INVERSE[2]] == 0, f"bf16 serving launches {launches}")
+    check = bf16_check(got, gold["requests"], gold["float32"], tuple(BF16_ATOL),
+                       BF16_SHARE["jax"], "bf16 serving, card vs the JAX package")
+    ms = {"float32": [], "bfloat16": []}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        ms[dt] += serve_lines_ms(servers[dt], golden, root)
+    req = inference.featurize_request(servers["float32"].cfg,
+                                      os.path.join(REPO, golden[0]["ligand"]),
+                                      os.path.join(REPO, golden[0]["receptor"]), dev)
+    profile = {dt: device_profile(lambda s=s: s.forward(req.batch)["R"].cpu(), reps=3)
+               for dt, s in servers.items()}
+    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+            "TF32 turned on")
+    return dict(vs_jax=check, share=BF16_SHARE["jax"], launches=launches,
+                request_ms=ms, request_ms_median={k: statistics.median(v) for k, v in ms.items()},
+                forward_profile_512x1024=profile, allow_tf32=False)
+
+
+def non512_cases(params, N, M, dev):
+    """Rows 1-7 at a resolved auto bucket: the edge case at B=10, N nodes
+    (70-274 valid, trained weights of the shared layer); attention and the
+    soft-min field at B=10, N x M with training masks."""
+    from equidock_public_tpu_torch.ops.cuda import cross_attention as ca
+
+    edge = edge_bwd_case(params, dev, B=10, N=N)
+    rng = np.random.default_rng(N + M)
+    gen = torch.Generator().manual_seed(N + M)
+    q, k, v, do = (torch.randn(10, n, 64, generator=gen) * s
+                   for n, s in ((N, 0.3), (M, 0.3), (M, 1.0), (N, 1.0)))
+    qt, kt = training_tags(rng, 10, N), training_tags(rng, 10, M)
+    q, k, v, qt, kt, do = (x.to(dev).contiguous() for x in (q, k, v, qt, kt, do))
+    o, lse = ca.cross_attention_plain(q, k, v, qt, kt)
+    att = dict(shape=f"B=10 N={N} M={M} D=Dv=64 (70-274 valid a side)",
+               args=(q, k, v, qt, kt), bwd=(q, k, v, qt, kt, o.contiguous(), lse.contiguous(),
+                                            do))
+    x = torch.from_numpy(rng.standard_normal((10, N, 3)).astype(np.float32) * 15)
+    a = torch.from_numpy(rng.standard_normal((10, M, 3)).astype(np.float32) * 15 + 5)
+    c = torch.from_numpy(rng.standard_normal((10, N)).astype(np.float32)) * qt.cpu()
+    soft = dict(shape=f"B=10 M={N} N={M} (split-chain halves)",
+                args=(x.to(dev), a.to(dev), kt), c=c.to(dev).contiguous())
+    return edge, att, soft
+
+
+def run_auto_epoch(dev, root, db5_root) -> dict:
+    """Slice 8 (c): the training CLI one epoch of a random full-width paper
+    model with -node_buckets auto:4 -pocket_buckets auto:4 on the DB5-sized
+    split of epoch (b): the resolved ladders (from the log), launches; rows
+    1-7 at the largest resolved bucket that is not a multiple of 512 (N)
+    against keys N + 64 (M): forwards to EDGE_TOL / ATT_TOL / SOFTMIN_TOL,
+    backwards norm-wise to BWD_REL_TOL; each timed beside its plain
+    version."""
+    import ast
+
+    from equidock_public_tpu_torch.ops import softmin_field as sf
+    from equidock_public_tpu_torch.ops.cuda import cross_attention as ca
+    from equidock_public_tpu_torch.ops.cuda import edge_message as em
+    from equidock_public_tpu_torch.ops.cuda import softmin_field as ksf
+    from equidock_public_tpu_torch.params import default_checkpoint, load_checkpoint
+
+    argv = [a for a in db5_sized_argv(db5_root, epochs=1)]
+    i = argv.index("-node_buckets")
+    argv[i + 1] = "auto:4"
+    argv[argv.index("-pocket_buckets") + 1] = "auto:4"
+    argv += ["-checkpoint_dir", os.path.join(root, "ckpt", "auto")]
+    run = run_cli(argv, os.path.join(root, "runs", "auto"))
+    ladders = {}
+    for line in run["log"].splitlines():
+        for kind in ("node", "pocket"):
+            mark = f"auto {kind} buckets ("
+            if mark in line:
+                ladders[kind] = ast.literal_eval(line.split("): ", 1)[1].strip())
+    require(set(ladders) == {"node", "pocket"}, f"no resolved ladders in the log: {ladders}")
+    steps = run["records"][0]["train"]["num_batches"]
+    evals = sum(-(-DB5_SIZED_SPLIT[s] // 10) for s in ("val", "test"))
+    expect_counts("auto-bucket epoch", run["launches"], steps, evals, fused=True)
+    odd = [b for b in ladders["node"] if b % 512]
+    require(odd, f"no resolved node bucket off a multiple of 512: {ladders['node']}")
+    N = max(odd)
+    M = N + 64
+    params, cfg = load_checkpoint(default_checkpoint(), dev)
+    slope = cfg.model.leakyrelu_neg_slope
+    edge, att, soft = non512_cases(params, N, M, dev)
+    checks = {"edge": check_edge_case(edge, slope)}
+    got = ca.cross_attention_fwd(*att["args"])
+    synced("cross_attention (auto bucket)")
+    checks["cross_attention"] = check_close("cross_attention " + att["shape"], got,
+                                            ca.cross_attention_plain(*att["args"]), ATT_TOL)
+    gb = ca.cross_attention_bwd(*att["bwd"])
+    synced("cross_attention_dq, cross_attention_dkv (auto bucket)")
+    want = ca.cross_attention_bwd_plain(*att["bwd"][:5], att["bwd"][7])
+    checks["cross_attention_dq"] = check_grads("cross_attention_dq", att["shape"], gb[:1],
+                                               want[:1])
+    checks["cross_attention_dkv"] = check_grads("cross_attention_dkv", att["shape"], gb[1:],
+                                                want[1:])
+    check_softmin_case(soft)
+    checks["softmin_field"], checks["softmin_field_bwd"] = soft["err"], soft["check"]
+    q, k, v, qt, kt, o, lse, do = att["bwd"]
+    delta = (do * o).sum(-1).contiguous()
+    bargs = (q, k, v, qt, kt, lse, do, delta)
+    x, a, am = soft["args"]
+    ea = edge["args"]
+    inv = em.inverse_neighbors(ea[3], ea[0].shape[1])
+    leaves = [t.detach().requires_grad_(True) for t in (*ea[:3], *ea[5].values())]
+    plain_out = em.edge_message_plain(*leaves[:3], ea[3], ea[4],
+                                      dict(zip(em.PARAM_NAMES, leaves[3:])), slope)
+    times = {
+        "edge_message": (device_ms(lambda: em.edge_message_aggregate(*ea, slope=slope)),
+                         device_ms(lambda: em.edge_message_plain(*ea, slope=slope))),
+        "edge_message_bwd": (device_ms(lambda: em.edge_message_bwd(*ea, *edge["grads"],
+                                                                   slope=slope, inverse=inv)),
+                             backward_ms(plain_out, leaves, edge["grads"])),
+        "cross_attention": (device_ms(lambda: ca.cross_attention_fwd(*att["args"])),
+                            device_ms(lambda: ca.cross_attention_plain(*att["args"]))),
+        "cross_attention_dq": (device_ms(lambda: ca.cross_attention_dq(*bargs)), None),
+        "cross_attention_dkv": (device_ms(lambda: ca.cross_attention_dkv(*bargs)), None),
+        "softmin_field": (device_ms(lambda: ksf.softmin_field_fwd(x, a, am, SIGMA)),
+                          device_ms(lambda: sf.softmin_field_sums_plain(x, a, am, SIGMA),
+                                    reps=5)),
+        "softmin_field_bwd": (device_ms(lambda: ksf.softmin_field_bwd(x, a, am, soft["c"],
+                                                                      SIGMA)),
+                              device_ms(lambda: sf.softmin_field_bwd_plain(x, a, am, soft["c"],
+                                                                           SIGMA), reps=5))}
+    plain_bwd = graph_backward_ms(lambda l: ca.cross_attention_plain(*l, qt, kt)[0], (q, k, v),
+                                  do)
+    return dict(ladders=ladders, steps=steps, forwards_without_gradient=evals,
+                launches=run["launches"], epoch=epoch_summary(run, DB5_SIZED_SPLIT["train"]),
+                shapes={"edge": edge["shape"], "attention": att["shape"],
+                        "softmin": soft["shape"]},
+                checks=checks, tolerance={"edge_message": EDGE_TOL, "cross_attention": ATT_TOL,
+                                          "softmin_field": SOFTMIN_TOL,
+                                          "backward_relative_norm": BWD_REL_TOL},
+                ms={k: {"ms": t, "plain_ms": p} for k, (t, p) in times.items()},
+                attention_backward_plain_whole_ms=plain_bwd,
+                timing="device time per call from CUDA-graph replays (device_ms); the edge "
+                       "backward's plain_ms is autograd through the plain forward over eager "
+                       "calls; dq and dkv share the plain whole backward "
+                       "(attention_backward_plain_whole_ms)")
+
+
+def run_distill(dev, root) -> dict:
+    """Slice 8 (d): teacher poses written by the port's directory inference
+    on the card (the paper model's committed weights) for 8 tracked chains
+    cut in two, each ligand half moved by a seeded rigid motion; then one
+    distilled CLI epoch (-distill_dir, -distill_alpha 0.5) on split caches
+    of those chains (8 train, 4 val, 4 test), SLICE8_LAYERS layers from the
+    committed weights: the log's blend count, the blended targets against
+    (1 - a) gt + a teacher on the host, launches."""
+    from equidock_public_tpu_torch.cli import train as cli
+    from equidock_public_tpu_torch.data.dataset import DockingDataset, write_cache
+    from equidock_public_tpu_torch.data.pdb import read_pdb, write_pdb
+    from equidock_public_tpu_torch.eval.inference import run_inference_dir
+    from equidock_public_tpu_torch.params import default_checkpoint, load_checkpoint
+
+    from scipy.spatial.transform import Rotation
+
+    params, cfg = load_checkpoint(default_checkpoint(), dev)
+    droot = os.path.join(root, "distill")
+    inp, gt, teacher = (os.path.join(droot, d) for d in ("in", "gt", "teacher"))
+    rng = np.random.default_rng(21)
+    train_codes = DISTILL_CODES[:8]
+    os.makedirs(inp)
+    os.makedirs(gt)
+    for code in train_codes:
+        with open(chain_path(code)) as f:
+            lines = [ln for ln in f if ln.startswith("ATOM")]
+        keys = list(dict.fromkeys(ln[21:27] for ln in lines))
+        first = set(keys[:len(keys) // 2])
+        lig = os.path.join(gt, f"{code}_l_b_COMPLEX.pdb")
+        with open(lig, "w") as f:
+            f.writelines(ln for ln in lines if ln[21:27] in first)
+        with open(os.path.join(gt, f"{code}_r_b_COMPLEX.pdb"), "w") as f:
+            f.writelines(ln for ln in lines if ln[21:27] not in first)
+        table = read_pdb(lig)
+        c = table.coords.mean(axis=0)
+        rot = Rotation.random(random_state=rng).as_matrix()
+        write_pdb(os.path.join(inp, f"{code}_l_b.pdb"), table,
+                  ((table.coords - c) @ rot.T + c + rng.normal(0, 5.0, 3)).astype(np.float32))
+    reset_counts()
+    run_inference_dir(params, cfg, inp, gt, teacher, log=lambda *a: None, device=dev)
+    teacher_launches = read_counts()
+    require(teacher_launches["edge_message"] == SIDES * LAYERS * len(train_codes),
+            f"teacher inference launches {teacher_launches}")
+    argv = small_argv(droot, "distill") + [
+        "-distill_dir", teacher, "-distill_alpha", "0.5", "-continue_train_model",
+        start_checkpoint(os.path.join(droot, "start"), {}, SLICE8_LAYERS)]
+    dcfg = cli.config_from_args(cli._parser().parse_args(argv))
+    splits = {"train": DISTILL_CODES[:8], "val": DISTILL_CODES[8:12],
+              "test": DISTILL_CODES[12:]}
+    for split, codes in splits.items():
+        write_cache(os.path.join(dcfg.cache_path(), f"{split}.npz"), codes,
+                    split_chain_samples(codes, dcfg.graph))
+    run = run_cli(argv, os.path.join(root, "runs", "distill"))
+    line = next(ln for ln in run["log"].splitlines() if ln.startswith("distill: "))
+    require(line.startswith(f"distill: blended teacher poses into {len(train_codes)}/"
+                            f"{len(train_codes)}"), f"distillation log: {line}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        blended = DockingDataset.from_cache(dcfg, "train")
+    plain = DockingDataset.from_cache(dataclasses.replace(
+        dcfg, data=dataclasses.replace(dcfg.data, distill_dir="")), "train")
+    err = 0.0
+    for code, b, p in zip(blended.codes, blended.samples, plain.samples):
+        t = read_pdb(os.path.join(teacher, f"{code}_l_b_EQUIDOCK_TPU.pdb"))
+        ca = t.coords[t.atom_name == "CA"].astype(np.float32)
+        err = max(err, float(np.abs(b.gt_lig - ((0.5 * p.gt_lig + 0.5 * ca)
+                                                .astype(np.float32))).max()))
+    require(err == 0.0, f"blended targets {err:.3g} from (1 - a) gt + a teacher")
+    steps = run["records"][0]["train"]["num_batches"]
+    from equidock_public_tpu_torch.config import ModelConfig
+
+    want, inverse = path_launches(ModelConfig(iegmn_n_lays=SLICE8_LAYERS, shared_layers=True,
+                                              num_att_heads=50), SLICE8_LAYERS, steps,
+                                  eval_forwards(dcfg, False))
+    expect_launches("distilled epoch", run["launches"], want, inverse)
+    return dict(log=line, teacher_launches=teacher_launches, steps=steps,
+                launches=run["launches"], blended_max_abs_vs_host=err,
+                cli_seconds=run["seconds"])
+
+
+def run_slice8(dev, root, db5_root) -> dict:
+    """The slice-8 phases, each with its seconds."""
+    os.makedirs(root, exist_ok=True)
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    write_small_split(root)
+    seconds["small_split"] = time.perf_counter() - t0
+    for name, run in (("trained_serving", lambda: run_trained_serving(dev, root)),
+                      ("bf16_serving", lambda: run_bf16_serving(dev, root)),
+                      ("auto_buckets", lambda: run_auto_epoch(dev, root, db5_root)),
+                      ("distill", lambda: run_distill(dev, root)),
+                      ("a5", lambda: run_a5(root))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        emit(f"slice8_{name}", seconds=seconds[name], **out[name])
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3067,7 +3837,6 @@ def main() -> int:
              if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
     emit("build", seconds=round(res.seconds, 2), library=os.path.relpath(res.path, REPO),
          ptxas=ptxas)
-
     # -- native: the host graph builder (slice 5) ---------------------------
     emit("native", **run_native())
 
@@ -3253,6 +4022,9 @@ def main() -> int:
         # -- options: the main paths of slice 7 --------------------------------
         options = run_options(dev, os.path.join(root, "db5_sized"), train_golden)
         emit("options", card=smi, **options)
+
+        # -- slice8: the main paths of slice 8 ---------------------------------
+        slice8 = run_slice8(dev, os.path.join(root, "slice8"), os.path.join(root, "db5_sized"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3486,7 +4258,15 @@ def main() -> int:
                    "options_remat": options["remat"]["launches"]["remat"][name],
                    "options_exact_ot": options["exact_ot"]["launches"][name],
                    **{p: directories[p]["launches"][name]
-                      for p in ("inference_dir", "batch_inference", "ensemble")}}
+                      for p in ("inference_dir", "batch_inference", "ensemble")},
+                   **{f"slice8_{t}_train": slice8["trained_serving"][t]["train_launches"][name]
+                      for t in ("bn", "bf16")},
+                   **{f"slice8_{t}_serve": slice8["trained_serving"][t]["serve_launches"][name]
+                      for t in ("bn", "bf16")},
+                   "slice8_bf16_paper_serve": slice8["bf16_serving"]["launches"][name],
+                   "slice8_auto_epoch": slice8["auto_buckets"]["launches"][name],
+                   "slice8_distill_epoch": slice8["distill"]["launches"][name],
+                   **{f"slice8_{n}": r["launches"][name] for n, r in slice8["a5"].items()}}
         table.append(dict(name=name, route="cuda",
                           source=f"equidock_public_tpu_torch/{source}",
                           replaces=f"equidock_public_tpu/{replaces}",

@@ -14,7 +14,6 @@ from ..config import Config, DataConfig, GraphConfig, ModelConfig, TrainConfig
 REFUSED = {
     "dp": "mesh training and dp-resident epochs",
     "gp": "mesh training", "pallas_ring_halo": "mesh training",
-    "distill_dir": "pose distillation", "distill_alpha": "pose distillation",
     "pad_cache_gb": "the JAX collate cache", "compile_cache": "the XLA compile cache",
     "n_jobs": "building caches from PDB files", "raw_data_path": "building caches",
     "split_files_path": "building caches", "debug": "the JAX debug mode",
@@ -73,8 +72,11 @@ def add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-data_fraction", type=float, default=1.0)
     p.add_argument("-split", type=int, default=0)
     p.add_argument("-cache_dir", default="./cache")
-    p.add_argument("-node_buckets", default="", help="comma-separated node buckets")
-    p.add_argument("-pocket_buckets", default="", help="comma-separated pocket buckets")
+    p.add_argument("-node_buckets", default="",
+                   help="comma-separated node buckets, or auto[:G] (a ladder of at most G "
+                        "steps, default 12, from the splits' sizes)")
+    p.add_argument("-pocket_buckets", default="",
+                   help="comma-separated pocket buckets, or auto[:G] (default 8)")
     p.add_argument("-checkpoint_dir", default="./checkpts")
     p.add_argument("-device_resident", action="store_true",
                    help="hold the padded splits on the device, draw the augmentation there")
@@ -87,6 +89,10 @@ def add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-pack", action="store_true",
                    help="training: bin-pack several small complexes into one padded slot")
     p.add_argument("-pack_max_per_slot", type=int, default=DataConfig().pack_max_per_slot)
+    p.add_argument("-distill_dir", default="",
+                   help="pose distillation: blend each train target with the teacher pose "
+                        "<code>_l_b_*.pdb of this directory")
+    p.add_argument("-distill_alpha", type=float, default=DataConfig().distill_alpha)
     for flag in REFUSED:
         p.add_argument("-" + flag, nargs="?", const=True, default=None,
                        help=f"not ported ({REFUSED[flag]})")
@@ -105,12 +111,15 @@ def refuse_unported(a: argparse.Namespace, training: bool = True) -> None:
             f"{f} ({REFUSED[f[1:]]})" for f in given))
 
 
-def _buckets(flag: str, value: str, default):
+def _buckets(value: str, key: str, auto_key: str, auto_groups: int) -> dict:
+    """The DataConfig fields of a bucket flag, as the JAX package parses it:
+    none when empty, `{auto_key: G}` for auto[:G] (G defaults to
+    `auto_groups`), else `{key: the comma-separated sizes}`."""
     if not value:
-        return default
+        return {}
     if value.startswith("auto"):
-        raise NotImplementedError(f"-{flag} {value}: auto buckets are not ported")
-    return tuple(int(x) for x in value.split(","))
+        return {auto_key: int(value.split(":")[1]) if ":" in value else auto_groups}
+    return {key: tuple(int(x) for x in value.split(","))}
 
 
 def config_from_args(a: argparse.Namespace) -> Config:
@@ -141,15 +150,14 @@ def config_from_args(a: argparse.Namespace) -> Config:
         ot_solver=a.ot_solver, select_metric=a.select_metric,
         trim_remainder=a.trim_remainder,
         freeze_original=bool(getattr(a, "freeze_original", False)))
-    d = DataConfig()
     data = DataConfig(data=a.data, data_fraction=a.data_fraction, split=a.split,
                       cache_dir=a.cache_dir,
-                      node_buckets=_buckets("node_buckets", a.node_buckets, d.node_buckets),
-                      pocket_buckets=_buckets("pocket_buckets", a.pocket_buckets,
-                                              d.pocket_buckets),
+                      **_buckets(a.node_buckets, "node_buckets", "auto_buckets_max", 12),
+                      **_buckets(a.pocket_buckets, "pocket_buckets", "auto_pocket_max", 8),
                       device_resident=a.device_resident, stream_dips=a.stream_dips,
                       stream_window=a.stream_window, pack=a.pack,
-                      pack_max_per_slot=a.pack_max_per_slot)
+                      pack_max_per_slot=a.pack_max_per_slot, distill_dir=a.distill_dir,
+                      distill_alpha=a.distill_alpha)
     graph = GraphConfig(graph_cutoff=a.graph_cutoff, graph_max_neighbor=a.graph_max_neighbor,
                         pocket_cutoff=a.pocket_cutoff,
                         translation_interval=a.translation_interval)

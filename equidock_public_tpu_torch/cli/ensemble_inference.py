@@ -5,6 +5,7 @@
         -checkpoints A.pt.xz,B.pt.xz -input_dir IN -ground_truth_dir GT \
         -output_dir OUT [-weights 0.5,0.5] [-device cuda|cpu]
 
+A member is a port weight file or a port training checkpoint.
 Averages the members' predicted rigid motions (`eval/ensemble.py`); score
 the output directory with `cli.eval_outputs`.
 """
@@ -24,7 +25,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                             "(PyTorch/CUDA port)")
     add_config_args(p)
     p.add_argument("-checkpoints", required=True,
-                   help="comma-separated port weight files (.pt.xz with sidecars)")
+                   help="comma-separated port weight files (.pt.xz with sidecars) or "
+                        "training checkpoints")
     p.add_argument("-input_dir", required=True)
     p.add_argument("-ground_truth_dir", required=True)
     p.add_argument("-output_dir", required=True)

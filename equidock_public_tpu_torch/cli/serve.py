@@ -10,20 +10,23 @@ or {"ok": false, "error": "..."}; the server keeps serving after an error.
 
     python -m equidock_public_tpu_torch.cli.serve [-checkpoint W.pt.xz] \
         [-warmup_buckets 512,1024] [-max_batch 4 -batch_window_ms 5] \
-        [-device cuda|cpu]
+        [-dtype bfloat16] [-device cuda|cpu]
 
 The port of `equidock_public_tpu/cli/serve.py`. With `-max_batch` above 1,
 requests that arrive within the window of the first one share padded
 forwards: they are grouped by (ligand, receptor) bucket pair, each group is
 collated at `max_batch` slots, and the responses keep arrival order and add
 `batch_seconds` (the wall time of the whole co-arrival) and `batched` (its
-requests); `seconds` is then the share of one request. The model's config
-is the weight file's sidecar.
+requests); `seconds` is then the share of one request. `-checkpoint` is a
+port weight file or a port training checkpoint (`params.load_model`); the
+model's config is its sidecar, and a 'BN' model is served with the
+checkpoint's running statistics.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import queue
@@ -41,7 +44,7 @@ from ..data.synth import synth_graph
 from ..device import resolve_device
 from ..eval import inference
 from ..graph import collate
-from ..params import default_checkpoint, load_checkpoint
+from ..params import default_checkpoint, load_model
 
 
 def warmup_batch(cfg: Config, n_lig: int, n_rec: int, device, batch_size: int = 1):
@@ -98,19 +101,26 @@ def arrivals(stream: TextIO, max_batch: int, window_ms: float) -> Iterator[List[
 
 
 class DockingServer:
-    """A loaded model on one device, answering JSON-lines docking requests."""
+    """A loaded model on one device, answering JSON-lines docking requests;
+    `bn_state`: the running statistics of a model with a 'BN' option."""
 
-    def __init__(self, params, cfg: Config, device):
+    def __init__(self, params, cfg: Config, device, bn_state: Optional[dict] = None):
         self.params = params
         self.cfg = cfg
         self.device = device
-        self.forward = inference.make_forward(params, cfg)
+        self.bn_state = bn_state
+        self.forward = inference.make_forward(params, cfg, bn_state)
 
     @classmethod
-    def from_checkpoint(cls, path: str, device=None) -> "DockingServer":
+    def from_checkpoint(cls, path: str, device=None,
+                        dtype: Optional[str] = None) -> "DockingServer":
+        """The server of a port weight file or training checkpoint; `dtype`
+        replaces the model's compute dtype (`ModelConfig.dtype`)."""
         dev = resolve_device(device)
-        params, cfg = load_checkpoint(path, dev)
-        return cls(params, cfg, dev)
+        params, cfg, bn_state = load_model(path, dev)
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
+        return cls(params, cfg, dev, bn_state)
 
     def warmup(self, sizes: Sequence[int], batch_size: int = 1) -> Tuple[int, float]:
         """Run one forward per (ligand, receptor) bucket pair at `batch_size`
@@ -246,8 +256,9 @@ class DockingServer:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(description="EquiDock docking server (PyTorch/CUDA)")
     p.add_argument("-checkpoint", default=default_checkpoint(),
-                   help="port weight file (.pt.xz with a .config.json sidecar); "
-                        "default: the DB5 paper model shipped with the package")
+                   help="port weight file (.pt.xz with a .config.json sidecar) or port "
+                        "training checkpoint; default: the DB5 paper model shipped with "
+                        "the package")
     p.add_argument("-warmup_buckets", default="",
                    help="comma-separated node bucket sizes to run once at "
                         "startup (all ligand x receptor pairs)")
@@ -255,11 +266,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                    help=">1: requests that arrive together share padded forwards")
     p.add_argument("-batch_window_ms", type=float, default=5.0,
                    help="how long to wait for co-arrivals after the first request")
+    p.add_argument("-dtype", default=None, choices=["float32", "bfloat16"],
+                   help="compute dtype of the linears (default: the checkpoint's)")
     p.add_argument("-device", default=None, help="cuda (default) or cpu")
     a = p.parse_args(argv)
     if a.max_batch < 1:
         raise ValueError(f"-max_batch {a.max_batch} < 1")
-    server = DockingServer.from_checkpoint(a.checkpoint, a.device)
+    server = DockingServer.from_checkpoint(a.checkpoint, a.device, a.dtype)
     if a.warmup_buckets:
         n, secs = server.warmup([int(x) for x in a.warmup_buckets.split(",")],
                                 batch_size=a.max_batch)

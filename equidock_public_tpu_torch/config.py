@@ -1,10 +1,9 @@
 """Typed configuration: the port's own copy of the model, graph, training
 and data settings of `equidock_public_tpu/config.py`, plus the
-`*.config.json` sidecar loader. Field names and defaults are the JAX
-package's, so a sidecar written by either package loads here unchanged.
-Settings of paths the port does not take (distillation, auto buckets) are
-kept so that a config that sets them is refused by name instead of
-trained without them.
+`*.config.json` sidecar loader, and `auto_node_buckets` (the ladders of
+`-node_buckets auto:G` / `-pocket_buckets auto:G`). Field names and
+defaults are the JAX package's, so a sidecar written by either package
+loads here unchanged.
 """
 
 from __future__ import annotations
@@ -13,6 +12,8 @@ import dataclasses
 import hashlib
 import json
 from typing import Tuple
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,8 +120,12 @@ class DataConfig:
     cache_dir: str = "./cache"
     node_buckets: Tuple[int, ...] = (64, 128, 192, 256, 384, 512, 768, 1024, 1536)
     pocket_buckets: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
-    auto_buckets_max: int = 0        # not ported
-    auto_pocket_max: int = 0         # not ported
+    # `-node_buckets auto[:G]`: a ladder of at most G steps resolved from
+    # the splits' sizes before training (`auto_node_buckets`); 0 = off.
+    auto_buckets_max: int = 0
+    # `-pocket_buckets auto[:G]`: the same for pocket sizes (align 32,
+    # quad_at 256: the Sinkhorn cost matrix is K x K).
+    auto_pocket_max: int = 0
     swap_train: bool = True          # 50% ligand/receptor swap of training samples
     # Complex packing: up to pack_max_per_slot complexes share one padded
     # slot (block-diagonal neighbour tables, segment tags in the attention,
@@ -135,7 +140,11 @@ class DataConfig:
     # The padded split held on the device, the augmentation drawn there
     # (`train/resident.py`).
     device_resident: bool = False
-    distill_dir: str = ""            # pose distillation (not ported)
+    # Pose distillation: each train target becomes (1 - a) gt + a teacher
+    # pose, the teacher's `<code>_l_b_*.pdb` in distill_dir
+    # (`data/dataset.py::blend_teacher_poses`).
+    distill_dir: str = ""
+    distill_alpha: float = 0.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +184,41 @@ class Config:
         return (f"{self.data.cache_dir}/{self.data.data}_{g.graph_nodes}"
                 f"_maxneighbor_{g.graph_max_neighbor}_cutoff_{g.graph_cutoff}"
                 f"_pocketCut_{g.pocket_cutoff}/cv_{self.data.split}")
+
+
+def auto_node_buckets(sizes, max_groups: int = 12, align: int = 64,
+                      quad_at: int = 640) -> Tuple[int, ...]:
+    """The cost-optimal bucket ladder of at most `max_groups` steps for a
+    known size list, the JAX package's `auto_node_buckets`: it minimises
+    sum over sizes of c(B(s)), c(B) = B + B^2 / quad_at (the O(N) edge work
+    and the O(N^2) attention, equal near N = 640 at D 64, K 10), by an exact
+    dynamic programme over the `align`-rounded sizes."""
+    arr = np.sort(np.asarray([int(s) for s in sizes]))
+    if arr.size == 0:
+        raise ValueError("auto_node_buckets: empty size list")
+    cand = sorted({-(-int(s) // align) * align for s in arr.tolist()})
+    prefix = np.searchsorted(arr, cand, side="right")       # sizes <= cand[j]
+    n = len(cand)
+    cost_b = [b + b * b / float(quad_at) for b in cand]
+    G = max(1, min(max_groups, n))
+    INF = float("inf")
+    best = [[INF] * (G + 1) for _ in range(n)]
+    back = [[-1] * (G + 1) for _ in range(n)]
+    for j in range(n):
+        best[j][1] = float(prefix[j]) * cost_b[j]
+    for k in range(2, G + 1):
+        for j in range(k - 1, n):
+            for i in range(k - 2, j):
+                c = best[i][k - 1] + float(prefix[j] - prefix[i]) * cost_b[j]
+                if c < best[j][k]:
+                    best[j][k] = c
+                    back[j][k] = i
+    k_star = min(range(1, G + 1), key=lambda k: best[n - 1][k])
+    out, j, k = [], n - 1, k_star
+    while j >= 0 and k >= 1:
+        out.append(cand[j])
+        j, k = back[j][k], k - 1
+    return tuple(sorted(out))
 
 
 def bucket_for(n: int, buckets: Tuple[int, ...]) -> int:

@@ -16,11 +16,14 @@ nbr, nbr_mask, edge_feat), `c{i}/gt_lig`, `c{i}/gt_rec`, `c{i}/pocket`, and
 `codes`. Either package reads what the other writes. A DIPS split is the
 same layout cut into shards (`data/dips.py`); with `stream_dips` only a
 window of shards is held at a time (`DockingDataset._stream_batches`).
+With `distill_dir`, the train split's targets are blended with teacher
+poses as it is read (`blend_teacher_poses`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 from typing import Iterator, List, Optional, Sequence, Union
 
@@ -32,7 +35,7 @@ from ..device import resolve_device
 from ..graph import PairBatch, collate, collate_packed
 from .featurize import (ProteinGraph, alpha_carbon_array, build_protein_graph,
                         extract_pocket, uniform_rotation_translation)
-from .pdb import GroupedResidue
+from .pdb import GroupedResidue, ca_coords, read_pdb
 
 
 @dataclasses.dataclass
@@ -109,6 +112,30 @@ def read_cache(path: str):
     return codes, samples
 
 
+def blend_teacher_poses(samples: Sequence[ComplexSample], codes: Sequence[str],
+                        teacher_dir: str, alpha: float, log=print) -> List[ComplexSample]:
+    """Pose distillation, the JAX package's `_blend_teacher_poses`: each
+    complex whose code has a teacher file `<code>_l_b_*.pdb` in
+    `teacher_dir` (the first match) with as many CA atoms as its target
+    gets the bound-ligand target (1 - alpha) gt + alpha teacher, in f32;
+    the others keep theirs. The MSE to the blended target has the gradient
+    of the blend of the two MSEs, so the loss needs no change. Returns new
+    samples and prints how many were blended."""
+    out, n_blend = [], 0
+    for s, code in zip(samples, codes):
+        hits = glob.glob(os.path.join(teacher_dir, f"{str(code)}_l_b_*.pdb"))
+        t = ca_coords(read_pdb(hits[0])) if hits else None
+        if t is None or t.shape != s.gt_lig.shape:
+            out.append(s)
+            continue
+        out.append(dataclasses.replace(
+            s, gt_lig=((1.0 - alpha) * s.gt_lig + alpha * t).astype(np.float32)))
+        n_blend += 1
+    log(f"distill: blended teacher poses into {n_blend}/{len(codes)} train targets "
+        f"(alpha={alpha})")
+    return out
+
+
 class DockingDataset:
     """Complexes of one split that yield augmented, padded PairBatches. A
     sample swaps sides when `swap` is on: by default on the train split as
@@ -140,10 +167,13 @@ class DockingDataset:
         without `cache_path`, the split's shards, streamed through a shard
         LRU of `stream_window` shards with `stream_dips`, else loaded whole
         (a split without shards raises: the port does not build them). The
-        train split keeps its leading `data_fraction`."""
+        train split keeps its leading `data_fraction`, its targets blended
+        with the teacher poses of `distill_dir` when one is set (a streamed
+        split raises: it holds no samples to blend)."""
         dc = cfg.data
-        if split == "train" and dc.distill_dir:
-            raise NotImplementedError("distill_dir: pose distillation is not ported")
+        distill = split == "train" and bool(dc.distill_dir)
+        if distill and dc.data == "dips" and dc.stream_dips and cache_path is None:
+            raise ValueError("distill_dir requires a materialized dataset (not stream_dips)")
         index = lru = samples = None
         if dc.data == "dips" and cache_path is None:
             from .dips import DipsShardIndex, ShardLRU, load_dips_shards, shard_files
@@ -166,6 +196,8 @@ class DockingDataset:
             n = max(1, int(dc.data_fraction * len(codes)))
             codes = codes[:n]
             samples = samples[:n] if samples is not None else None
+        if distill:
+            samples = blend_teacher_poses(samples, codes, dc.distill_dir, dc.distill_alpha)
         return cls(cfg, samples, codes, split, swap, index=index, lru=lru)
 
     def __len__(self) -> int:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,7 +24,8 @@ from .inference import collate_pairs, complex_stems, featurize_pair, make_forwar
 
 def run_batched_inference(params, cfg: Config, input_dir: str, ground_truth_dir: str,
                           output_dir: str, method_name: str = "equidock_tpu",
-                          batch_size: int = 5, log=print, device=None) -> float:
+                          batch_size: int = 5, log=print, device=None,
+                          bn_state: Optional[dict] = None) -> float:
     """Dock every `X_l_b.pdb` of `input_dir` against
     `ground_truth_dir/X_r_b_COMPLEX.pdb` in padded batches of `batch_size`.
     Returns the model's wall time in seconds (the forwards, synchronised),
@@ -34,7 +36,7 @@ def run_batched_inference(params, cfg: Config, input_dir: str, ground_truth_dir:
                                      os.path.join(ground_truth_dir, f"{stem}_r_b_COMPLEX.pdb")))
                for stem in complex_stems(input_dir)]
     entries.sort(key=lambda e: max(e[1].lig.num_nodes, e[1].rec.num_nodes))
-    forward = make_forward(params, cfg)
+    forward = make_forward(params, cfg, bn_state)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     model_time = 0.0

@@ -7,7 +7,7 @@ ligand, so the members of an ensemble are averaged in pose space:
   * translation: the ligand's CA centroid c goes to the weighted mean of
     the members' placements, t* = sum_i w_i (R_i c + t_i) - R* c.
 Members are the port's weight files (`<stem>.pt.xz` with its
-`<stem>.config.json`).
+`<stem>.config.json`) or training checkpoints (`params.load_model`).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import numpy as np
 from ..config import Config
 from ..data.pdb import write_pdb
 from ..device import resolve_device
-from ..params import load_checkpoint
+from ..params import load_model
 from .inference import (Featurized, collate_pairs, complex_stems, featurize_pair,
                         make_forward, output_name)
 
@@ -53,12 +53,13 @@ GRAPH_FIELDS = ("graph_cutoff", "graph_max_neighbor", "pocket_cutoff")
 
 
 class Member:
-    """One member: a port weight file's params on `device`, the ensemble's
-    config with the member's model, and its forward."""
+    """One member: the params (and BatchNorm statistics) of a port weight
+    file or training checkpoint on `device`, the ensemble's config with the
+    member's model, and its forward."""
 
     def __init__(self, path: str, base_cfg: Config, device=None):
         self.device = resolve_device(device)
-        self.params, cfg_ckpt = load_checkpoint(path, self.device)
+        self.params, cfg_ckpt, self.bn_state = load_model(path, self.device)
         # The inputs are featurized once with the ensemble's graph settings;
         # a member trained on other settings would read mismatched features.
         for f in GRAPH_FIELDS:
@@ -69,7 +70,7 @@ class Member:
                                  "with the member's settings")
         self.cfg = dataclasses.replace(base_cfg, model=cfg_ckpt.model)
         self.name = path
-        self.forward = make_forward(self.params, self.cfg)
+        self.forward = make_forward(self.params, self.cfg, self.bn_state)
 
     def predict_rigid(self, pair: Featurized) -> Tuple[np.ndarray, np.ndarray]:
         """(R (3, 3), t (1, 3)) of one featurized complex, float32."""

@@ -39,11 +39,14 @@ class InferenceResult:
     num_rec_res: int
 
 
-def make_forward(params, cfg: Config) -> Callable[[PairBatch], dict]:
-    """The model forward for a batch, under inference mode."""
+def make_forward(params, cfg: Config, bn_state: Optional[dict] = None
+                 ) -> Callable[[PairBatch], dict]:
+    """The model forward for a batch, under inference mode; `bn_state`: the
+    BatchNorm running statistics of a model with a 'BN' option
+    (`params.load_model`)."""
     def forward(batch: PairBatch) -> dict:
         with torch.inference_mode():
-            return docking_forward(params, cfg.model, batch)
+            return docking_forward(params, cfg.model, batch, bn_state=bn_state)
     return forward
 
 
@@ -175,15 +178,16 @@ def featurize_request(cfg: Config, ligand_pdb: str, receptor_pdb: str, device) -
 def dock_one(params, cfg: Config, ligand_pdb: str, receptor_pdb: str,
              out_path: str, remove_clashes: bool = False,
              forward_fn: Optional[Callable[[PairBatch], dict]] = None,
-             device=None) -> InferenceResult:
+             device=None, bn_state: Optional[dict] = None) -> InferenceResult:
     """Dock one ligand onto one receptor and write the moved ligand PDB;
     with `remove_clashes`, the clash-removal descent against every receptor
     atom moves it first. Runs on the card unless `device` says otherwise
-    (see `resolve_device`); `params` must already lie on that device."""
+    (see `resolve_device`); `params` (and `bn_state`, for `make_forward`
+    when no `forward_fn` is given) must already lie on that device."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     req = featurize_request(cfg, ligand_pdb, receptor_pdb, dev)
-    forward_fn = forward_fn or make_forward(params, cfg)
+    forward_fn = forward_fn or make_forward(params, cfg, bn_state)
     out = forward_fn(req.batch)
     R = out["R"][0].cpu().numpy().astype(np.float64)
     t = out["t"][0].cpu().numpy().astype(np.float64)
@@ -218,13 +222,13 @@ def output_name(stem: str, method_name: str) -> str:
 def run_inference_dir(params, cfg: Config, input_dir: str, ground_truth_dir: str,
                       output_dir: str, method_name: str = "equidock_tpu",
                       remove_clashes: bool = False, log=print,
-                      device=None) -> List[InferenceResult]:
+                      device=None, bn_state: Optional[dict] = None) -> List[InferenceResult]:
     """Dock every `X_l_b.pdb` of `input_dir` against its receptor
     `ground_truth_dir/X_r_b_COMPLEX.pdb`, one forward each, into
     `output_dir/X_l_b_<METHOD_NAME>.pdb`."""
     dev = resolve_device(device)
     os.makedirs(output_dir, exist_ok=True)
-    forward_fn = make_forward(params, cfg)
+    forward_fn = make_forward(params, cfg, bn_state)
     results = []
     for stem in complex_stems(input_dir):
         r = dock_one(params, cfg, os.path.join(input_dir, f"{stem}_l_b.pdb"),

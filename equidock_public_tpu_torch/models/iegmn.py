@@ -23,6 +23,13 @@ recomputed in the backward (`torch.utils.checkpoint`); their dropout masks
 are kept from the first pass (`ReplayLayer`), since a checkpoint restores
 only the default generator's state.
 
+With `cfg.dtype='bfloat16'` the linears that the JAX package runs at that
+dtype round their operands to bf16 (`models/layers.py::linear`): both of
+each MLP (node, and in the plain body edge and coordinate), q, k and v,
+and the keypoint head's; the edge kernel's inputs, the fine-tune stage's
+own linears and every kernel stay f32, as JAX's fused edge path and its
+Pallas kernels do.
+
 Parameters are nested dicts with the JAX package's keys (see `params.py`).
 """
 
@@ -41,8 +48,8 @@ from ..ops.cuda.cross_attention import cross_attention_fused
 from ..ops.cuda.edge_message import edge_message_aggregate, inverse_neighbors
 from ..ops.kabsch import apply_rigid, apply_rigid_packed, rigid_fit
 from ..ops.segment import gather_neighbors, masked_mean_over_k, masked_mean_over_nodes
-from .layers import (BNContext, Params, ReplayLayer, dropout, embedding, graph_norm,
-                     init_bn_state as _init_bn_site, layer_norm, linear, nonlin)
+from .layers import (COMPUTE_DTYPES, BNContext, Params, ReplayLayer, dropout, embedding,
+                     graph_norm, init_bn_state as _init_bn_site, layer_norm, linear, nonlin)
 
 RBF_SIGMAS = tuple(1.5 ** x for x in range(15))
 # Sides run through the plain layer body (`_edge_messages`), counted so that
@@ -51,10 +58,11 @@ plain_body_calls = 0
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config outside what the port computes: bf16 operands
-    (`dtype='bfloat16'`)."""
+    """Raise for a config outside what the port computes: a compute dtype
+    other than float32 or bfloat16 (`models/layers.py::COMPUTE_DTYPES`), or
+    parameters other than f32."""
     problems = []
-    if cfg.dtype != "float32" or cfg.param_dtype != "float32":
+    if cfg.dtype not in COMPUTE_DTYPES or cfg.param_dtype != "float32":
         problems.append(f"dtype={cfg.dtype!r}/{cfg.param_dtype!r}")
     if problems:
         raise NotImplementedError("config not covered by the port: " + ", ".join(problems))
@@ -141,13 +149,15 @@ def _mlp2_tail(p: Params, pre: torch.Tensor, cfg: ModelConfig, ln_kind: str, dro
             raise ValueError("a 'BN' norm option needs running statistics: pass bn_state "
                              "(models.iegmn.init_bn_state) into docking_forward")
         h = bn(bn_name, p["ln"], h, bn_mask)
-    return linear(p["lin2"], h)
+    return linear(p["lin2"], h, cfg.dtype)
 
 
 def _mlp2(p: Params, x: torch.Tensor, cfg: ModelConfig, ln_kind: str, drop=None, bn=None,
           bn_name: str = "", bn_mask=None) -> torch.Tensor:
-    """Linear -> dropout -> nonlin -> (LN | BN) -> Linear."""
-    return _mlp2_tail(p, linear(p["lin1"], x), cfg, ln_kind, drop, bn, bn_name, bn_mask)
+    """Linear -> dropout -> nonlin -> (LN | BN) -> Linear, both linears at
+    `cfg.dtype`."""
+    return _mlp2_tail(p, linear(p["lin1"], x, cfg.dtype), cfg, ln_kind, drop, bn, bn_name,
+                      bn_mask)
 
 
 def edge_kernel_inputs(p: Params, x: torch.Tensor, h: torch.Tensor, he: torch.Tensor,
@@ -258,22 +268,26 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
         xupd_l = _coord_update(p, cfg, lig, x_rel_l, msg_l, drop, bn, bn_scope)
         xupd_r = _coord_update(p, cfg, rec, x_rel_r, msg_r, drop, bn, bn_scope)
 
-    def qk(h, which):
-        return nonlin(linear(p[which], h), cfg.nonlin, cfg.leakyrelu_neg_slope)
+    def qk(h, which, dtype=cfg.dtype):
+        return nonlin(linear(p[which], h, dtype), cfg.nonlin, cfg.leakyrelu_neg_slope)
 
+    def v(h):
+        return linear(p["att_v"], h, cfg.dtype)
+
+    # q, k and v at cfg.dtype; the attention kernels take their f32 outputs
     if attend is not None:
         if lig.seg_id is not None:
             raise ValueError("the halo path does not take packed slots")
-        cross_l = attend(qk(h_l, "att_q"), qk(h_r, "att_k"), linear(p["att_v"], h_r),
+        cross_l = attend(qk(h_l, "att_q"), qk(h_r, "att_k"), v(h_r),
                          lig.node_mask, rec.node_mask, cfg.cross_msgs)
-        cross_r = attend(qk(h_r, "att_q"), qk(h_l, "att_k"), linear(p["att_v"], h_l),
+        cross_r = attend(qk(h_r, "att_q"), qk(h_l, "att_k"), v(h_l),
                          rec.node_mask, lig.node_mask, cfg.cross_msgs)
     elif cfg.cross_msgs:
-        cross_l = cross_attention_fused(qk(h_l, "att_q"), qk(h_r, "att_k"),
-                                        linear(p["att_v"], h_r), lig.node_mask, rec.node_mask,
+        cross_l = cross_attention_fused(qk(h_l, "att_q"), qk(h_r, "att_k"), v(h_r),
+                                        lig.node_mask, rec.node_mask,
                                         q_seg=lig.seg_id, k_seg=rec.seg_id)
-        cross_r = cross_attention_fused(qk(h_r, "att_q"), qk(h_l, "att_k"),
-                                        linear(p["att_v"], h_l), rec.node_mask, lig.node_mask,
+        cross_r = cross_attention_fused(qk(h_r, "att_q"), qk(h_l, "att_k"), v(h_l),
+                                        rec.node_mask, lig.node_mask,
                                         q_seg=rec.seg_id, k_seg=lig.seg_id)
     else:
         cross_l = torch.zeros_like(h_l)
@@ -296,9 +310,10 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
                 return attend(q, k, v, qm, km, cfg.cross_msgs)
             return cross_attention(q, k, v, qm, km, cfg.cross_msgs, q_seg=q_seg, k_seg=k_seg)
 
-        att_x_l = ft_attend(qk(h_l, "ft_att_q"), qk(h_r, "ft_att_k"), x_r,
+        # the fine-tune stage's own linears stay f32, as in the JAX package
+        att_x_l = ft_attend(qk(h_l, "ft_att_q", None), qk(h_r, "ft_att_k", None), x_r,
                             lig.node_mask, rec.node_mask, lig.seg_id, rec.seg_id)
-        att_x_r = ft_attend(qk(h_r, "ft_att_q"), qk(h_l, "ft_att_k"), x_l,
+        att_x_r = ft_attend(qk(h_r, "ft_att_q", None), qk(h_l, "ft_att_k", None), x_l,
                             rec.node_mask, lig.node_mask, rec.seg_id, lig.seg_id)
         x_final_l = x_final_l + ft_v(h_l) * (x_l - att_x_l)
         x_final_r = x_final_r + ft_v(h_r) * (x_r - att_x_r)
@@ -415,7 +430,7 @@ def keypoint_head(p: Params, cfg: ModelConfig, h_l, x_l, h_r, x_r,
     packed = lig_oh is not None
 
     def h_mean(h, mask, oh):
-        z = dropout(linear(p["mlp_h_mean_rot"], h), drop)
+        z = dropout(linear(p["mlp_h_mean_rot"], h, cfg.dtype), drop)
         z = nonlin(z, cfg.nonlin, cfg.leakyrelu_neg_slope)
         if not packed:
             return masked_mean_over_nodes(z, mask)                       # (B, d)
@@ -426,16 +441,16 @@ def keypoint_head(p: Params, cfg: ModelConfig, h_l, x_l, h_r, x_r,
     mean_r = h_mean(h_r, rec_mask, rec_oh)
 
     def keypoints(h_side, x_side, mask_side, oh_side, mean_other):
-        keys = linear(p["att_key_rot"], h_side).reshape(h_side.shape[0], -1, H, d)
+        keys = linear(p["att_key_rot"], h_side, cfg.dtype).reshape(h_side.shape[0], -1, H, d)
         if not packed:
-            query = linear(p["att_query_rot"], mean_other).reshape(-1, H, d)
+            query = linear(p["att_query_rot"], mean_other, cfg.dtype).reshape(-1, H, d)
             logits = torch.einsum("bnhd,bhd->bhn", keys, query) / math.sqrt(d)
             logits = torch.where(mask_side[:, None, :] > 0, logits,
                                  torch.full_like(logits, -1e9))
             att = torch.softmax(logits, dim=-1)                          # (B, H, N)
             return torch.einsum("bhn,bnc->bhc", att, x_side)             # (B, H, 3)
         B, C = mean_other.shape[:2]
-        query = linear(p["att_query_rot"], mean_other).reshape(B, C, H, d)
+        query = linear(p["att_query_rot"], mean_other, cfg.dtype).reshape(B, C, H, d)
         logits = torch.einsum("bnhd,bchd->bchn", keys, query) / math.sqrt(d)
         seg_ok = oh_side.permute(0, 2, 1)[:, :, None, :]                 # (B, C, 1, N)
         logits = torch.where(seg_ok > 0, logits, torch.full_like(logits, -1e9))

@@ -22,9 +22,26 @@ import torch.nn.functional as F
 Params = Dict[str, object]
 
 
-def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Affine map x @ w (+ b), in f32."""
-    y = torch.matmul(x, p["w"])
+# The compute dtypes a config may name (`ModelConfig.dtype`): the operands
+# of `linear` are rounded to the dtype, the product and its sum are f32.
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def linear(p: Params, x: torch.Tensor, compute_dtype: Optional[str] = None) -> torch.Tensor:
+    """Affine map x @ w (+ b), returned in f32. With compute_dtype
+    'bfloat16' both operands are rounded to bf16 and multiplied in f32, as
+    the JAX package's `linear` (bf16 operands, `preferred_element_type=f32`).
+    The operands go to bf16 and back rather than into a bf16 matmul, whose
+    output torch rounds to bf16 where JAX keeps f32; with TF32 off the
+    product of two bf16 values is exact in f32, so only the order of the
+    sum differs. Autograd rounds the operands' cotangents to bf16 on the way
+    back (the cast's backward), as JAX's transposed bf16 products do. The
+    parameters stay f32."""
+    w = p["w"]
+    low = COMPUTE_DTYPES[compute_dtype or "float32"]
+    if low is not None:
+        x, w = x.to(low).float(), w.to(low).float()
+    y = torch.matmul(x, w)
     if "b" in p:
         y = y + p["b"]
     return y

@@ -49,7 +49,7 @@ class ParallelMesh:
             if len(devs) > 1:
                 raise NotImplementedError(
                     f"shards on {len(devs)} devices ({sorted(map(str, devs))}): moving halo "
-                    "rows between cards is not ported (ROADMAP A10); give one device")
+                    "rows between cards is not ported (ROADMAP A9); give one device")
             device = next(iter(devs)) if devs else None
         self.dp, self.gp = dp, gp
         self.device = _resolve(device)

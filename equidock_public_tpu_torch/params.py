@@ -2,11 +2,12 @@
 package's key names (`original/layer0/edge_mlp/lin1/w`, ...).
 
 `params_from_numpy` takes the JAX params pytree as nested dicts of numpy
-arrays; `save_params` / `load_checkpoint` read and write the port's own
+arrays; `save_params` / `load_checkpoint` write and read the port's own
 weight file, an xz-compressed `torch.save` of the flat `{key: tensor}` dict
 (`<stem>.pt.xz`) with a `<stem>.config.json` sidecar beside it. Every route checks the keys and
 shapes against what the config implies: a missing, extra or misshapen
-parameter raises.
+parameter raises. `load_model` reads what the serving entry points take: a
+weight file or a training checkpoint of the port.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import io
 import lzma
 import math
 import os
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -168,6 +169,30 @@ def load_checkpoint(path: str, device="cpu") -> Tuple[Dict[str, object], Config]
     with lzma.open(path, "rb") as f:
         flat = torch.load(io.BytesIO(f.read()), map_location="cpu", weights_only=True)
     return params_from_flat(flat, cfg.model, device), cfg
+
+
+def load_model(path: str, device="cpu"
+               ) -> Tuple[Dict[str, object], Config, Optional[Dict[str, Dict[str, torch.Tensor]]]]:
+    """(params, config, bn_state) of a model to serve, from either kind of
+    file the port writes: a weight file (`<stem>.pt.xz` with its
+    `<stem>.config.json`, `load_checkpoint`) or a training checkpoint
+    (`train/checkpoint.py::save_checkpoint`, with `<path>.config.json`).
+    `bn_state` holds the BatchNorm running statistics of a model with a
+    'BN' option, and is None for the others. A weight file holds no running
+    statistics, so one of a 'BN' model raises: serve its training
+    checkpoint."""
+    from .models.iegmn import uses_batch_norm
+
+    if path.endswith(WEIGHTS_SUFFIX):
+        params, cfg = load_checkpoint(path, device)
+        if uses_batch_norm(cfg.model):
+            raise ValueError(f"{path}: a weight file of a 'BN' model holds no BatchNorm "
+                             "running statistics; serve the model's training checkpoint")
+        return params, cfg, None
+    from .train.checkpoint import load_checkpoint as load_train_state
+
+    state, cfg, _ = load_train_state(path, device)
+    return state.params, cfg, state.bn_state if uses_batch_norm(cfg.model) else None
 
 
 # The models shipped with the package, converted from the tracked JAX

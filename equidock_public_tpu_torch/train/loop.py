@@ -1,6 +1,7 @@
 """Epoch runner and early stopping: the port of `prefetch_to_device`,
 `run_train_epoch`, `run_eval_epoch`, `selection_value`, `fit` (with its
-device-resident branch, `train/resident.py`) and `curriculum` of
+device-resident branch, `train/resident.py`, and its resolution of auto
+buckets, `resolve_auto_buckets`) and `curriculum` of
 `equidock_public_tpu/train/loop.py`, single device.
 
 The random streams are the JAX package's: `fit` seeds one numpy generator
@@ -32,7 +33,7 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, auto_node_buckets
 from ..data.dataset import DockingDataset
 from ..device import resolve_device
 from ..graph import PairBatch, batch_to
@@ -208,13 +209,35 @@ def check_fit_supported(cfg: Config) -> None:
     if dc.pack and cfg.model.final_h_layer_norm == "GN":
         raise ValueError("-pack with final_h_layer_norm='GN': GraphNorm normalizes per graph "
                          "and is not segment-aware; train packed batches with 'LN'/'0'")
-    problems = [name for name, on in (
-        ("-pack with -device_resident (the resident store is unpacked)",
-         dc.pack and dc.device_resident),
-        ("auto_buckets_max (auto node buckets)", dc.auto_buckets_max),
-        ("auto_pocket_max (auto pocket buckets)", dc.auto_pocket_max)) if on]
-    if problems:
-        raise NotImplementedError("training option not ported: " + ", ".join(problems))
+    if dc.pack and dc.device_resident:
+        raise NotImplementedError("training option not ported: -pack with -device_resident "
+                                  "(the resident store is unpacked)")
+
+
+def resolve_auto_buckets(cfg: Config, datasets, log) -> Config:
+    """`cfg` with the ladders of `auto_buckets_max` / `auto_pocket_max`
+    resolved from every complex of `datasets`, as the JAX package's `fit`
+    does: node buckets from each pair's larger side (align 64), pocket
+    buckets from the pocket sizes (align 32, quad_at 256); the auto fields
+    set back to 0 and each dataset given the resolved config."""
+    dc = cfg.data
+    if not (dc.auto_buckets_max or dc.auto_pocket_max):
+        return cfg
+    repl = {"auto_buckets_max": 0, "auto_pocket_max": 0}
+    if dc.auto_buckets_max:
+        sizes = [ds.pair_max_nodes(i) for ds in datasets for i in range(len(ds.codes))]
+        repl["node_buckets"] = auto_node_buckets(sizes, dc.auto_buckets_max)
+        log(f"auto node buckets ({len(repl['node_buckets'])} steps): {repl['node_buckets']}")
+    if dc.auto_pocket_max:
+        psizes = [ds.pocket_size(i) for ds in datasets for i in range(len(ds.codes))]
+        repl["pocket_buckets"] = auto_node_buckets(psizes, dc.auto_pocket_max, align=32,
+                                                   quad_at=256)
+        log(f"auto pocket buckets ({len(repl['pocket_buckets'])} steps): "
+            f"{repl['pocket_buckets']}")
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(dc, **repl))
+    for ds in datasets:
+        ds.cfg = cfg
+    return cfg
 
 
 def _json_scalars(d: dict) -> dict:
@@ -249,6 +272,7 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
     val_ds = DockingDataset.from_cache(cfg, "val", swap=False)
     test_ds = DockingDataset.from_cache(cfg, "test", swap=False)
     log(f"Train:{len(train_ds)} Valid:{len(val_ds)} Test:{len(test_ds)}")
+    cfg = resolve_auto_buckets(cfg, (train_ds, val_ds, test_ds), log)
     if state is None:
         state = create_train_state(init_params(cfg.model, tc.random_seed, dev), cfg, dev)
         log(f"Number of parameters = {sum(v.numel() for v in state.mu.values()):,}")

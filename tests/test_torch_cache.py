@@ -100,11 +100,32 @@ def test_a_cache_the_port_writes_reads_in_the_jax_package(tmp_path):
 @pytest.mark.parametrize("data,field,value", [
     ("dips", "data", "dips"), ("db5", "distill_dir", "teacher"), ("db5", "pack", True)])
 def test_unported_data_options_raise(tmp_path, data, field, value):
-    """DIPS without shards and pose distillation raise; packing is ported
-    (`tests/test_torch_packing.py`): the split's batches come packed."""
+    """DIPS without shards raises. Packing is ported
+    (`tests/test_torch_packing.py`): the split's batches come packed. So is
+    pose distillation (`tests/test_torch_distill.py`): a teacher file for
+    one code of the cache blends that complex's target exactly as the JAX
+    dataset does, and leaves the others."""
     pcfg = port_config(_jcfg(tmp_path))
     pcfg = dataclasses.replace(pcfg, data=dataclasses.replace(pcfg.data, **{field: value}))
     tsynth.write_synth_split(os.path.join(pcfg.cache_path(), "train.npz"), SIZES, k=4)
+    if field == "distill_dir":
+        teacher = tmp_path / value
+        teacher.mkdir()
+        plain = tds.DockingDataset.from_cache(dataclasses.replace(pcfg, data=dataclasses.replace(
+            pcfg.data, distill_dir="")), "train")
+        code, gt = plain.codes[1], plain.samples[1].gt_lig
+        with open(teacher / f"{code}_l_b_TEACHER.pdb", "w") as f:
+            for i, xyz in enumerate(gt + 1.5):
+                f.write(f"ATOM  {i + 1:5d}  CA  ALA A{i + 1:4d}    "
+                        f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}  1.00  0.00           C\n")
+        pcfg = dataclasses.replace(pcfg, data=dataclasses.replace(pcfg.data,
+                                                                  distill_dir=str(teacher)))
+        ds = tds.DockingDataset.from_cache(pcfg, "train")
+        jds_ = jds.DockingDataset(_jcfg(tmp_path, distill_dir=str(teacher)), "train")
+        for i, (g, p) in enumerate(zip(ds.samples, plain.samples)):
+            np.testing.assert_array_equal(g.gt_lig, jds_.samples[i].gt_lig)
+            assert np.array_equal(g.gt_lig, p.gt_lig) == (i != 1)
+        return
     if field == "pack":
         ds = tds.DockingDataset.from_cache(pcfg, "train")
         batches = list(ds.batches(np.random.default_rng(0), device="cpu"))

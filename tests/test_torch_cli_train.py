@@ -61,7 +61,10 @@ PORTED = {"pack": ([], lambda a, c: c.data.pack),
           "pack_max_per_slot": (["3"], lambda a, c: c.data.pack_max_per_slot == 3),
           "freeze_original": ([], lambda a, c: c.train.freeze_original),
           "fine_tune_from": (["stage1"], lambda a, c: a.fine_tune_from == "stage1"),
-          "fine_tune_init": (["copy"], lambda a, c: a.fine_tune_init == "copy")}
+          "fine_tune_init": (["copy"], lambda a, c: a.fine_tune_init == "copy"),
+          # pose distillation (its targets: tests/test_torch_distill.py)
+          "distill_dir": (["teacher"], lambda a, c: c.data.distill_dir == "teacher"),
+          "distill_alpha": (["0.25"], lambda a, c: c.data.distill_alpha == 0.25)}
 
 
 @pytest.mark.parametrize("flag", sorted(cli.REFUSED) + sorted(PORTED))
@@ -83,20 +86,30 @@ def test_unported_flags_raise_with_their_name(tmp_path, flag):
     (["-toy", "-ot_solver", "exact"], "ot_solver")])
 def test_runs_outside_the_port_raise(tmp_path, monkeypatch, extra, match):
     """A run without -toy starts the curriculum's DIPS stage, which raises
-    when no DIPS shards exist (the port does not build them), and auto
-    buckets are not ported. BatchNorm, a fine-tune stage and the exact OT
-    solver are ported: their runs train an epoch and say which path the
-    layers take."""
+    when no DIPS shards exist (the port does not build them). Auto buckets,
+    BatchNorm, a fine-tune stage and the exact OT solver are ported: their
+    runs train an epoch and say which path the layers take; an auto run
+    saves the ladder it resolved from the splits (`config.auto_node_buckets`
+    of each pair's larger side; tests/test_torch_auto_buckets.py holds it
+    to the JAX package's)."""
     monkeypatch.chdir(tmp_path)
-    if match in ("DIPS stage", "auto"):
+    if match == "DIPS stage":
         with pytest.raises(NotImplementedError, match=match):
-            cli.main(TINY + (["-max_seconds", "1"] if "-toy" in extra else []) + extra)
+            cli.main(TINY + extra)
         return
     args = _args(tmp_path) + extra + ["-max_epochs", "1"]
     assert cli.main(args) == 0
     cfg = cli.config_from_args(cli._parser().parse_args(args))
     state, saved, _ = load_checkpoint(os.path.join(cfg.checkpoint_dir, cfg.banner(),
                                                    "db5_model_best"), "cpu")
+    if match == "auto":
+        from equidock_public_tpu_torch.config import auto_node_buckets
+
+        assert cfg.data.auto_buckets_max == 4 and saved.data.auto_buckets_max == 0
+        assert saved.data.node_buckets == auto_node_buckets([max(s) for s in SIZES] * 3, 4)
+        assert "auto node buckets" in open(os.path.join("stdouterr",
+                                                        cfg.banner() + ".txt")).read()
+        return
     assert getattr(saved.model, match, None) or getattr(saved.train, match, None)
     assert bool(state.bn_state) == (match == "layer_norm")
     assert ("finetune" in state.params) == (match == "fine_tune")

@@ -213,12 +213,29 @@ def test_the_clis_dock_and_score_a_directory(dirs, small_weights, tmp_path, caps
 
 @pytest.mark.parametrize("argv,error,match", [
     (["-batched", "-remove_clashes"], ValueError, "-batched"),
-    (["-node_buckets", "auto:4"], NotImplementedError, "auto"),
-    (["-pocket_buckets", "auto"], NotImplementedError, "auto"),
+    (["-node_buckets", "auto:4"], None, "auto node buckets"),
+    (["-pocket_buckets", "auto"], None, None),
     (["-pack"], NotImplementedError, "-pack"),
-    (["-dp", "2"], NotImplementedError, "-dp")])
-def test_the_inference_cli_refuses_what_the_port_does_not_run(dirs, tmp_path, argv, error,
-                                                               match):
+    (["-dp", "2"], NotImplementedError, "-dp")],
+    ids=["argv0-ValueError--batched", "argv1-NotImplementedError-auto",
+         "argv2-NotImplementedError-auto", "argv3-NotImplementedError--pack",
+         "argv4-NotImplementedError--dp"])
+def test_the_inference_cli_refuses_what_the_port_does_not_run(dirs, small_weights, tmp_path,
+                                                               capsys, argv, error, match):
+    """Batched clash removal, packing and mesh flags raise. Auto buckets are
+    ported: `-node_buckets auto:4` docks the directory on the ladder of its
+    sizes and prints it (tests/test_torch_auto_buckets.py holds it to the
+    JAX CLI's); `-pocket_buckets auto` is parsed and, as in the JAX CLI,
+    changes nothing at inference."""
+    if error is None:
+        inference_cli.main(["-input_dir", dirs["in"], "-ground_truth_dir", dirs["gt"],
+                            "-output_dir", str(tmp_path), "-device", "cpu",
+                            "-checkpoint", small_weights] + argv)
+        out = capsys.readouterr().out
+        assert ("auto node buckets" in out) == (match is not None)
+        assert sorted(os.listdir(tmp_path)) == [f"{c[0]}_l_b_EQUIDOCK_TPU.pdb"
+                                                for c in COMPLEXES]
+        return
     with pytest.raises(error, match=match):
         inference_cli.main(["-input_dir", dirs["in"], "-ground_truth_dir", dirs["gt"],
                             "-output_dir", str(tmp_path), "-device", "cpu"] + argv)

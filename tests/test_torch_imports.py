@@ -479,3 +479,75 @@ def test_source_hash_tracks_the_sources():
     assert h == _build.source_hash() and len(h) == 16
     assert all(os.path.exists(p) for p in _build._source_paths())
     assert _build.BUILD_DIR == os.path.join(PKG, "_build")
+
+
+SLICE8_MODULES = ("params.py", "config.py", "cli/_common.py", "cli/serve.py",
+                  "cli/inference.py", "cli/ensemble_inference.py", "eval/inference.py",
+                  "eval/batch_inference.py", "eval/ensemble.py", "data/dataset.py",
+                  "train/loop.py")
+
+BLOCKED_SLICE8 = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint",
+             "equidock_public_tpu"):
+    sys.modules[name] = None
+import io, json, os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from equidock_public_tpu_torch.cli.serve import DockingServer
+from equidock_public_tpu_torch.config import (Config, DataConfig, ModelConfig, TrainConfig,
+                                              auto_node_buckets)
+from equidock_public_tpu_torch.data.dataset import DockingDataset, blend_teacher_poses
+from equidock_public_tpu_torch.data.synth import write_synth_split
+from equidock_public_tpu_torch.params import init_params, load_model
+from equidock_public_tpu_torch.train.checkpoint import save_checkpoint
+from equidock_public_tpu_torch.train.step import create_train_state, train_step
+tmp = tempfile.mkdtemp()
+cfg = Config(model=ModelConfig(residue_emb_dim=8, iegmn_lay_hid_dim=8, iegmn_n_lays=2,
+                               num_att_heads=4, layer_norm="BN", dtype="bfloat16"),
+             train=TrainConfig(sinkhorn_iters=10, bs=2),
+             data=DataConfig(node_buckets=auto_node_buckets([9, 14, 20, 70], 2),
+                             pocket_buckets=(8, 16)))
+assert cfg.data.node_buckets == (64, 128)
+path = write_synth_split(os.path.join(tmp, "train.npz"), [(9, 12), (14, 20)], k=4)
+ds = DockingDataset.from_cache(cfg, "train", cache_path=path)
+same = blend_teacher_poses(ds.samples, ds.codes, tmp, 0.5, log=lambda *a: None)
+assert all(a is b for a, b in zip(same, ds.samples))
+batch = next(ds.batches(np.random.default_rng(0), device="cpu"))
+state, m = train_step(create_train_state(init_params(cfg.model), cfg, "cpu"), batch, cfg)
+assert np.isfinite(float(m["loss"])) and state.step == 1
+save_checkpoint(os.path.join(tmp, "ckpt"), state, cfg, 0)
+params, back, bn_state = load_model(os.path.join(tmp, "ckpt"), "cpu")
+assert back.model.dtype == "bfloat16" and set(bn_state) == set(state.bn_state)
+server = DockingServer.from_checkpoint(os.path.join(tmp, "ckpt"), "cpu")
+pdb = os.path.join(REPO, "artifacts", "db5_test_outputs", "{}_l_b_EQUIDOCK_TPU.pdb")
+buf = io.StringIO()
+server.serve_lines([json.dumps({"ligand": pdb.format("2VDB"), "receptor": pdb.format("2SNI"),
+                                "output": os.path.join(tmp, "out.pdb")})], buf)
+assert json.loads(buf.getvalue())["ok"], buf.getvalue()
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "equidock_public_tpu")]
+assert not loaded, loaded
+print("SLICE8")
+"""
+
+
+@pytest.mark.parametrize("module", SLICE8_MODULES)
+def test_slice8_modules_are_under_the_guard(module):
+    path = os.path.join(PKG, module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{module} imports {bad}"
+
+
+def test_a_bf16_bn_checkpoint_is_served_with_jax_and_the_jax_package_unimportable():
+    """A bf16 'BN' model on an auto ladder trained a step, its training
+    checkpoint loaded (`load_model`) and served, the distillation blend
+    with no teacher file."""
+    code = f"REPO = {REPO!r}\n" + BLOCKED_SLICE8
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SLICE8" in proc.stdout

@@ -145,11 +145,28 @@ def test_fit_two_epochs_matches_jax(tmp_path, monkeypatch):
 
 
 def test_unported_loop_options_raise(tmp_path):
-    _, pcfg, _ = _setup(tmp_path)
+    """Auto buckets are ported: `fit` resolves each ladder from the three
+    splits as the JAX package's `fit` does (`auto_node_buckets` of each
+    pair's larger side, or of the pocket sizes at align 32 and quad_at
+    256), logs it and trains an epoch on it
+    (tests/test_torch_auto_buckets.py holds the ladders to JAX's at more
+    sizes and steps)."""
+    from equidock_public_tpu.config import auto_node_buckets as jax_auto
+
+    jcfg, pcfg, _ = _setup(tmp_path)
+    jsets = [JaxDataset(jcfg, s) for s in ("train", "val", "test")]
+    pairs = [d.pair_max_nodes(i) for d in jsets for i in range(len(d.codes))]
+    pockets = [d.pocket_size(i) for d in jsets for i in range(len(d.codes))]
+    want = {"auto_buckets_max": f"auto node buckets (1 steps): {jax_auto(pairs, 1)}",
+            "auto_pocket_max": "auto pocket buckets (1 steps): "
+                               f"{jax_auto(pockets, 1, align=32, quad_at=256)}"}
     for field in ("auto_pocket_max", "auto_buckets_max"):
         cfg = dataclasses.replace(pcfg, data=dataclasses.replace(pcfg.data, **{field: 1}))
-        with pytest.raises(NotImplementedError, match=field):
-            tloop.fit(cfg, max_epochs=1, device="cpu", log=lambda *a: None)
+        logged, history = [], []
+        tloop.fit(cfg, max_epochs=1, device="cpu", history=history,
+                  log=lambda *a: logged.append(" ".join(map(str, a))))
+        assert want[field] in logged
+        assert len(history) == 2 and np.isfinite(history[0]["train"]["loss"])
 
 
 def test_full_width_fit_matches_the_golden_file(tmp_path):

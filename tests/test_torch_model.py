@@ -94,18 +94,22 @@ def test_one_layer_matches_jax(rng):
                                  dict(nonlin="swish"), dict(final_h_layer_norm="BN"),
                                  dict(dtype="bfloat16")])
 def test_configs_outside_the_kernels_raise(bad):
-    """bf16 operands are not ported and raise. The other options are ported
-    (`tests/test_torch_options.py` holds them to the JAX package): they pass
-    `check_supported`, and the edge kernel covers a 'BN' final norm but not
-    the others, which run the plain layer body in training."""
+    """Every option here is ported (`tests/test_torch_options.py` and, for
+    bf16 operands, `tests/test_torch_bf16.py` hold them to the JAX
+    package): each passes `check_supported`. The edge kernel covers a 'BN'
+    final norm and bf16 (its inputs stay f32, as JAX's fused edge path's),
+    not the others, which run the plain layer body in training. A compute
+    dtype other than float32 and bfloat16, or parameters other than f32,
+    still raise."""
     cfg = PortModelConfig(**bad)
-    if "dtype" in bad:
-        with pytest.raises(NotImplementedError, match="dtype"):
-            tm.check_supported(cfg)
-        return
     tm.check_supported(cfg)
-    assert tm.fused_edge_eligible(cfg, train=True) == ("final_h_layer_norm" in bad)
-    assert tm.fused_edge_eligible(cfg, train=False) == ("final_h_layer_norm" in bad)
+    covered = "final_h_layer_norm" in bad or "dtype" in bad
+    assert tm.fused_edge_eligible(cfg, train=True) == covered
+    assert tm.fused_edge_eligible(cfg, train=False) == covered
+    if "dtype" in bad:
+        for other in (dict(dtype="float16"), dict(param_dtype="bfloat16")):
+            with pytest.raises(NotImplementedError, match="dtype"):
+                tm.check_supported(PortModelConfig(**other))
 
 
 def test_params_from_numpy_checks_keys_and_shapes():

@@ -140,17 +140,14 @@ def test_full_width_step_matches_the_golden_file():
     ("model", "dropout", 0.1), ("model", "fine_tune", True), ("model", "remat", True),
     ("model", "layer_norm", "BN"), ("model", "dtype", "bfloat16")])
 def test_options_outside_the_slice_raise(section, field, value):
-    """bf16 operands stay outside the port and raise. The other options are
-    ported (slice 7; `tests/test_torch_options.py`, `test_torch_bn.py`,
-    `test_torch_finetune.py`, `test_torch_packing.py` hold them to the JAX
-    package): a train state is made, with BatchNorm statistics for 'BN'."""
+    """Every option here is ported (slices 7 and 8; `tests/test_torch_options.py`,
+    `test_torch_bn.py`, `test_torch_finetune.py`, `test_torch_packing.py`
+    and, for bf16 operands, `test_torch_bf16.py` hold them to the JAX
+    package): a train state is made, with BatchNorm statistics for 'BN'
+    only, and f32 parameters and moments at bf16."""
     cfg = tc.Config()
     cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section),
                                                                    **{field: value})})
-    if field == "dtype":
-        with pytest.raises(NotImplementedError, match=field):
-            ts.create_train_state({}, cfg, "cpu")
-        return
     state = ts.create_train_state({}, cfg, "cpu")
     assert bool(state.bn_state) == (field == "layer_norm")
     assert all(v["mean"].shape == v["var"].shape and (v["var"] == 1).all()

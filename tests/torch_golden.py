@@ -14,12 +14,17 @@ full atom count). Shared by the tests and the command that writes the files:
     JAX_PLATFORMS=cpu python -m tests.torch_golden packed    # the packed steps only
     JAX_PLATFORMS=cpu python -m tests.torch_golden models    # the six other models
     JAX_PLATFORMS=cpu python -m tests.torch_golden resident  # the resident fit file
+    JAX_PLATFORMS=cpu python -m tests.torch_golden bf16      # the bf16 serving file
 
 `models` converts the six other tracked checkpoints (`MODELS`) into the
 port's weight files with golden values of their served requests;
 `resident` writes `db5_resident_fit.golden.json`, the fit golden's run with
 device-resident epochs and trimmed remainders, with the augmentation draws
-the JAX package made, which the port replays.
+the JAX package made, which the port replays; `bf16` writes
+`db5_model_best_bf16.golden.json`, the served requests through the JAX
+package's fused path (the Pallas edge and attention kernels in interpret
+mode, which the port's kernel path matches) at `dtype='bfloat16'`, and
+the same path at float32 beside it.
 """
 
 import json
@@ -494,6 +499,53 @@ def pairs_that_fit(node_buckets, pairs=PAIRS):
     return kept, dropped
 
 
+BF16_GOLDEN = os.path.join(ASSETS, "db5_model_best_bf16.golden.json")
+FUSED = dict(use_fused_attention=True, fused_edge_message=True)
+
+
+def jax_outputs_fused(dtype, pairs=PAIRS):
+    """R, t, the first N_CA moved CA coordinates and the keypoints per pair
+    of the DB5 paper model through the JAX package's fused path (Pallas in
+    interpret mode on the CPU) at compute dtype `dtype`, on the port's
+    featurization of the pair (bit-equal to the JAX package's,
+    tests/test_torch_featurize.py)."""
+    import dataclasses
+
+    from equidock_public_tpu.models.iegmn import docking_forward
+    from equidock_public_tpu.train.checkpoint import load_checkpoint
+    from equidock_public_tpu_torch.config import Config as PortConfig
+    from equidock_public_tpu_torch.eval.inference import featurize_request
+
+    from .torch_utils import jax_batch
+
+    import jax
+
+    payload, cfg, _ = load_checkpoint(CHECKPOINT)
+    mcfg = dataclasses.replace(cfg.model, dtype=dtype, **FUSED)
+    fwd = jax.jit(lambda p, b: docking_forward(p, mcfg, b))
+    pcfg = PortConfig(data=dataclasses.replace(PortConfig().data,
+                                               node_buckets=tuple(cfg.data.node_buckets)))
+    out = []
+    for lig, rec in pairs:
+        req = featurize_request(pcfg, os.path.join(REPO, pdb_path(lig)),
+                                os.path.join(REPO, pdb_path(rec)), "cpu")
+        o = fwd(payload["params"], jax_batch(req.batch))
+        out.append({"ligand": pdb_path(lig), "receptor": pdb_path(rec),
+                    "R": np.asarray(o["R"][0]).tolist(),
+                    "t": np.asarray(o["t"][0, 0]).tolist(),
+                    "ca": np.asarray(o["ligand_coords"][0, :N_CA]).tolist(),
+                    "keypts_lig": np.asarray(o["keypts_lig"][0]).tolist(),
+                    "keypts_rec": np.asarray(o["keypts_rec"][0]).tolist()})
+    return out
+
+
+def jax_bf16_golden():
+    return {"source": "equidock_public_tpu on the CPU, artifacts/db5_model_best, "
+                      "use_fused_attention and fused_edge_message (Pallas in interpret mode)",
+            "dtype": "bfloat16", "requests": jax_outputs_fused("bfloat16"),
+            "float32": jax_outputs_fused("float32")}
+
+
 def jax_dock_outputs(checkpoint, pairs):
     """R, t, the first N_CA moved CA coordinates and the keypoints per pair
     from the JAX
@@ -750,6 +802,10 @@ if __name__ == "__main__":
         with open(RESIDENT_FIT_GOLDEN, "w") as f:
             json.dump(jax_resident_fit_golden(), f, indent=1)
         sys.exit(0)
+    if sys.argv[1:] == ["bf16"]:
+        with open(BF16_GOLDEN, "w") as f:
+            json.dump(jax_bf16_golden(), f, indent=1)
+        sys.exit(0)
     sidecar = os.path.join(ASSETS, "db5_model_best.config.json")
     with open(sidecar, "w") as f:     # the whole config, as the port reads it
         cfg = load_config(CHECKPOINT + ".config.json")
@@ -774,3 +830,5 @@ if __name__ == "__main__":
         write_model(name)
     with open(RESIDENT_FIT_GOLDEN, "w") as f:
         json.dump(jax_resident_fit_golden(), f, indent=1)
+    with open(BF16_GOLDEN, "w") as f:
+        json.dump(jax_bf16_golden(), f, indent=1)
