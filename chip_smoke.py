@@ -158,6 +158,33 @@ non-zero without printing a result.
            model of that fine-tune checkpoint, packed DIPS streaming with
            -stream_window 2, a resident epoch with -val_repeats 2 under the
            cyclic scheduler; each run's launches as counted
+  slice9   (slice 9, after slice8; one JSON line a part, each with its
+           seconds) raw PDB files to caches the port builds, trained on the
+           card, against assets/slice9.golden.json (the JAX package's
+           outputs on the same tree, its recipe inside): (a) a DB5 tree of
+           16 tracked chains cut in two (10 / 3 / 3) under
+           EQUIDOCK_REFERENCE_ROOT; (b) cli.preprocess at -n_jobs 4 and 1
+           as processes, each cache's ints and bools hash-equal to the
+           JAX digest and its floats' sums within 1e-6 (the codes kept and
+           dropped equal); (c) the paper model from its committed weights,
+           cli.train -toy -max_epochs 1 on that cache, every step held to
+           the CPU, rows 1-7 at path_launches' counts; (d) cli.testset_gen
+           (coordinates within 1e-3 A of JAX's), -dips_frozen_complexes of
+           its complexes (digests as (b)), cli.inference on the card
+           against the CPU's forward at the serving gates, cli.eval_outputs,
+           cli.align_receptor (residual below 0.1, the ligand as JAX's);
+           (e) cli.crop_corpus (digests as (b)), then the curriculum (the
+           DIPS stage streaming the crops, the DB5 stage on (b)'s cache)
+           one epoch a stage, every step held; (f) cli.hyper_search, 2
+           trials each a process on the card, the draws and banners JAX's,
+           each checkpoint served a request, the kernels' build directory
+           untouched; (g) two steps in profiling.trace (the Chrome trace
+           names rows 1-7's kernels and the named span), StepTimer's mean
+           beside chip_smoke's own step median; (h) cli.padding_report
+           (equal to JAX's) and cli.surface_analysis -depth sas / hull on
+           two chains (rhos within 1e-9), preprocess seconds a complex and
+           crop seconds a pair; (i) the DIPS pickle readers and
+           cli.partition_dips need pandas: CPU tests only
   halo     the halo graph-parallel path (shards stacked on the card): the
            4 served requests through `make_halo_forward` at padded gp=2,
            ragged gp=4 and gp=4 with a forced residual tier, each against
@@ -2144,16 +2171,12 @@ def write_complex_dirs(root: str):
     inp, gt = os.path.join(root, "in"), os.path.join(root, "gt")
     os.makedirs(inp)
     os.makedirs(gt)
+    from equidock_public_tpu_torch.data.synth import write_chain_halves
+
     for code in DIR_CODES:
-        with open(chain_path(code)) as f:
-            lines = [ln for ln in f if ln.startswith("ATOM")]
-        keys = list(dict.fromkeys(ln[21:27] for ln in lines))
-        first = set(keys[:len(keys) // 2])
-        for path, keep in ((os.path.join(gt, f"{code}_l_b_COMPLEX.pdb"), True),
-                           (os.path.join(gt, f"{code}_r_b_COMPLEX.pdb"), False),
-                           (os.path.join(inp, f"{code}_l_b.pdb"), True)):
-            with open(path, "w") as f:
-                f.writelines(ln for ln in lines if (ln[21:27] in first) == keep)
+        lig = os.path.join(gt, f"{code}_l_b_COMPLEX.pdb")
+        write_chain_halves(chain_path(code), lig, os.path.join(gt, f"{code}_r_b_COMPLEX.pdb"))
+        shutil.copy(lig, os.path.join(inp, f"{code}_l_b.pdb"))
     return inp, gt
 
 
@@ -3295,25 +3318,29 @@ def path_launches(mcfg, layers, steps, evals, packed=False, stages=1) -> tuple:
 
 
 def run_held(name, argv, root, mcfg, layers=SLICE8_LAYERS, resident_mode=False,
-             packed=False, stages=1) -> dict:
+             packed=False, stages=1, evals=None) -> dict:
     """A slice-8 CLI run with every train step held to the CPU
-    (`held_to_cpu`), its launches against `path_launches`."""
+    (`held_to_cpu`), its launches against `path_launches`; `evals`, the
+    forwards without gradient, default to those of one `fit` of the argv's
+    config (`eval_forwards`)."""
     from equidock_public_tpu_torch.cli import train as cli
 
     with held_to_cpu(name) as held:
         run = run_cli(argv, os.path.join(root, "runs", name))
-    steps = sum(r["train"]["num_batches"] for r in run["records"] if "train" in r)
+    epochs = [r for r in run["records"] if "train" in r]
+    steps = sum(r["train"]["num_batches"] for r in epochs)
     require(held["steps"] == steps and steps > 0,
             f"{name}: {held['steps']} held steps, {steps} in the records")
-    cfg = cli.config_from_args(cli._parser().parse_args(argv))
-    evals = eval_forwards(cfg, resident_mode)
+    if evals is None:
+        evals = eval_forwards(cli.config_from_args(cli._parser().parse_args(argv)),
+                              resident_mode)
     want, inverse = path_launches(mcfg, layers, steps, evals, packed, stages)
     expect_launches(name, run["launches"], want, inverse)
     require(all(np.isfinite(r["train"]["loss"]) for r in run["records"] if "train" in r),
             f"{name}: non-finite training loss")
-    return dict(steps=steps, forwards_without_gradient=evals, launches=run["launches"],
-                kernel_paths=logged(run["log"], "Kernel paths"), cli_seconds=run["seconds"],
-                held_to_cpu=held, banner=run["banner"])
+    return dict(steps=steps, epochs=len(epochs), forwards_without_gradient=evals,
+                launches=run["launches"], kernel_paths=logged(run["log"], "Kernel paths"),
+                cli_seconds=run["seconds"], held_to_cpu=held, banner=run["banner"])
 
 
 def run_a5(root) -> dict:
@@ -3802,6 +3829,444 @@ def run_slice8(dev, root, db5_root) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# Slice 9: the host builders and tools, from raw PDB files to caches the port
+# builds itself, trained on the card
+# --------------------------------------------------------------------------- #
+
+SLICE9_SUM_RTOL = 1e-6      # float arrays of a cache: float64 sums against the JAX digest
+TESTSET_ATOL = 1e-3         # written coordinates (%8.3f) against the JAX package's
+RHO_ATOL = 1e-9             # surface rhos (analyze) against the JAX package's
+RHO_PRINT_ATOL = 5e-4       # the CLI's printed rhos (3 decimals)
+PROFILE_KERNELS = ("edge_message_fwd_kernel", "edge_message_bwd_kernel",
+                   "cross_attention_fwd_kernel", "cross_attention_dq_kernel",
+                   "cross_attention_dkv_kernel", "softmin_tiles_kernel")   # rows 1-5, 6-7
+SLICE9_SPAN = "slice9_train_step"
+
+
+def slice9_paths(root, recipe) -> dict:
+    """The recipe's tree under `root` (the layout of slice9.golden.json),
+    written: the raw structures and split files of its chains cut in two."""
+    from equidock_public_tpu_torch.data.synth import write_db5_raw_tree
+
+    paths = {k: os.path.join(root, v) for k, v in recipe["layout"].items()}
+    chains = {c: os.path.join(REPO, recipe["chain_file"].format(c)) for c in recipe["codes"]}
+    paths["raw"], paths["cv"] = write_db5_raw_tree(paths["reference_root"], chains,
+                                                   [tuple(s) for s in recipe["splits"]])
+    return paths
+
+
+def host_env(paths) -> dict:
+    """A subprocess's environment: the checkout importable, the reference
+    root at the recipe's tree."""
+    return dict(os.environ, PYTHONPATH=REPO, EQUIDOCK_REFERENCE_ROOT=paths["reference_root"])
+
+
+def start_modules(calls, env, cwd) -> dict:
+    """`python -m equidock_public_tpu_torch.<module> args` for each entry
+    name -> (module, args), all started at once."""
+    return {name: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", f"equidock_public_tpu_torch.{m}", *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=cwd, env=env)) for name, (m, args) in calls.items()}
+
+
+def stop_modules(procs) -> None:
+    for _, p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def wait_modules(procs, timeout=600) -> dict:
+    """Each started module to its end; fails unless each exits 0 (the rest
+    are stopped). Returns name -> its seconds and its output."""
+    out = {}
+    try:
+        for name, (t0, p) in procs.items():
+            stdout, stderr = p.communicate(timeout=timeout)
+            require(p.returncode == 0, f"{name} {' '.join(p.args[3:])} exited {p.returncode}:"
+                                       f"\n{stdout[-2000:]}{stderr[-4000:]}")
+            out[name] = dict(seconds=time.perf_counter() - t0, stdout=stdout)
+    finally:
+        stop_modules(procs)
+    return out
+
+
+def run_module(module, args, env, cwd, timeout=600) -> dict:
+    """One module to its end, alone (`start_modules`, `wait_modules`)."""
+    return wait_modules(start_modules({module: (module, args)}, env, cwd), timeout)[module]
+
+
+def array_digest(a: np.ndarray) -> dict:
+    """tests/torch_golden.py::array_digest: shape, dtype, sha256 of the
+    bytes, for floats the float64 sum and sum of absolute values."""
+    import hashlib
+
+    d = {"shape": list(a.shape), "dtype": str(a.dtype),
+         "sha256": hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()}
+    if a.dtype.kind == "f":
+        d["sum"] = float(a.astype(np.float64).sum())
+        d["abs_sum"] = float(np.abs(a.astype(np.float64)).sum())
+    return d
+
+
+def check_digest(what, path, want) -> dict:
+    """A cache file against its JAX digest: the same codes and keys, each
+    array's shape and dtype; int, bool and str arrays hash-equal; float
+    arrays' sums within SLICE9_SUM_RTOL. Counts the floats also hash-equal."""
+    with np.load(path, allow_pickle=False) as z:
+        codes = [str(c) for c in z["codes"]]
+        got = {k: array_digest(z[k]) for k in z.files}
+    require(codes == want["codes"], f"{what}: codes {codes}, the JAX package's {want['codes']}")
+    require(sorted(got) == sorted(want["arrays"]), f"{what}: other keys than the JAX cache's")
+    n_float = n_equal = 0
+    worst = 0.0
+    for key, w in want["arrays"].items():
+        g = got[key]
+        require(g["shape"] == w["shape"] and g["dtype"] == w["dtype"],
+                f"{what} {key}: {g['shape']} {g['dtype']}, JAX {w['shape']} {w['dtype']}")
+        if "sum" not in w:
+            require(g["sha256"] == w["sha256"], f"{what} {key}: not hash-equal to JAX's")
+            continue
+        n_float += 1
+        n_equal += g["sha256"] == w["sha256"]
+        for s in ("sum", "abs_sum"):
+            err = abs(g[s] - w[s]) / max(abs(w[s]), 1e-30)
+            worst = max(worst, err)
+            require(err <= SLICE9_SUM_RTOL, f"{what} {key} {s}: {g[s]!r} against JAX {w[s]!r}")
+    return dict(complexes=len(codes), arrays=len(got), float_arrays=n_float,
+                float_hash_equal=n_equal, worst_sum_rel_err=worst)
+
+
+def check_pdb(what, path, want) -> dict:
+    """A written PDB against the JAX package's: coordinates within
+    TESTSET_ATOL (as the text gives them); whether the bytes are equal."""
+    import hashlib
+
+    from equidock_public_tpu_torch.data.pdb import read_pdb
+
+    coords = read_pdb(path).coords.ravel().astype(np.float64)
+    ref = np.asarray(want["coords"])
+    require(coords.shape == ref.shape, f"{what}: {coords.size} coordinates, JAX {ref.size}")
+    err = float(np.abs(coords - ref).max())
+    require(err <= TESTSET_ATOL, f"{what}: coordinates {err:.3g} A from the JAX package's")
+    with open(path, "rb") as f:
+        same = hashlib.sha256(f.read()).hexdigest() == want["sha256"]
+    return dict(max_abs_err=err, byte_equal=same)
+
+
+def logged_seconds(stdout: str, unit: str) -> float:
+    """The sum of the seconds a builder logs, `...: N <unit> ... in S s`,
+    one line a split."""
+    lines = [line for line in stdout.splitlines()
+             if f" {unit} " in line and line.rstrip().endswith(" s") and " in " in line]
+    require(lines, f"no '{unit} in ... s' line logged:\n{stdout[-2000:]}")
+    return sum(float(line.rsplit(" in ", 1)[1].split()[0]) for line in lines)
+
+
+def slice9_argv(paths, ckpt_dir, start) -> list:
+    """The paper model's training flags (5 layers, one shared, 50 heads,
+    fused intersection) from the `start` checkpoint on the tree's caches."""
+    return ["-shared_layers", "-iegmn_n_lays", str(LAYERS), "-num_att_heads", "50",
+            "-use_fused_intersection", "-random_seed", "0", "-device", "cuda",
+            "-cache_dir", paths["cache_dir"], "-checkpoint_dir", ckpt_dir,
+            "-continue_train_model", start]
+
+
+def kabsch_pose(a, b):
+    """(R, t) moving point set a (N, 3) onto b."""
+    from equidock_public_tpu_torch.data.featurize import rigid_transform_kabsch
+
+    R, t = rigid_transform_kabsch(a.T.astype(np.float64), b.T.astype(np.float64))
+    return R, t[:, 0]
+
+
+def check_inference(card_dir, cpu_dir, input_dir) -> dict:
+    """Each ligand the card moved against the CPU's forward of the same
+    files: R and t of the move (fitted to the written coordinates) and the
+    moved CA atoms at the serving gates."""
+    from equidock_public_tpu_torch.data.pdb import read_pdb
+
+    files = sorted(os.listdir(card_dir))
+    require(files == sorted(os.listdir(cpu_dir)) and files, f"outputs {files}")
+    worst = {k: 0.0 for k in GOLDEN_ATOL}
+    for f in files:
+        card, cpu = read_pdb(os.path.join(card_dir, f)), read_pdb(os.path.join(cpu_dir, f))
+        start = read_pdb(os.path.join(input_dir, f.split("_l_b_")[0] + "_l_b.pdb")).coords
+        (Rg, tg), (Rw, tw) = kabsch_pose(start, card.coords), kabsch_pose(start, cpu.coords)
+        ca = card.atom_name == "CA"
+        errs = {"R": float(np.abs(Rg - Rw).max()), "t": float(np.abs(tg - tw).max()),
+                "ca": float(np.abs(card.coords[ca] - cpu.coords[ca]).max())}
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
+            require(np.isfinite(card.coords).all() and e <= GOLDEN_ATOL[k],
+                    f"cli.inference {f}: {k} {e:.3g} from the CPU's forward (gate "
+                    f"{GOLDEN_ATOL[k]})")
+    return dict(files=len(files), max_abs_err_vs_cpu=worst, gates=GOLDEN_ATOL)
+
+
+def build_snapshot() -> dict:
+    """Every file under the kernels' build directory: (size, mtime, inode)."""
+    from equidock_public_tpu_torch.ops.cuda import _build
+
+    out = {}
+    for d, _, files in os.walk(_build.BUILD_DIR):
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.relpath(os.path.join(d, f), _build.BUILD_DIR)] = (st.st_size,
+                                                                          st.st_mtime_ns,
+                                                                          st.st_ino)
+    return out
+
+
+def run_profiled_steps(dev, paths, start) -> dict:
+    """(g) Steps of the paper model on the tree's first train batch: 7 timed
+    by `profiling.StepTimer` (2 warm-up) and, on the same steps, by
+    chip_smoke's own clock (synchronized around each step); then 2 steps in
+    `profiling.trace`, one `named_scope` each. The Chrome trace must name
+    rows 1-7's `__global__` kernels and the span."""
+    from equidock_public_tpu_torch.data.dataset import DockingDataset
+    from equidock_public_tpu_torch.train.checkpoint import load_checkpoint
+    from equidock_public_tpu_torch.train.step import train_step
+    from equidock_public_tpu_torch.utils import profiling
+
+    state, cfg, _ = load_checkpoint(start, dev)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, cache_dir=paths["cache_dir"]),
+        train=dataclasses.replace(cfg.train, use_fused_intersection=True))
+    batch = next(DockingDataset.from_cache(cfg, "train").batches(np.random.default_rng(0),
+                                                                 device=dev))
+    timer, own = profiling.StepTimer(warmup=2), []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timer:
+            state, m = train_step(state, batch, cfg)
+        torch.cuda.synchronize()
+        own.append((time.perf_counter() - t0) * 1e3)
+    require(np.isfinite(float(m["loss"])), "profiled steps: non-finite loss")
+    log_dir = os.path.join(paths["profile"], "trace")
+    t0 = time.perf_counter()
+    with profiling.trace(log_dir):
+        for _ in range(2):
+            with profiling.named_scope(SLICE9_SPAN):
+                state, m = train_step(state, batch, cfg)
+    trace_s = time.perf_counter() - t0
+    with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in n for n in kernels) for k in PROFILE_KERNELS}
+    missing = [k for k, n in found.items() if n == 0]
+    require(not missing, f"the Chrome trace names no kernel {missing} ({len(kernels)} kernels)")
+    spans = sum(e.get("name") == SLICE9_SPAN for e in events)
+    require(spans >= 2, f"the Chrome trace holds {spans} '{SLICE9_SPAN}' spans")
+    return dict(step_timer_mean_ms=timer.mean() * 1e3, step_timer_times=len(timer.times),
+                chip_smoke_step_median_ms=statistics.median(own[2:]),
+                chip_smoke_step_ms=own, trace_events=len(events), trace_kernels=len(kernels),
+                kernels_named=found, spans=spans, trace_seconds=trace_s,
+                trace_mb=os.path.getsize(os.path.join(log_dir, profiling.TRACE_FILE)) / 2**20)
+
+
+def run_slice9(dev, root, smi) -> dict:
+    """Slice 9: raw PDB files to caches the port builds, trained on the
+    card, and the host tools, each part against slice9.golden.json (the
+    JAX package's outputs on the same tree) or the CPU; see the module
+    docstring. Emits each part as it ends, with its seconds."""
+    from equidock_public_tpu_torch.cli import surface_analysis
+    from equidock_public_tpu_torch.cli import train as cli
+    from equidock_public_tpu_torch.cli.serve import DockingServer
+    from equidock_public_tpu_torch.config import Config, DataConfig, ModelConfig
+    from equidock_public_tpu_torch.eval.inference import run_inference_dir
+    from equidock_public_tpu_torch.params import default_checkpoint, load_checkpoint, load_model
+
+    golden = load_asset("slice9.golden.json")
+    recipe = golden["recipe"]
+    os.makedirs(root, exist_ok=True)
+    out = {}
+    clock = time.perf_counter()
+
+    def done(name, **part):
+        nonlocal clock
+        now = time.perf_counter()
+        out[name] = dict(part, seconds=round(now - clock, 1))
+        clock = now
+        emit(f"slice9_{name}", **out[name])
+
+    cache_of = lambda cache, data="db5": Config(data=DataConfig(
+        data=data, cache_dir=cache)).cache_path()
+    # (a) the raw tree
+    paths = slice9_paths(root, recipe)
+    paths["profile"] = os.path.join(root, "profile")
+    env, cwd = host_env(paths), root
+    n_complexes = sum(n for _, n in recipe["splits"])
+    done("tree", codes=recipe["codes"], splits=recipe["splits"])
+    # (b) the DB5 caches, at -n_jobs 4 and 1, against the JAX digests
+    runs, work, checks = {}, {}, {}
+    for n_jobs, cache in ((4, paths["cache_dir"]), (1, os.path.join(root, "cache_nj1"))):
+        run = run_module("cli.preprocess", ["-n_jobs", str(n_jobs), "-cache_dir", cache],
+                         env, cwd)
+        runs[n_jobs], work[n_jobs] = run["seconds"], logged_seconds(run["stdout"], "complexes")
+        for split, want in golden["db5_cache"].items():
+            checks[f"{split}_n_jobs{n_jobs}"] = check_digest(
+                f"db5 {split} (n_jobs {n_jobs})", os.path.join(cache_of(cache), f"{split}.npz"),
+                want)
+            with open(os.path.join(paths["cv"], f"{split}.txt")) as f:
+                listed = [line.strip() for line in f if line.strip()]
+            dropped = sorted(set(listed) - set(want["codes"]))
+            require(dropped == want["dropped"], f"db5 {split}: dropped {dropped}")
+    done("caches", digests=checks, complexes=n_complexes, cli_seconds=runs,
+         build_seconds=work, seconds_a_complex={n: w / n_complexes for n, w in work.items()},
+         seconds_note="build_seconds: the three splits' seconds from reading to the written "
+                      "file, as the CLI logs them (the pool's start included); cli_seconds: "
+                      "the process, Python's and torch's start included", card=smi)
+    # (c) full-width training on the cache the port built, every step held to the CPU
+    start = start_checkpoint(os.path.join(root, "starts", "paper"), {}, LAYERS)
+    paper = ModelConfig(iegmn_n_lays=LAYERS, shared_layers=True, num_att_heads=50)
+    done("train", **run_held("slice9_train", slice9_argv(paths, os.path.join(root, "ckpt", "c"),
+                                                         start) + ["-toy", "-max_epochs", "1"],
+                             root, paper, layers=LAYERS))
+    # (d) the paper's evaluation flow from raw structures, and (h) the host
+    # tools beside it: the processes that need no other's output run at once
+    test_dir = paths["testset"]
+    run_module("cli.testset_gen", ["-dataset", "db5", "-split_file",
+                                   os.path.join(paths["cv"], "test.txt"), "-out_dir", test_dir,
+                                   "-seed", str(recipe["testset_seed"])], env, cwd)
+    files = sorted(os.listdir(test_dir))
+    require(files == sorted(golden["testset"]), f"test set files {files}")
+    tests = {f: check_pdb(f"testset {f}", os.path.join(test_dir, f), golden["testset"][f])
+             for f in files}
+    card_dir, cpu_dir = os.path.join(root, "inference_card"), os.path.join(root, "inference_cpu")
+    procs = start_modules({
+        "frozen": ("cli.preprocess", ["-data", "dips", "-dips_frozen_complexes", test_dir,
+                                      "-n_jobs", "4", "-cache_dir", paths["frozen_cache_dir"]]),
+        "inference": ("cli.inference", ["-checkpoint", default_checkpoint(), "-input_dir",
+                                        test_dir, "-ground_truth_dir", test_dir, "-output_dir",
+                                        card_dir])}, env, cwd)
+    try:
+        params, cfg = load_checkpoint(default_checkpoint(), "cpu")
+        run_inference_dir(params, cfg, test_dir, test_dir, cpu_dir, log=lambda *a: None,
+                          device="cpu")
+    except BaseException:
+        stop_modules(procs)
+        raise
+    ran = wait_modules(procs)
+    frozen_dir = cache_of(paths["frozen_cache_dir"], "dips")
+    frozen = {name: check_digest(f"frozen {name}", os.path.join(frozen_dir, name), want)
+              for name, want in golden["dips_frozen"].items()}
+    inference = check_inference(card_dir, cpu_dir, test_dir)
+    code = golden["align_receptor"]["code"]
+    aligned = os.path.join(root, "aligned.pdb")
+    calls = {
+        "eval_outputs": ("cli.eval_outputs", ["-input_dir", card_dir, "-ground_truth_dir",
+                                              test_dir, "-method", "equidock_tpu"]),
+        "align_receptor": ("cli.align_receptor", [
+            "-ligand", os.path.join(test_dir, f"{code}_l_b.pdb"),
+            "-receptor", os.path.join(test_dir, f"{code}_r_b.pdb"),
+            "-receptor_gt", os.path.join(test_dir, f"{code}_r_b_COMPLEX.pdb"), "-out", aligned]),
+        "padding_report": ("cli.padding_report", ["-cache_dir", paths["cache_dir"],
+                                                  "-dips_dir", paths["dips_sizes_dir"]])}
+    for chain in recipe["surface_chains"]:
+        for depth in ("sas", "hull"):
+            calls[f"{chain}/{depth}"] = ("cli.surface_analysis", [
+                "-pdb", os.path.join(REPO, recipe["chain_file"].format(chain)), "-depth", depth])
+    tools = wait_modules(start_modules(calls, env, cwd))
+    scores = json.loads(tools["eval_outputs"]["stdout"].splitlines()[0])
+    require(scores["num_files"] == len(files) // 4
+            and all(np.isfinite(v) for v in scores.values()), f"eval_outputs: {scores}")
+    said = tools["align_receptor"]["stdout"]
+    residual = float(said.split("residual ")[1].split(")")[0])
+    require(residual < 0.1, f"align_receptor residual {residual}")
+    done("evaluation",
+         testset={"files": len(tests), "max_abs_err": max(t["max_abs_err"] for t in tests.values()),
+                  "byte_equal": sum(t["byte_equal"] for t in tests.values())},
+         dips_frozen=frozen, inference=dict(inference, cli_seconds=ran["inference"]["seconds"]),
+         eval_outputs=scores,
+         align_receptor=dict(residual=residual, **check_pdb("aligned", aligned,
+                                                            golden["align_receptor"])))
+    require(json.loads(tools["padding_report"]["stdout"]) == golden["padding_report"],
+            "padding_report differs from the JAX package's")
+    rho = {}
+    for key, want in golden["surface_rhos"].items():
+        chain, depth = key.split("/")
+        got = surface_analysis.analyze(os.path.join(REPO, recipe["chain_file"].format(chain)),
+                                       depth_method=depth)
+        printed = [float(line.rsplit("= ", 1)[1]) for line in tools[key]["stdout"].splitlines()
+                   if line.startswith("sigma=")]
+        err = max(abs(g - w) for g, w in zip(got, want))
+        perr = max(abs(g - w) for g, w in zip(printed, want))
+        require(len(got) == len(printed) == 5 and err <= RHO_ATOL and perr <= RHO_PRINT_ATOL,
+                f"surface {key}: rhos {got} (printed {printed}), JAX {want}")
+        rho[key] = dict(max_abs_err=err, printed_max_abs_err=perr, rho_sigma30=got[4])
+    done("tools", padding_report="equal to the JAX package's", surface=rho,
+         cli_seconds={k: v["seconds"] for k, v in tools.items()}, card=smi)
+    # (e) the crop corpus, then the curriculum on it and on (b)'s cache
+    c = recipe["crops"]
+    crop = run_module("cli.crop_corpus", [
+        "-n_pairs", str(c["n_pairs"]), "-n_val_pairs", str(c["n_val_pairs"]), "-max_side",
+        str(c["max_side"]), "-crop_seed", str(c["crop_seed"]), "-n_jobs", "4",
+        "-dips_sizes_dir", paths["dips_sizes_dir"], "-cache_dir", paths["cache_dir"]], env, cwd)
+    crop_dir = cache_of(paths["cache_dir"], "dips")
+    crops = {name: check_digest(f"crops {name}", os.path.join(crop_dir, name), want)
+             for name, want in golden["crops"].items()}
+    n_crops = sum(v["complexes"] for v in crops.values())
+    argv = slice9_argv(paths, os.path.join(root, "ckpt", "e"), start) + [
+        "-stream_dips", "-num_epochs", "1"]
+    stage = lambda data: cli.config_from_args(cli._parser().parse_args(argv + ["-data", data]))
+    evals = eval_forwards(stage("dips"), False) + eval_forwards(stage("db5"), False)
+    curriculum = run_held("slice9_curriculum", argv, root, paper, layers=LAYERS, evals=evals)
+    require(curriculum["epochs"] == 2, f"the curriculum ran {curriculum['epochs']} epochs, "
+                                       "not one a stage")
+    crop_s = logged_seconds(crop["stdout"], "pairs")
+    done("crops", shards=crops, pairs=n_crops, cli_seconds=crop["seconds"], build_seconds=crop_s,
+         seconds_a_pair=crop_s / n_crops, curriculum=curriculum, card=smi)
+    # (f) the hyper-parameter search: two trials, each a process on the card
+    before = build_snapshot()
+    hyper_ckpt = os.path.join(root, "hyper_ckpt")
+    os.makedirs(os.path.join(root, "hyper"))
+    search = run_module("cli.hyper_search", [
+        "-num_trials", str(recipe["hyper"]["num_trials"]), "-max_epochs", "1",
+        "-random_seed", str(recipe["hyper"]["random_seed"]), "-cache_dir", paths["cache_dir"],
+        "-checkpoint_dir", hyper_ckpt], env, os.path.join(root, "hyper"), timeout=900)
+    after = build_snapshot()
+    require(after == before, "a trial changed the kernels' build directory: "
+                             f"{sorted(set(after.items()) ^ set(before.items()))}")
+    trials = []
+    stem = files[0].split("_")[0]
+    for i, want in enumerate(golden["hyper_search"]):
+        require(f"=== trial {i} exit=0" in search["stdout"],
+                f"hyper-search trial {i} failed:\n{search['stdout'][-3000:]}")
+        require(f"trial {i}: {want['banner']}" in search["stdout"],
+                f"hyper-search trial {i} is not the JAX package's draw {want['banner']}")
+        ckpt = os.path.join(hyper_ckpt, want["banner"], "db5_model_best")
+        _, tcfg, _ = load_model(ckpt, dev)
+        for field, value in want.items():
+            if field != "banner":
+                sec, key = field.split(".")
+                require(getattr(getattr(tcfg, sec), key) == value,
+                        f"trial {i} checkpoint {field}: {getattr(getattr(tcfg, sec), key)}, "
+                        f"drawn {value}")
+        buf = io.StringIO()
+        served = DockingServer.from_checkpoint(ckpt, dev).serve_lines([json.dumps({
+            "ligand": os.path.join(test_dir, f"{stem}_l_b.pdb"),
+            "receptor": os.path.join(test_dir, f"{stem}_r_b_COMPLEX.pdb"),
+            "output": os.path.join(root, f"hyper_{i}.pdb")})], buf)
+        reply = json.loads(buf.getvalue())
+        require(served == 1 and reply.get("ok") is True, f"trial {i}'s checkpoint: {reply}")
+        trials.append(dict(banner=want["banner"], layers=tcfg.model.iegmn_n_lays,
+                           dropout=tcfg.model.dropout, request_seconds=reply["seconds"]))
+    done("hyper_search", trials=trials, cli_seconds=search["seconds"],
+         build_files_unchanged=len(after))
+    # (g) profiling
+    done("profiling", **run_profiled_steps(dev, paths, start), card=smi)
+    # (i) not on the card
+    emit("slice9_not_on_the_card",
+         note="the DIPS pair-pickle readers (data/dips.py: read_dips_pair, read_dips_pair_tables, "
+              "build_dips_cache) and cli.partition_dips need pandas, which this machine lacks: "
+              "they run only in the CPU tests (tests/test_torch_dips_build.py, "
+              "tests/test_torch_tools.py)")
+    return out
+
+
 def main() -> int:
     wall0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4025,6 +4490,9 @@ def main() -> int:
 
         # -- slice8: the main paths of slice 8 ---------------------------------
         slice8 = run_slice8(dev, os.path.join(root, "slice8"), os.path.join(root, "db5_sized"))
+
+        # -- slice9: the main paths of slice 9 ---------------------------------
+        slice9 = run_slice9(dev, os.path.join(root, "slice9"), smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4266,7 +4734,9 @@ def main() -> int:
                    "slice8_bf16_paper_serve": slice8["bf16_serving"]["launches"][name],
                    "slice8_auto_epoch": slice8["auto_buckets"]["launches"][name],
                    "slice8_distill_epoch": slice8["distill"]["launches"][name],
-                   **{f"slice8_{n}": r["launches"][name] for n, r in slice8["a5"].items()}}
+                   **{f"slice8_{n}": r["launches"][name] for n, r in slice8["a5"].items()},
+                   "slice9_train": slice9["train"]["launches"][name],
+                   "slice9_curriculum": slice9["crops"]["curriculum"]["launches"][name]}
         table.append(dict(name=name, route="cuda",
                           source=f"equidock_public_tpu_torch/{source}",
                           replaces=f"equidock_public_tpu/{replaces}",

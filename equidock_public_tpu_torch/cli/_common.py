@@ -1,5 +1,6 @@
 """Config flags shared by the port's CLIs (`train`, `inference`,
-`ensemble_inference`): the flags of `equidock_public_tpu/cli/_common.py`
+`ensemble_inference`, `preprocess`, `crop_corpus`, `padding_report`,
+`hyper_search`): the flags of `equidock_public_tpu/cli/_common.py`
 that the port honours, with the JAX package's names and defaults, and those
 it refuses by name."""
 
@@ -7,7 +8,7 @@ from __future__ import annotations
 
 import argparse
 
-from ..config import Config, DataConfig, GraphConfig, ModelConfig, TrainConfig
+from ..config import Config, DataConfig, GraphConfig, ModelConfig, TrainConfig, reference_root
 
 # Flags of the JAX package's CLIs that the port does not honour: what each
 # selects there.
@@ -15,8 +16,7 @@ REFUSED = {
     "dp": "mesh training and dp-resident epochs",
     "gp": "mesh training", "pallas_ring_halo": "mesh training",
     "pad_cache_gb": "the JAX collate cache", "compile_cache": "the XLA compile cache",
-    "n_jobs": "building caches from PDB files", "raw_data_path": "building caches",
-    "split_files_path": "building caches", "debug": "the JAX debug mode",
+    "debug": "the JAX debug mode",
 }
 
 
@@ -71,6 +71,12 @@ def add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-data", default="db5", choices=["db5", "dips"])
     p.add_argument("-data_fraction", type=float, default=1.0)
     p.add_argument("-split", type=int, default=0)
+    p.add_argument("-n_jobs", type=int, default=DataConfig().n_jobs,
+                   help="worker processes that build caches from PDB files")
+    p.add_argument("-raw_data_path", default=reference_root("data/benchmark5.5/structures"),
+                   help="the <code>_{l,r}_b.pdb files (default under $EQUIDOCK_REFERENCE_ROOT)")
+    p.add_argument("-split_files_path", default=reference_root("data/benchmark5.5/cv/cv_0"),
+                   help="the {train,val,test}.txt split files")
     p.add_argument("-cache_dir", default="./cache")
     p.add_argument("-node_buckets", default="",
                    help="comma-separated node buckets, or auto[:G] (a ladder of at most G "
@@ -151,7 +157,8 @@ def config_from_args(a: argparse.Namespace) -> Config:
         trim_remainder=a.trim_remainder,
         freeze_original=bool(getattr(a, "freeze_original", False)))
     data = DataConfig(data=a.data, data_fraction=a.data_fraction, split=a.split,
-                      cache_dir=a.cache_dir,
+                      n_jobs=a.n_jobs, raw_data_path=a.raw_data_path,
+                      split_files_path=a.split_files_path, cache_dir=a.cache_dir,
                       **_buckets(a.node_buckets, "node_buckets", "auto_buckets_max", 12),
                       **_buckets(a.pocket_buckets, "pocket_buckets", "auto_pocket_max", 8),
                       device_resident=a.device_resident, stream_dips=a.stream_dips,

@@ -1,8 +1,9 @@
 """Typed configuration: the port's own copy of the model, graph, training
 and data settings of `equidock_public_tpu/config.py`, plus the
 `*.config.json` sidecar loader, and `auto_node_buckets` (the ladders of
-`-node_buckets auto:G` / `-pocket_buckets auto:G`). Field names and
-defaults are the JAX package's, so a sidecar written by either package
+`-node_buckets auto:G` / `-pocket_buckets auto:G`), and `reference_root`,
+where the raw structures and frozen test sets lie by default. Field names
+and defaults are the JAX package's, so a sidecar written by either package
 loads here unchanged.
 """
 
@@ -11,9 +12,25 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 from typing import Tuple
 
 import numpy as np
+
+
+def reference_root(*parts: str, must_exist: bool = False) -> str:
+    """A path under the reference data checkout (raw structures, split
+    files, frozen test sets): `$EQUIDOCK_REFERENCE_ROOT`, by default
+    `~/reference`. Read when called, so the variable moves every default
+    built after it is set."""
+    root = os.environ.get("EQUIDOCK_REFERENCE_ROOT",
+                          os.path.join(os.path.expanduser("~"), "reference"))
+    path = os.path.join(root, *parts)
+    if must_exist and not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{path} not found: set EQUIDOCK_REFERENCE_ROOT to the reference data "
+            "checkout (PDB structures, frozen test sets)")
+    return path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +134,13 @@ class DataConfig:
     data: str = "db5"                # 'db5' | 'dips'
     data_fraction: float = 1.0       # leading share of the train split kept
     split: int = 0
+    # Building caches from PDB files (`data/dataset.py::build_cache`): worker
+    # processes, the `<code>_{l,r}_b.pdb` directory and the `<split>.txt` one.
+    n_jobs: int = 4
+    raw_data_path: str = dataclasses.field(
+        default_factory=lambda: reference_root("data/benchmark5.5/structures"))
+    split_files_path: str = dataclasses.field(
+        default_factory=lambda: reference_root("data/benchmark5.5/cv/cv_0"))
     cache_dir: str = "./cache"
     node_buckets: Tuple[int, ...] = (64, 128, 192, 256, 384, 512, 768, 1024, 1536)
     pocket_buckets: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
@@ -246,9 +270,10 @@ def config_from_dict(d: dict) -> Config:
     """Build a Config from a sidecar dict: the port's (whole config, or the
     model / graph / data / train sections of its older weight files) or the
     JAX package's. Model and graph keys must all be known; the data and
-    train sections keep the fields above (the others are host settings such
-    as the raw-data paths), missing fields take their defaults, and the
-    parallel section is not read (a mesh of more than one device raises)."""
+    train sections keep the fields above (the others, such as the JAX
+    collate cache's budget, are settings of its host code), missing fields
+    take their defaults, and the parallel section is not read (a mesh of
+    more than one device raises)."""
     par = d.get("parallel", {})
     if par.get("dp", 1) * par.get("gp", 1) > 1:
         raise NotImplementedError(f"parallel dp={par.get('dp', 1)} gp={par.get('gp', 1)}: "

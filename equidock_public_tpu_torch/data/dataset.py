@@ -1,6 +1,7 @@
 """Training samples and batches: the port of
-`equidock_public_tpu/data/dataset.py` (`ComplexSample`, `_process_one`, the
-npz split cache, DIPS shards whole or streamed, `DockingDataset.sample` and
+`equidock_public_tpu/data/dataset.py` (`ComplexSample`; `_process_one` and
+`build_cache`, which featurize a split of PDB files into the npz split
+cache; DIPS shards whole or streamed; `DockingDataset.sample` and
 `batches`, unpacked or packed with `cfg.data.pack`).
 
 Augmentation is the JAX package's: a 50% ligand/receptor swap (train split),
@@ -25,7 +26,9 @@ from __future__ import annotations
 import dataclasses
 import glob
 import os
-from typing import Iterator, List, Optional, Sequence, Union
+import time
+from concurrent.futures import ProcessPoolExecutor
+from typing import Callable, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -34,8 +37,8 @@ from ..config import Config, GraphConfig
 from ..device import resolve_device
 from ..graph import PairBatch, collate, collate_packed
 from .featurize import (ProteinGraph, alpha_carbon_array, build_protein_graph,
-                        extract_pocket, uniform_rotation_translation)
-from .pdb import GroupedResidue, ca_coords, read_pdb
+                        extract_pocket, filter_residues, uniform_rotation_translation)
+from .pdb import GroupedResidue, ca_coords, group_residues, read_pdb
 
 
 @dataclasses.dataclass
@@ -73,6 +76,66 @@ def split_chain_complex(residues: Sequence[GroupedResidue],
     `complex_from_residues` drops it."""
     n = len(residues)
     return complex_from_residues(residues[:n // 2], residues[n // 2:], gc)
+
+
+def _process_one(task) -> Optional[ComplexSample]:
+    """One complex of (ligand PDB, receptor PDB, GraphConfig), or None where
+    `complex_from_residues` drops it. Runs in the pool's workers: numpy and
+    the native builder only."""
+    lig_path, rec_path, gc = task
+    return complex_from_residues(filter_residues(group_residues(read_pdb(lig_path))),
+                                 filter_residues(group_residues(read_pdb(rec_path))), gc)
+
+
+def process_map(fn: Callable, tasks: Sequence, n_jobs: int) -> list:
+    """`fn` over `tasks` in order: in a pool of `n_jobs` processes when
+    `n_jobs > 1`, else here. The native graph builder is built and loaded
+    first, so the workers find it built and run no compiler of their own."""
+    if n_jobs <= 1:
+        return [fn(t) for t in tasks]
+    from .. import native
+
+    native.load_library()
+    with ProcessPoolExecutor(max_workers=n_jobs) as ex:
+        return list(ex.map(fn, tasks))
+
+
+def split_codes(raw_data_path: str, split_file: str) -> List[str]:
+    """The sorted distinct codes of a split file that have both
+    `<code>_l_b.pdb` and `<code>_r_b.pdb` in `raw_data_path`."""
+    with open(split_file) as f:
+        codes = sorted({line.strip() for line in f if line.strip()})
+    files = set(os.listdir(raw_data_path))
+    return [c for c in codes if f"{c}_l_b.pdb" in files and f"{c}_r_b.pdb" in files]
+
+
+def build_cache(cfg: Config, split: str, log=print) -> str:
+    """Featurize one DB5 split into `cfg.cache_path()/<split>.npz`: the
+    codes of `<split_files_path>/<split>.txt` with both `<code>_l_b.pdb` and
+    `<code>_r_b.pdb` in `raw_data_path`, in sorted order, on `n_jobs`
+    processes; complexes with too few residues or a pocket of at most 3
+    pairs are dropped (and logged), and the seconds from reading to the
+    written file are logged. An existing cache is kept as it is."""
+    dc = cfg.data
+    out_path = os.path.join(cfg.cache_path(), f"{split}.npz")
+    if os.path.exists(out_path):
+        log(f"cache exists: {out_path}")
+        return out_path
+    codes = split_codes(dc.raw_data_path, os.path.join(dc.split_files_path, split + ".txt"))
+    log(f"{split}: {len(codes)} complexes")
+    t0 = time.perf_counter()
+    tasks = [(os.path.join(dc.raw_data_path, f"{c}_l_b.pdb"),
+              os.path.join(dc.raw_data_path, f"{c}_r_b.pdb"), cfg.graph) for c in codes]
+    kept, samples = [], []
+    for code, sample in zip(codes, process_map(_process_one, tasks, dc.n_jobs)):
+        if sample is None:
+            log(f"  dropped {code} (pocket <= 3 pairs or too few residues)")
+            continue
+        kept.append(code)
+        samples.append(sample)
+    write_cache(out_path, kept, samples)
+    log(f"wrote {out_path}: {len(kept)} complexes in {time.perf_counter() - t0:.3f} s")
+    return out_path
 
 
 _SIDE_KEYS = ("res_id", "x", "mu_r_norm", "nbr", "nbr_mask", "edge_feat")
@@ -166,7 +229,7 @@ class DockingDataset:
         at `cache_path` or `cfg.cache_path()/<split>.npz`; for `data='dips'`
         without `cache_path`, the split's shards, streamed through a shard
         LRU of `stream_window` shards with `stream_dips`, else loaded whole
-        (a split without shards raises: the port does not build them). The
+        (a split without shards raises, naming the builders). The
         train split keeps its leading `data_fraction`, its targets blended
         with the teacher poses of `distill_dir` when one is set (a streamed
         split raises: it holds no samples to blend)."""
@@ -181,8 +244,11 @@ class DockingDataset:
             if not shard_files(cfg.cache_path(), split):
                 raise NotImplementedError(
                     f"data='dips': no DIPS shards of split {split!r} under {cfg.cache_path()} "
-                    "(the curriculum's DIPS stage reads them); building them from the raw "
-                    "DIPS pair files is not ported")
+                    "(the curriculum's DIPS stage reads them); build them from DIPS pair "
+                    "files (data/dips.py::build_dips_cache), from bound complexes "
+                    "(python -m equidock_public_tpu_torch.cli.preprocess "
+                    "-dips_frozen_complexes DIR) or as interface crops "
+                    "(python -m equidock_public_tpu_torch.cli.crop_corpus)")
             if dc.stream_dips:
                 index = DipsShardIndex(cfg.cache_path(), split)
                 lru = ShardLRU(index.shard_paths, capacity=max(1, dc.stream_window))

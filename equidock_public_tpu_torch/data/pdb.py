@@ -1,7 +1,8 @@
-"""Minimal fixed-column PDB reader/writer: the port's copy of the parts of
-`equidock_public_tpu/data/pdb.py` that inference and the evaluator need.
-Only ATOM records are parsed, with the columns the pipeline uses (PDB 3.3
-column layout).
+"""Minimal fixed-column PDB reader/writer: the port's copy of
+`equidock_public_tpu/data/pdb.py`. Only ATOM records are parsed, with the
+columns the pipeline uses (PDB 3.3 column layout). `write_pdb_renumbered`
+writes the frozen test sets (residue and atom numbers from 1);
+`build_atom_table` makes a table of raw fields (DIPS pair frames).
 """
 
 from __future__ import annotations
@@ -77,6 +78,62 @@ def write_pdb(path: str, table: AtomTable, new_coords: np.ndarray) -> None:
             line = line[:30] + f"{x:8.3f}{y:8.3f}{z:8.3f}" + line[54:]
             f.write(line + "\n")
         f.write("END\n")
+
+
+def _regen_ids(values: np.ndarray) -> np.ndarray:
+    """Number consecutive runs of equal values 1, 2, 3, ..."""
+    out = np.empty(len(values), dtype=np.int64)
+    cur_id, cur_val = 1, values[0]
+    for i, v in enumerate(values):
+        if v != cur_val:
+            cur_val = v
+            cur_id += 1
+        out[i] = cur_id
+    return out
+
+
+def write_pdb_renumbered(path: str, table: AtomTable, new_coords: np.ndarray) -> None:
+    """`write_pdb` with atom serials 1, 2, ... and residues numbered from 1
+    in file order (a new residue wherever chain, number or insertion code
+    changes), as the frozen test sets are written."""
+    if new_coords.shape != (len(table), 3):
+        raise ValueError(f"coords {new_coords.shape} vs {len(table)} atoms")
+    res_ids = _regen_ids(np.array(
+        [f"{table.chain[i]}|{table.residue[i]}|{table.insertion[i]}"
+         for i in range(len(table))], dtype=object))
+    with open(path, "w") as f:
+        for i, line in enumerate(table.lines):
+            line = line.ljust(80)
+            x, y, z = new_coords[i]
+            line = (line[:6] + f"{i + 1:5d}" + line[11:22] + f"{res_ids[i]:4d}" + line[26:30]
+                    + f"{x:8.3f}{y:8.3f}{z:8.3f}" + line[54:])
+            f.write(line + "\n")
+        f.write("END\n")
+
+
+def build_atom_table(atom_name, resname, chain, residue, coords, element) -> AtomTable:
+    """An AtomTable of raw field arrays, with fixed-column ATOM lines made up
+    for them so the writers apply (the DIPS pair frames are no PDB files)."""
+    coords = np.asarray(coords, dtype=np.float32)
+    n = coords.shape[0]
+    lines = []
+    for i in range(n):
+        name = str(atom_name[i])
+        name_f = name if len(name) >= 4 else f" {name:<3s}"   # short names from column 14
+        lines.append(
+            f"ATOM  {i + 1:5d} {name_f}{'':1s}{str(resname[i])[:3]:>3s} "
+            f"{str(chain[i])[:1]:1s}{int(residue[i]):4d}{'':4s}"
+            f"{coords[i, 0]:8.3f}{coords[i, 1]:8.3f}{coords[i, 2]:8.3f}"
+            f"{1.0:6.2f}{0.0:6.2f}{'':10s}{str(element[i])[:2]:>2s}")
+    return AtomTable(
+        atom_name=np.asarray(atom_name, dtype=str),
+        resname=np.asarray(resname, dtype=str),
+        chain=np.asarray([str(c)[:1] for c in chain], dtype=str),
+        residue=np.asarray(residue, dtype=np.int64),
+        insertion=np.asarray([""] * n, dtype=str),
+        coords=coords,
+        element=np.asarray(element, dtype=str),
+        lines=lines)
 
 
 def group_residues(table: AtomTable) -> List[GroupedResidue]:

@@ -1,15 +1,18 @@
 """Synthetic protein graphs with real-kNN topology, synthetic split caches
-and synthetic DIPS shards: the port's copy of `synth_graph` and
-`write_synth_split` from `equidock_public_tpu/data/synth.py`, and of the
-shard recipe of the JAX package's streaming tests (`_synth_graph`,
-`_write_shards` in `tests/test_dips_stream.py`). Under one seed both
-packages write the same arrays, so the card's machine can make the caches
-the JAX package's tests use without importing it."""
+and synthetic DIPS shards: the port's copy of `synth_graph`,
+`write_synth_split` and `dips_testset_sizes` from
+`equidock_public_tpu/data/synth.py`, and of the shard recipe of the JAX
+package's streaming tests (`_synth_graph`, `_write_shards` in
+`tests/test_dips_stream.py`). Under one seed both packages write the same
+arrays, so the card's machine can make the caches the JAX package's tests
+use without importing it. `write_db5_raw_tree` writes PDB files and split
+files in the layout of the DB5.5 checkout from single chains cut in two,
+the raw input of the cache builders."""
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -113,3 +116,62 @@ def write_synth_shards(cache_dir: str, split: str = "train", n_shards: int = 12,
         write_sidecar(path, meta)
         paths.append(path)
     return paths
+
+
+def dips_testset_sizes(dips_dir: str) -> List[Tuple[int, int]]:
+    """(n_lig, n_rec) filtered-residue counts of the pairs
+    `random_transformed/*_{l,r}_b.pdb` under `dips_dir` (the frozen DIPS
+    test set: the sample of DIPS sizes the crop corpus draws from)."""
+    import glob
+
+    from .featurize import filter_residues
+    from .pdb import group_residues, read_pdb
+
+    sizes = []
+    for lig in sorted(glob.glob(os.path.join(dips_dir, "random_transformed", "*_l_b.pdb"))):
+        rec = lig.replace("_l_b.pdb", "_r_b.pdb")
+        if not os.path.exists(rec):
+            continue
+        n = [len(filter_residues(group_residues(read_pdb(f)))) for f in (lig, rec)]
+        sizes.append((n[0], n[1]))
+    return sizes
+
+
+def write_chain_halves(chain_pdb: str, lig_path: str, rec_path: str) -> None:
+    """The ATOM lines of one chain cut in two at half its residues (file
+    order): the first half as the ligand, the rest as the receptor. The
+    halves touch natively, so the pair has a real interface."""
+    with open(chain_pdb) as f:
+        lines = [ln for ln in f if ln.startswith("ATOM")]
+    keys = list(dict.fromkeys(ln[21:27] for ln in lines))
+    first = set(keys[:len(keys) // 2])
+    for path, keep in ((lig_path, True), (rec_path, False)):
+        with open(path, "w") as f:
+            f.writelines(ln for ln in lines if (ln[21:27] in first) == keep)
+
+
+def write_db5_raw_tree(root: str, chains: Dict[str, str],
+                       splits: Sequence[Tuple[str, int]] = (("train", 10), ("val", 3),
+                                                            ("test", 3))) -> Tuple[str, str]:
+    """A raw tree in the DB5.5 checkout's layout under `root`: for each code
+    of `chains` (code -> a single-chain PDB), in order,
+    `data/benchmark5.5/structures/<code>_{l,r}_b.pdb` (`write_chain_halves`),
+    and `data/benchmark5.5/cv/cv_0/<split>.txt` with the next `n` codes per
+    (split, n). Returns (structures dir, split-files dir): the defaults of
+    `raw_data_path` and `split_files_path` with EQUIDOCK_REFERENCE_ROOT=root."""
+    structures = os.path.join(root, "data", "benchmark5.5", "structures")
+    cv = os.path.join(root, "data", "benchmark5.5", "cv", "cv_0")
+    os.makedirs(structures, exist_ok=True)
+    os.makedirs(cv, exist_ok=True)
+    codes = list(chains)
+    if sum(n for _, n in splits) > len(codes):
+        raise ValueError(f"{len(codes)} chains for splits {list(splits)}")
+    for code in codes:
+        write_chain_halves(chains[code], os.path.join(structures, f"{code}_l_b.pdb"),
+                           os.path.join(structures, f"{code}_r_b.pdb"))
+    start = 0
+    for split, n in splits:
+        with open(os.path.join(cv, f"{split}.txt"), "w") as f:
+            f.write("".join(c + "\n" for c in codes[start:start + n]))
+        start += n
+    return structures, cv

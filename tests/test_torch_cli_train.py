@@ -64,7 +64,11 @@ PORTED = {"pack": ([], lambda a, c: c.data.pack),
           "fine_tune_init": (["copy"], lambda a, c: a.fine_tune_init == "copy"),
           # pose distillation (its targets: tests/test_torch_distill.py)
           "distill_dir": (["teacher"], lambda a, c: c.data.distill_dir == "teacher"),
-          "distill_alpha": (["0.25"], lambda a, c: c.data.distill_alpha == 0.25)}
+          "distill_alpha": (["0.25"], lambda a, c: c.data.distill_alpha == 0.25),
+          # the cache builders' flags (their runs: tests/test_torch_preprocess.py)
+          "n_jobs": (["2"], lambda a, c: c.data.n_jobs == 2),
+          "raw_data_path": (["raw"], lambda a, c: c.data.raw_data_path == "raw"),
+          "split_files_path": (["cv"], lambda a, c: c.data.split_files_path == "cv")}
 
 
 @pytest.mark.parametrize("flag", sorted(cli.REFUSED) + sorted(PORTED))

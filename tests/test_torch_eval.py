@@ -21,6 +21,7 @@ from equidock_public_tpu_torch.cli import ensemble_inference, eval_outputs
 from equidock_public_tpu_torch.cli import inference as inference_cli
 from equidock_public_tpu_torch.config import load_config
 from equidock_public_tpu_torch.data.pdb import read_pdb, write_pdb
+from equidock_public_tpu_torch.data.synth import write_chain_halves
 from equidock_public_tpu_torch.eval import ensemble
 from equidock_public_tpu_torch.eval.rmsd import evaluate_output_dir
 from equidock_public_tpu_torch.params import default_checkpoint, params_from_numpy, save_params
@@ -52,12 +53,7 @@ def _rotation(rng, angle=None):
 def _split_chain(code, out_l, out_r):
     """Write the first half of a tracked chain's residues (file order) as
     the ligand and the rest as the receptor: a complex with an interface."""
-    lines = [ln for ln in open(_abs(torch_golden.pdb_path(code))) if ln.startswith("ATOM")]
-    keys = list(dict.fromkeys(ln[21:27] for ln in lines))
-    first = set(keys[:len(keys) // 2])
-    for path, keep in ((out_l, True), (out_r, False)):
-        with open(path, "w") as f:
-            f.writelines(ln for ln in lines if (ln[21:27] in first) == keep)
+    write_chain_halves(_abs(torch_golden.pdb_path(code)), out_l, out_r)
 
 
 @pytest.fixture(scope="module")

@@ -7,7 +7,10 @@ those modules cannot be imported; likewise the inference surface (native
 builder, clash removal, directory, batched and ensemble inference, the
 evaluator, batched serving), and a resident epoch, the curriculum on
 streamed DIPS shards and the shipped models' weight files, and a packed
-training step with BatchNorm, dropout, remat and the exact OT solver."""
+training step with BatchNorm, dropout, remat and the exact OT solver. The
+host builders and tools import pandas and dill (absent there too) inside
+the DIPS pickle readers only: no module imports them at module level, and
+the card-side builders and tools run where neither can be imported."""
 
 import ast
 import os
@@ -551,3 +554,113 @@ def test_a_bf16_bn_checkpoint_is_served_with_jax_and_the_jax_package_unimportabl
                           timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "SLICE8" in proc.stdout
+
+
+SLICE9_MODULES = ("data/dataset.py", "data/dips.py", "data/pdb.py", "data/synth.py",
+                  "data/crops.py", "cli/preprocess.py", "cli/partition_dips.py",
+                  "cli/crop_corpus.py", "cli/testset_gen.py", "cli/align_receptor.py",
+                  "cli/padding_report.py", "cli/surface_analysis.py", "cli/hyper_search.py",
+                  "utils/padding.py", "utils/profiling.py")
+HOST_ONLY = ("pandas", "dill")
+
+
+def _module_level_imports(path):
+    """Modules imported by statements outside every function body."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(node, ast.Import):
+                yield from (a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                yield node.module
+            yield from walk(ast.iter_child_nodes(node))
+
+    yield from walk(ast.parse(open(path).read(), filename=path).body)
+
+
+@pytest.mark.parametrize("module", SLICE9_MODULES)
+def test_slice9_modules_are_under_the_guard(module):
+    path = os.path.join(PKG, module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{module} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_module_level_pandas_or_dill(path):
+    bad = [m for m in _module_level_imports(path) if m.split(".")[0] in HOST_ONLY]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad} at module level"
+
+
+def test_the_module_level_check_sees_through_classes_but_not_functions(tmp_path):
+    p = tmp_path / "x.py"
+    p.write_text("import os\ntry:\n    import pandas\nexcept ImportError:\n    pass\n"
+                 "class A:\n    import dill\ndef f():\n    import pandas as pd\n")
+    assert list(_module_level_imports(str(p))) == ["os", "pandas", "dill"]
+
+
+BLOCKED_SLICE9 = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint",
+             "equidock_public_tpu", "pandas", "dill"):
+    sys.modules[name] = None
+import contextlib, io, json, os, tempfile
+import numpy as np
+from equidock_public_tpu_torch.cli import (align_receptor, crop_corpus, padding_report,
+                                           preprocess, surface_analysis, testset_gen)
+from equidock_public_tpu_torch.config import Config, DataConfig
+from equidock_public_tpu_torch.data.dataset import DockingDataset, build_cache
+from equidock_public_tpu_torch.data.synth import write_db5_raw_tree
+from equidock_public_tpu_torch.utils import profiling
+tmp = tempfile.mkdtemp()
+pdb = os.path.join(REPO, "artifacts", "db5_test_outputs", "{}_l_b_EQUIDOCK_TPU.pdb")
+codes = ("2VDB", "2SNI", "6B0S", "2AYO")
+raw, cv = write_db5_raw_tree(os.path.join(tmp, "ref"), {c: pdb.format(c) for c in codes},
+                             (("train", 2), ("val", 1), ("test", 1)))
+os.environ["EQUIDOCK_REFERENCE_ROOT"] = os.path.join(tmp, "ref")
+cfg = Config(data=DataConfig(n_jobs=2, cache_dir=os.path.join(tmp, "cache")))
+build_cache(cfg, "train", log=lambda *a: None)
+assert preprocess.main(["-n_jobs", "1", "-cache_dir", os.path.join(tmp, "cache")]) == 0
+assert len(DockingDataset.from_cache(cfg, "val")) == 1
+sets = os.path.join(tmp, "sets", "random_transformed")
+with contextlib.redirect_stdout(io.StringIO()):
+    testset_gen.main(["-out_dir", sets])
+    assert crop_corpus.main(["-n_pairs", "4", "-n_val_pairs", "2", "-max_side", "32",
+                             "-n_jobs", "1", "-dips_sizes_dir", os.path.dirname(sets),
+                             "-cache_dir", os.path.join(tmp, "cache")]) == 0
+    assert preprocess.main(["-data", "dips", "-dips_frozen_complexes", sets,
+                            "-cache_dir", os.path.join(tmp, "frozen")]) == 0
+    assert align_receptor.main(["-ligand", os.path.join(sets, "2AYO_l_b.pdb"),
+                                "-receptor", os.path.join(sets, "2AYO_r_b.pdb"),
+                                "-receptor_gt", os.path.join(sets, "2AYO_r_b_COMPLEX.pdb"),
+                                "-out", os.path.join(tmp, "aligned.pdb")]) == 0
+    assert surface_analysis.main(["-pdb", pdb.format("2VDB"), "-depth", "hull"]) == 0
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert padding_report.main(["-cache_dir", os.path.join(tmp, "cache"), "-dips_dir",
+                                os.path.dirname(sets)]) == 0
+assert set(json.loads(buf.getvalue())) == {"bs", "db5_train", "dips_test"}
+with profiling.trace(os.path.join(tmp, "prof")):
+    with profiling.named_scope("span"):
+        np.ones(3)
+assert os.path.exists(os.path.join(tmp, "prof", profiling.TRACE_FILE))
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "equidock_public_tpu",
+                                  "pandas", "dill")]
+assert not loaded, loaded
+print("SLICE9")
+"""
+
+
+def test_the_host_builders_and_tools_run_without_jax_pandas_or_dill():
+    """The raw tree through build_cache (2 processes) and cli.preprocess,
+    the test set, the crop corpus, -dips_frozen_complexes, the aligner, the
+    surface check, the padding report and a profiled span, in a process
+    where jax, the JAX package, pandas and dill cannot be imported."""
+    code = f"REPO = {REPO!r}\n" + BLOCKED_SLICE9
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "SLICE9" in proc.stdout

@@ -15,6 +15,7 @@ full atom count). Shared by the tests and the command that writes the files:
     JAX_PLATFORMS=cpu python -m tests.torch_golden models    # the six other models
     JAX_PLATFORMS=cpu python -m tests.torch_golden resident  # the resident fit file
     JAX_PLATFORMS=cpu python -m tests.torch_golden bf16      # the bf16 serving file
+    JAX_PLATFORMS=cpu python -m tests.torch_golden slice9    # the host builders' file
 
 `models` converts the six other tracked checkpoints (`MODELS`) into the
 port's weight files with golden values of their served requests;
@@ -24,7 +25,11 @@ the JAX package made, which the port replays; `bf16` writes
 `db5_model_best_bf16.golden.json`, the served requests through the JAX
 package's fused path (the Pallas edge and attention kernels in interpret
 mode, which the port's kernel path matches) at `dtype='bfloat16'`, and
-the same path at float32 beside it.
+the same path at float32 beside it; `slice9` writes `slice9.golden.json`,
+what the JAX package's host builders and tools make of a raw DB5 tree of
+tracked chains cut in two (`SLICE9_RECIPE`, kept in the file): the split
+caches' digests, the frozen test set, its DIPS shards, an aligned ligand,
+the crop corpus, the padding report, surface rhos and hyper-search draws.
 """
 
 import json
@@ -771,6 +776,159 @@ def replay_sources(golden, device="cpu"):
     return lambda purpose, epoch: ReplayDraws(triples[order[(purpose, epoch)]], device)
 
 
+SLICE9_GOLDEN = os.path.join(ASSETS, "slice9.golden.json")
+# The raw tree of the slice-9 checks: 16 tracked chains cut in two (the
+# 16 smallest but 2SIC), the first 10 the train split, then 3 val, 3 test.
+SLICE9_RECIPE = {
+    "chain_file": PDB_DIR + "/{}_l_b_EQUIDOCK_TPU.pdb",
+    "codes": ["2VDB", "2SNI", "6B0S", "1NW9", "1HCF", "2AYO", "1QA9", "1JIW", "5C7X",
+              "4POU", "1ZHI", "7CEI", "1MLC", "1VFB", "3SZK", "1IRA"],
+    "splits": [["train", 10], ["val", 3], ["test", 3]],
+    "layout": {"reference_root": "ref", "cache_dir": "cache", "frozen_cache_dir": "frozen",
+               "testset": "testset/random_transformed", "dips_sizes_dir": "testset"},
+    "testset_seed": 0,
+    "crops": {"n_pairs": 32, "n_val_pairs": 8, "max_side": 256, "crop_seed": 0},
+    "surface_chains": ["2VDB", "2SNI"],
+    "hyper": {"random_seed": 8, "num_trials": 2},
+}
+HYPER_FIELDS = (("model", "dropout"), ("model", "iegmn_n_lays"), ("model", "shared_layers"),
+                ("model", "skip_weight_h"), ("model", "x_connection_init"),
+                ("train", "w_decay"), ("train", "intersection_loss_weight"),
+                ("train", "pocket_ot_loss_weight"))
+
+
+def array_digest(a: np.ndarray) -> dict:
+    """shape, dtype and sha256 of an array's bytes; for floats also the
+    float64 sum and sum of absolute values."""
+    import hashlib
+
+    d = {"shape": list(a.shape), "dtype": str(a.dtype),
+         "sha256": hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()}
+    if a.dtype.kind == "f":
+        d["sum"] = float(a.astype(np.float64).sum())
+        d["abs_sum"] = float(np.abs(a.astype(np.float64)).sum())
+    return d
+
+
+def npz_digest(path: str) -> dict:
+    with np.load(path, allow_pickle=False) as z:
+        return {"codes": [str(c) for c in z["codes"]],
+                "arrays": {k: array_digest(z[k]) for k in sorted(z.files)}}
+
+
+def pdb_record(path: str) -> dict:
+    """sha256 of a written PDB and its coordinates as the text gives them."""
+    import hashlib
+
+    from equidock_public_tpu_torch.data.pdb import read_pdb
+
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    return {"sha256": digest,
+            "coords": [round(float(v), 3) for v in read_pdb(path).coords.ravel()]}
+
+
+def slice9_tree(root: str, recipe=SLICE9_RECIPE) -> dict:
+    """Write the recipe's raw tree under `root`; the layout's absolute paths."""
+    from equidock_public_tpu_torch.data.synth import write_db5_raw_tree
+
+    paths = {k: os.path.join(root, v) for k, v in recipe["layout"].items()}
+    chains = {c: os.path.join(REPO, recipe["chain_file"].format(c)) for c in recipe["codes"]}
+    paths["raw"], paths["cv"] = write_db5_raw_tree(paths["reference_root"], chains,
+                                                   [tuple(s) for s in recipe["splits"]])
+    return paths
+
+
+def jax_slice9_golden(root: str, recipe=SLICE9_RECIPE) -> dict:
+    """The JAX package's host builders and tools on the recipe's tree, on
+    the CPU, one process each (n_jobs 1)."""
+    import contextlib
+    import io
+    import random
+    import sys
+
+    from equidock_public_tpu.cli import align_receptor, padding_report
+    from equidock_public_tpu.cli._common import add_config_args, config_from_args
+    from equidock_public_tpu.cli.hyper_search import sample_config
+    from equidock_public_tpu.cli.surface_analysis import analyze
+    from equidock_public_tpu.cli.testset_gen import main_db5
+    from equidock_public_tpu.config import Config, DataConfig
+    from equidock_public_tpu.data.crops import generate_crop_shards
+    from equidock_public_tpu.data.dataset import build_cache
+    from equidock_public_tpu.data.dips import build_dips_frozen_cache
+    from equidock_public_tpu.data.synth import dips_testset_sizes
+
+    paths = slice9_tree(root, recipe)
+    quiet = lambda *a: None
+    raw, cv = paths["raw"], paths["cv"]
+    cfg = Config(data=DataConfig(raw_data_path=raw, split_files_path=cv, n_jobs=1,
+                                 cache_dir=paths["cache_dir"]))
+    out = {"source": "equidock_public_tpu on the CPU (tests/torch_golden.py slice9)",
+           "recipe": recipe, "db5_cache": {}}
+    for split, _ in recipe["splits"]:
+        d = npz_digest(build_cache(cfg, split, log=quiet))
+        with open(os.path.join(cv, split + ".txt")) as f:
+            listed = [line.strip() for line in f if line.strip()]
+        d["dropped"] = sorted(set(listed) - set(d["codes"]))
+        out["db5_cache"][split] = d
+    test_dir = paths["testset"]
+    main_db5(raw, os.path.join(cv, "test.txt"), test_dir,
+             np.random.default_rng(recipe["testset_seed"]))
+    out["testset"] = {f: pdb_record(os.path.join(test_dir, f))
+                      for f in sorted(os.listdir(test_dir))}
+    frozen = Config(data=DataConfig(data="dips", n_jobs=1, cache_dir=paths["frozen_cache_dir"]))
+    out["dips_frozen"] = {os.path.basename(p): npz_digest(p)
+                          for p in build_dips_frozen_cache(frozen, test_dir, log=quiet)}
+    code = sorted({f.split("_")[0] for f in os.listdir(test_dir)})[0]
+    aligned = os.path.join(root, "aligned.pdb")
+    argv = ["align_receptor", "-ligand", os.path.join(test_dir, f"{code}_l_b.pdb"),
+            "-receptor", os.path.join(test_dir, f"{code}_r_b.pdb"),
+            "-receptor_gt", os.path.join(test_dir, f"{code}_r_b_COMPLEX.pdb"), "-out", aligned]
+    saved = sys.argv
+    try:
+        sys.argv = argv
+        with contextlib.redirect_stdout(io.StringIO()):
+            align_receptor.main()
+        sys.argv = ["padding_report", "-cache_dir", paths["cache_dir"], "-dips_dir",
+                    paths["dips_sizes_dir"]]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            padding_report.main()
+    finally:
+        sys.argv = saved
+    out["align_receptor"] = {"code": code, **pdb_record(aligned)}
+    out["padding_report"] = json.loads(buf.getvalue())
+    c = recipe["crops"]
+    sizes = dips_testset_sizes(paths["dips_sizes_dir"])
+    dips = Config(data=DataConfig(data="dips", cache_dir=paths["cache_dir"]))
+    split_codes = {s: out["db5_cache"][s]["codes"] + out["db5_cache"][s]["dropped"]
+                   for s in ("train", "val")}
+    out["crop_sizes"] = [list(s) for s in sizes]
+    out["crops"] = {}
+    for split, parents, n, seed in (
+            ("train", "train", c["n_pairs"], c["crop_seed"]),
+            ("val", "val", c["n_val_pairs"], c["crop_seed"] + 1),
+            ("test", "val", max(64, c["n_val_pairs"] // 4), c["crop_seed"] + 2)):
+        for p in generate_crop_shards(dips, split, sorted(split_codes[parents]), raw, n, seed,
+                                      sizes, c["max_side"], n_jobs=1, log=quiet):
+            out["crops"][os.path.basename(p)] = npz_digest(p)
+    out["surface_rhos"] = {
+        f"{chain}/{depth}": analyze(os.path.join(REPO, recipe["chain_file"].format(chain)),
+                                    depth_method=depth)
+        for chain in recipe["surface_chains"] for depth in ("sas", "hull")}
+    import argparse
+
+    p = argparse.ArgumentParser()
+    add_config_args(p)
+    base = config_from_args(p.parse_args([]))
+    rng = random.Random(recipe["hyper"]["random_seed"])
+    draws = [sample_config(base, rng) for _ in range(recipe["hyper"]["num_trials"])]
+    out["hyper_search"] = [dict({f"{sec}.{k}": getattr(getattr(d, sec), k)
+                                 for sec, k in HYPER_FIELDS}, banner=d.banner())
+                           for d in draws]
+    return out
+
+
 if __name__ == "__main__":
     import dataclasses
     import sys
@@ -806,6 +964,12 @@ if __name__ == "__main__":
         with open(BF16_GOLDEN, "w") as f:
             json.dump(jax_bf16_golden(), f, indent=1)
         sys.exit(0)
+    if sys.argv[1:] == ["slice9"]:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp, open(SLICE9_GOLDEN, "w") as f:
+            json.dump(jax_slice9_golden(tmp), f)
+        sys.exit(0)
     sidecar = os.path.join(ASSETS, "db5_model_best.config.json")
     with open(sidecar, "w") as f:     # the whole config, as the port reads it
         cfg = load_config(CHECKPOINT + ".config.json")
@@ -832,3 +996,7 @@ if __name__ == "__main__":
         json.dump(jax_resident_fit_golden(), f, indent=1)
     with open(BF16_GOLDEN, "w") as f:
         json.dump(jax_bf16_golden(), f, indent=1)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp, open(SLICE9_GOLDEN, "w") as f:
+        json.dump(jax_slice9_golden(tmp), f)

@@ -1,7 +1,10 @@
 """Helpers shared by the tests of the PyTorch port (`test_torch_*.py`):
 an autouse fixture that pins torch's default dtype to float32 (another test
-module sets float64 at import), and converters from the JAX package's
-batches to the port's."""
+module sets float64 at import), converters from the JAX package's
+batches to the port's, and a small raw DB5 tree with the npz comparison
+of the host-builder tests."""
+
+import os
 
 import numpy as np
 import pytest
@@ -100,3 +103,29 @@ def port_config(jcfg):
                      data=section(tc.DataConfig, jcfg.data),
                      train=section(tc.TrainConfig, jcfg.train),
                      checkpoint_dir=jcfg.checkpoint_dir, log_dir=jcfg.log_dir)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# tracked chains cut in two for the host-builder tests: 4 train, 1 val, 1 test
+SMALL_TREE = ("2VDB", "2SNI", "6B0S", "2AYO", "1NW9", "1QA9")
+
+
+def chain_file(code: str) -> str:
+    return os.path.join(REPO, "artifacts", "db5_test_outputs", f"{code}_l_b_EQUIDOCK_TPU.pdb")
+
+
+def write_small_tree(root, codes=SMALL_TREE, splits=(("train", 4), ("val", 1), ("test", 1))):
+    """A raw DB5 tree of tracked chains cut in two (`write_db5_raw_tree`);
+    returns (structures dir, split-files dir)."""
+    from equidock_public_tpu_torch.data.synth import write_db5_raw_tree
+
+    return write_db5_raw_tree(str(root), {c: chain_file(c) for c in codes}, splits)
+
+
+def assert_npz_equal(got_path, want_path):
+    """Every key of both files, bit-equal in value and dtype."""
+    with np.load(got_path) as a, np.load(want_path) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype, k
+            assert np.array_equal(a[k], b[k]), k
