@@ -1,23 +1,19 @@
 """Config flags shared by the port's CLIs (`train`, `inference`,
 `ensemble_inference`, `preprocess`, `crop_corpus`, `padding_report`,
-`hyper_search`): the flags of `equidock_public_tpu/cli/_common.py`
-that the port honours, with the JAX package's names and defaults, and those
-it refuses by name."""
+`hyper_search`): the flags of `equidock_public_tpu/cli/_common.py`, with
+the JAX package's names and defaults. The port honours every one of them
+(`REFUSED`, the flags it would refuse by name, is empty)."""
 
 from __future__ import annotations
 
 import argparse
 
-from ..config import Config, DataConfig, GraphConfig, ModelConfig, TrainConfig, reference_root
+from ..config import (Config, DataConfig, GraphConfig, ModelConfig, ParallelConfig, TrainConfig,
+                      reference_root)
 
-# Flags of the JAX package's CLIs that the port does not honour: what each
-# selects there.
-REFUSED = {
-    "dp": "mesh training and dp-resident epochs",
-    "gp": "mesh training", "pallas_ring_halo": "mesh training",
-    "pad_cache_gb": "the JAX collate cache", "compile_cache": "the XLA compile cache",
-    "debug": "the JAX debug mode",
-}
+# Flags of the JAX package's CLIs that the port does not honour, with what
+# each selects there: none.
+REFUSED: dict = {}
 
 
 def add_config_args(p: argparse.ArgumentParser) -> None:
@@ -99,6 +95,20 @@ def add_config_args(p: argparse.ArgumentParser) -> None:
                    help="pose distillation: blend each train target with the teacher pose "
                         "<code>_l_b_*.pdb of this directory")
     p.add_argument("-distill_alpha", type=float, default=DataConfig().distill_alpha)
+    p.add_argument("-pad_cache_gb", type=float, default=DataConfig().pad_cache_gb,
+                   help="byte budget of the collate cache of padded static fields "
+                        "(graph.py::PadCache, least recently used out first)")
+    # the mesh: ranks as processes (torchrun), or stacked in one process
+    p.add_argument("-dp", type=int, default=1,
+                   help="data-parallel ranks (each holds bs / dp complexes of a batch)")
+    p.add_argument("-gp", type=int, default=1,
+                   help="graph-parallel ranks (the halo path: each holds a shard of the nodes)")
+    p.add_argument("-pallas_ring_halo", action="store_true",
+                   help="read and kept in the config; changes nothing in the port, which "
+                        "always runs the halo exchange kernels (rows 8-9)")
+    p.add_argument("-debug", action="store_true",
+                   help="kept in the config (docking_forward(debug=True) gives the "
+                        "per-layer activation trace)")
     for flag in REFUSED:
         p.add_argument("-" + flag, nargs="?", const=True, default=None,
                        help=f"not ported ({REFUSED[flag]})")
@@ -164,9 +174,11 @@ def config_from_args(a: argparse.Namespace) -> Config:
                       device_resident=a.device_resident, stream_dips=a.stream_dips,
                       stream_window=a.stream_window, pack=a.pack,
                       pack_max_per_slot=a.pack_max_per_slot, distill_dir=a.distill_dir,
-                      distill_alpha=a.distill_alpha)
+                      distill_alpha=a.distill_alpha, pad_cache_gb=a.pad_cache_gb)
     graph = GraphConfig(graph_cutoff=a.graph_cutoff, graph_max_neighbor=a.graph_max_neighbor,
                         pocket_cutoff=a.pocket_cutoff,
                         translation_interval=a.translation_interval)
     return Config(model=model, graph=graph, data=data, train=train,
-                  checkpoint_dir=a.checkpoint_dir)
+                  parallel=ParallelConfig(dp=a.dp, gp=a.gp,
+                                          pallas_ring_halo=a.pallas_ring_halo),
+                  debug=a.debug, checkpoint_dir=a.checkpoint_dir)

@@ -16,12 +16,20 @@ each batch's complexes into shared slots. `-fine_tune_from` starts
 two-stage fine-tuning from a checkpoint of the port: its model becomes the
 original stage, a 2-layer fine-tune stage is added (`-fine_tune_init
 random`, or `copy` of the original stage's matching leaves), and
-`-freeze_original` trains the fine-tune stage alone. The flags of the JAX
-CLI that the port does not honour raise NotImplementedError with their
-name. `-device` chooses the device (default the card; `cpu` runs the plain
-PyTorch versions). The log's "Kernel paths" line names the kernels a step
-launches and the path of each layer part (`models/iegmn.py::
-kernel_path_report`).
+`-freeze_original` trains the fine-tune stage alone. `-dp` / `-gp` train
+on a mesh: under torchrun each of dp gp ranks is a process that steps on
+its share of every batch (`train/loop.py::fit`, `parallel/`),
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m equidock_public_tpu_torch.cli.train -dp 2 -gp 1 [flags]
+
+and without a launcher the mesh is stacked in one process. Rank 0 writes
+the checkpoints and logs. `-device` chooses the device (default the card,
+cuda:(LOCAL_RANK % cards) for a rank; `cpu` runs the plain PyTorch
+versions). `-compile_cache` is accepted and changes nothing: the port
+compiles nothing at run time but its kernels, once, into `_build/`. The
+log's "Kernel paths" line names the kernels a step launches and the path
+of each layer part (`models/iegmn.py::kernel_path_report`).
 """
 
 from __future__ import annotations
@@ -31,7 +39,6 @@ import dataclasses
 from typing import List, Optional
 
 from ..config import Config
-from ..device import resolve_device
 from ._common import REFUSED, add_config_args, config_from_args, refuse_unported  # noqa: F401
 
 
@@ -53,6 +60,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="the fine-tune stage's start: random, or a copy of the stage-1 "
                         "trunk's matching leaves (its ft_att_* leaves stay random)")
     p.add_argument("-device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("-compile_cache", default=None,
+                   help="accepted: the port compiles nothing at run time but its CUDA "
+                        "kernels, built once into equidock_public_tpu_torch/_build/")
     return p
 
 
@@ -104,15 +114,29 @@ def fine_tune_state(path: str, cfg: Config, init: str, device):
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    from ..train.checkpoint import load_checkpoint
-    from ..train.loop import check_fit_supported, curriculum, fit, make_logger
+    from ..parallel.dist import init_from_env
 
     a = _parser().parse_args(argv)
     refuse_unported(a)
     if a.continue_train_model and a.fine_tune_from:
         raise ValueError("-continue_train_model and -fine_tune_from are mutually exclusive")
+    world = init_from_env(a.device)        # a world of one without a launcher
+    try:
+        return _run(a, world)
+    finally:
+        world.close()
+
+
+def _run(a: argparse.Namespace, world) -> int:
+    from ..train.checkpoint import load_checkpoint
+    from ..train.loop import check_fit_supported, curriculum, fit, make_logger
+
     cfg = config_from_args(a)
-    dev = resolve_device(a.device)
+    par = cfg.parallel
+    if world.size > 1 and world.size != par.dp * par.gp:
+        raise ValueError(f"{world.size} ranks for -dp {par.dp} -gp {par.gp}: launch dp x gp "
+                         "ranks, or one")
+    dev = world.device
     state = None
     if a.fine_tune_from:
         state, cfg, epoch = fine_tune_state(a.fine_tune_from, cfg, a.fine_tune_init, dev)
@@ -123,14 +147,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         cfg = dataclasses.replace(cfg, model=cfg_ckpt.model)
         print(f"Continuing from {a.continue_train_model} (epoch {epoch})")
     check_fit_supported(cfg)
-    log = make_logger(cfg)
+    log = make_logger(cfg) if world.rank == 0 else (lambda *x: None)
     log("Model name ===> ", cfg.banner())
     log("Kernel paths ===> ", kernel_path_report(cfg, dev))
+    if a.compile_cache:
+        log(f"-compile_cache {a.compile_cache}: nothing to cache; the port compiles nothing at "
+            "run time but its CUDA kernels, built once into equidock_public_tpu_torch/_build/")
     if a.max_epochs is not None or a.max_seconds is not None:
         fit(cfg, state=state, max_epochs=a.max_epochs, log=log, max_seconds=a.max_seconds,
-            device=dev)
+            device=dev, world=world)
     else:
-        curriculum(cfg, toy=a.toy, log=log, state=state, device=dev)
+        curriculum(cfg, toy=a.toy, log=log, state=state, device=dev, world=world)
     return 0
 
 

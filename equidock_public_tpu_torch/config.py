@@ -169,6 +169,25 @@ class DataConfig:
     # (`data/dataset.py::blend_teacher_poses`).
     distill_dir: str = ""
     distill_alpha: float = 0.5
+    # Byte budget of the collate cache of the padded static fields
+    # (`graph.py::PadCache`, least recently used out first).
+    pad_cache_gb: float = 4.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """The (data, graph) mesh: dp data groups x gp graph shards, each rank
+    a process (`parallel/dist.py`), or all stacked in one process when one
+    rank runs (`parallel/mesh.py`)."""
+
+    dp: int = 1                      # data-parallel (batch of complexes)
+    gp: int = 1                      # graph-parallel (node axis, the halo path)
+    mesh_axis_names: Tuple[str, ...] = ("data", "graph")
+    # The JAX package's choice of its Pallas RDMA ring for the halo's ring
+    # tier. The port always runs rows 8-9 (a gather by a fixed table, or its
+    # peer form across ranks), which compute what either JAX path computes:
+    # read and kept, it changes nothing.
+    pallas_ring_halo: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +196,10 @@ class Config:
     graph: GraphConfig = dataclasses.field(default_factory=GraphConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
+    # The per-layer activation trace of `models/iegmn.py::docking_forward`
+    # (`debug=True`), which runs the plain layer body.
+    debug: bool = False
     checkpoint_dir: str = "./checkpts"
     log_dir: str = "./stdouterr"
 
@@ -272,17 +295,15 @@ def config_from_dict(d: dict) -> Config:
     JAX package's. Model and graph keys must all be known; the data and
     train sections keep the fields above (the others, such as the JAX
     collate cache's budget, are settings of its host code), missing fields
-    take their defaults, and the parallel section is not read (a mesh of
-    more than one device raises)."""
-    par = d.get("parallel", {})
-    if par.get("dp", 1) * par.get("gp", 1) > 1:
-        raise NotImplementedError(f"parallel dp={par.get('dp', 1)} gp={par.get('gp', 1)}: "
-                                  "mesh training is not ported")
+    take their defaults, and the parallel section and `debug` are read as
+    the JAX package writes them."""
     top = {k: d[k] for k in ("checkpoint_dir", "log_dir") if k in d}
     return Config(model=_pick(ModelConfig, d.get("model", {}), strict=True),
                   graph=_pick(GraphConfig, d.get("graph", {}), strict=True),
                   data=_pick(DataConfig, d.get("data", {}), strict=False),
-                  train=_pick(TrainConfig, d.get("train", {}), strict=False), **top)
+                  train=_pick(TrainConfig, d.get("train", {}), strict=False),
+                  parallel=_pick(ParallelConfig, d.get("parallel", {}), strict=True),
+                  debug=bool(d.get("debug", False)), **top)
 
 
 def load_config(path: str) -> Config:

@@ -61,9 +61,18 @@
 // served 512 x 1024 request (gp = 2) and 6.7 MB at the training batch
 // (B = 10, 512 x 512), 0.28 and 2.0 us; a launch and one to a few
 // dependent memory round trips a row set the time at these sizes.
+//
+// Across ranks (the shards of a complex in separate processes, on one card
+// or on NVLink peers) the same two gathers run in a peer form: the table
+// names (rank, row) and a side's rows come from a device array of the
+// group's base pointers, each rank's buffer mapped into the others by CUDA
+// IPC (equidock_ipc_*). The backward sums in the same order, so the peer
+// form gives the stacked form's bits. Bound as above, by bytes; the host
+// barriers around each exchange (parallel/halo.py) cost far more.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -250,7 +259,161 @@ __global__ void __launch_bounds__(kThreads) exchange_bwd_kernel(const Sides side
   }
 }
 
+// ---------------------------------------------------------------------------
+// The peer form: the shards of one complex are processes (ranks), each
+// with its rows in a buffer of its own, and the group's buffers mapped into
+// every rank by CUDA IPC (the port's counterpart of the Pallas RDMA ring:
+// the receiving rank reads the owner's rows where they lie, on one card or
+// across NVLink peers). A side's descriptor holds a device array of gp
+// base pointers, the rank's own buffer among them.
+//   forward:  slot r of this rank's [local | from prev | from next |
+//             residual] view, r = bl Ssrc + s, reads peer_row[r] =
+//             q (Bl S) + bl' S + n, row bl' S + n of rank q's x and h rows,
+//             or writes zeros where it is -1;
+//   backward: local row r = bl S + n of this rank sums, in ascending
+//             table order (b, p, s), the cotangent slots that read it:
+//             order[offsets[r] .. offsets[r + 1]) = p (Bl Ssrc) + pos, slot
+//             pos of rank p's cotangent buffer, from +0.0. The same order
+//             as the stacked backward's, so the same bits.
+// The ranks bracket each launch with host barriers (parallel/halo.py):
+// the peers' rows are written before it reads them and stay until it ends.
+struct PeerSide {
+  const float* const* in_x;   // gp base pointers: x rows (forward) or g_x slots
+  const float* const* in_h;   // gp base pointers: h rows or g_h slots
+  float* out_x;
+  float* out_h;
+  const int* peer_row;        // forward table (Bl Ssrc,)
+  const int* order;           // backward inverse
+  const int* offsets;
+  int D;
+  FastDiv by_span;            // rows a rank holds: Bl S forward, Bl Ssrc backward
+  int rows;
+  int blocks;
+};
+
+struct PeerSides {
+  PeerSide s[kMaxSides];
+};
+
+__device__ __forceinline__ PeerSide pick_peer_side(const PeerSides& sides, int& bid) {
+  bid = blockIdx.x;
+  if (bid < sides.s[0].blocks) return sides.s[0];
+  bid -= sides.s[0].blocks;
+  return sides.s[1];
+}
+
+// Row 8, peer form: one group of LPR lanes copies one output slot.
+template <typename V, int LPR>
+__global__ void __launch_bounds__(kThreads) peer_fwd_kernel(const PeerSides sides) {
+  int bid;
+  const PeerSide sd = pick_peer_side(sides, bid);
+  const int lane = threadIdx.x & (LPR - 1);
+  const int row = bid * (kThreads / LPR) + threadIdx.x / LPR;
+  if (row >= sd.rows) return;
+  const int v = __ldg(sd.peer_row + row);
+  const int q = v >= 0 ? div_(v, sd.by_span) : 0;
+  const int src = v >= 0 ? v - q * sd.by_span.d : 0;
+  constexpr int W = sizeof(V) / sizeof(float);
+  const int DV = sd.D / W;
+  const V* hin = reinterpret_cast<const V*>(sd.in_h[q]) + (size_t)src * DV;
+  V* hout = reinterpret_cast<V*>(sd.out_h) + (size_t)row * DV;
+  for (int c = lane; c < DV; c += LPR) hout[c] = v >= 0 ? hin[c] : vzero<V>();
+  if (lane < 3) sd.out_x[row * 3 + lane] = v >= 0 ? sd.in_x[q][src * 3 + lane] : 0.f;
+}
+
+// Row 9, peer form: one group of LPR lanes sums one local row's slots, in
+// order, each from the buffer of the rank that holds it.
+template <typename V, int LPR>
+__global__ void __launch_bounds__(kThreads) peer_bwd_kernel(const PeerSides sides) {
+  int bid;
+  const PeerSide sd = pick_peer_side(sides, bid);
+  const int lane = threadIdx.x & (LPR - 1);
+  const int row = bid * (kThreads / LPR) + threadIdx.x / LPR;
+  if (row >= sd.rows) return;
+  const int beg = __ldg(sd.offsets + row), end = __ldg(sd.offsets + row + 1);
+  constexpr int W = sizeof(V) / sizeof(float);
+  const int DV = sd.D / W;
+  for (int c0 = 0; c0 < DV; c0 += LPR) {     // the first pass also sums x on lanes 0-2
+    const int c = c0 + lane;
+    const bool has_h = c < DV, do_x = c0 == 0 && lane < 3;
+    V acc = vzero<V>();
+    float acc_x = 0.f;
+    for (int k = beg; k < end; ++k) {
+      const int e = __ldg(sd.order + k);
+      const int q = div_(e, sd.by_span), pos = e - q * sd.by_span.d;
+      if (has_h) vadd(acc, reinterpret_cast<const V*>(sd.in_h[q])[(size_t)pos * DV + c]);
+      if (do_x) acc_x += sd.in_x[q][pos * 3 + lane];
+    }
+    if (has_h) reinterpret_cast<V*>(sd.out_h)[(size_t)row * DV + c] = acc;
+    if (do_x) sd.out_x[row * 3 + lane] = acc_x;
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// ptrs: 7 a side (in_x, in_h: device arrays of gp pointers; out_x, out_h,
+// peer_row, order, offsets); dims: 6 a side (D, span, rows, blocks, lpr,
+// vec), (lpr, vec) as for the stacked form.
+int fill_peer_sides(int n, void* const* ptrs, const int* dims, bool backward, PeerSides& sides,
+                    int& grid, int& lpr, int& vec) {
+  if (n < 1 || n > kMaxSides) return (int)cudaErrorInvalidValue;
+  sides = PeerSides{};
+  grid = 0;
+  lpr = dims[4];
+  vec = dims[5];
+  if (!(vec == 4 && (lpr == 4 || lpr == 16)) && !(vec == 1 && lpr == 32))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n; ++i) {
+    PeerSide& s = sides.s[i];
+    void* const* p = ptrs + 7 * i;
+    const int* d = dims + 6 * i;
+    s.in_x = static_cast<const float* const*>(p[0]);
+    s.in_h = static_cast<const float* const*>(p[1]);
+    s.out_x = static_cast<float*>(p[2]);
+    s.out_h = static_cast<float*>(p[3]);
+    s.peer_row = static_cast<const int*>(p[4]);
+    s.order = static_cast<const int*>(p[5]);
+    s.offsets = static_cast<const int*>(p[6]);
+    s.D = d[0];
+    const int span = d[1];
+    s.rows = d[2], s.blocks = d[3];
+    if (s.D <= 0 || s.D % vec || span <= 0 || s.rows <= 0 || s.blocks <= 0 || d[4] != lpr ||
+        d[5] != vec || (long long)s.blocks * (kThreads / lpr) < s.rows ||
+        (long long)span * (s.D > 3 ? s.D : 3) >= (1ll << 31) ||
+        (long long)s.rows * (s.D > 3 ? s.D : 3) >= (1ll << 31))
+      return (int)cudaErrorInvalidValue;
+    if (s.in_x == nullptr || s.in_h == nullptr ||
+        (backward ? (s.order == nullptr || s.offsets == nullptr) : s.peer_row == nullptr))
+      return (int)cudaErrorInvalidValue;
+    if (vec == 4 && !aligned16(s.out_h)) return (int)cudaErrorInvalidValue;
+    s.by_span = make_div(span);
+    grid += s.blocks;
+  }
+  if (n == 1) sides.s[1] = sides.s[0], sides.s[1].blocks = 0;
+  return 0;
+}
+
+template <typename V, int LPR>
+void launch_peer(bool backward, int grid, const PeerSides& sides, cudaStream_t st) {
+  if (backward)
+    peer_bwd_kernel<V, LPR><<<grid, kThreads, 0, st>>>(sides);
+  else
+    peer_fwd_kernel<V, LPR><<<grid, kThreads, 0, st>>>(sides);
+}
+
+int run_peer(int n, void* const* ptrs, const int* dims, bool backward, void* stream) {
+  PeerSides sides;
+  int grid, lpr, vec;
+  if (int err = fill_peer_sides(n, ptrs, dims, backward, sides, grid, lpr, vec)) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 1)
+    launch_peer<float, 32>(backward, grid, sides, st);
+  else if (lpr == 4)
+    launch_peer<float4, 4>(backward, grid, sides, st);
+  else
+    launch_peer<float4, 16>(backward, grid, sides, st);
+  return (int)cudaGetLastError();
+}
 
 // ptrs: 7 a side (in_x, in_h, out_x, out_h, src_row, order, offsets);
 // dims: 11 a side (Bp, S, N, Ssrc, D, P, Bl, lpr, vec, rows, blocks), lpr
@@ -336,5 +499,32 @@ int equidock_halo_exchange(int n, void* const* ptrs, const int* dims, void* stre
 int equidock_halo_exchange_bwd(int n, void* const* ptrs, const int* dims, void* stream) {
   return run(n, ptrs, dims, true, stream);
 }
+
+// Row 8, peer form, on n (1 or 2) sides in one launch (see PeerSide).
+int equidock_halo_peer_exchange(int n, void* const* ptrs, const int* dims, void* stream) {
+  return run_peer(n, ptrs, dims, false, stream);
+}
+
+// Row 9, peer form.
+int equidock_halo_peer_exchange_bwd(int n, void* const* ptrs, const int* dims, void* stream) {
+  return run_peer(n, ptrs, dims, true, stream);
+}
+
+// CUDA IPC of the peer buffers. `ptr` names the base of a device
+// allocation (the caller adds its own offsets); `handle` is 64 bytes
+// (cudaIpcMemHandle_t). A handle is opened only in another process than the
+// one that made it; the mapping lives until equidock_ipc_close.
+int equidock_ipc_handle(void* ptr, void* handle) {
+  if (sizeof(cudaIpcMemHandle_t) != 64) return (int)cudaErrorInvalidValue;
+  return (int)cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), ptr);
+}
+
+int equidock_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+int equidock_ipc_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
 
 }  // extern "C"

@@ -35,7 +35,7 @@ import torch
 
 from ..config import Config, GraphConfig
 from ..device import resolve_device
-from ..graph import PairBatch, collate, collate_packed
+from ..graph import PadCache, PairBatch, collate, collate_packed
 from .featurize import (ProteinGraph, alpha_carbon_array, build_protein_graph,
                         extract_pocket, filter_residues, uniform_rotation_translation)
 from .pdb import GroupedResidue, ca_coords, group_residues, read_pdb
@@ -205,7 +205,8 @@ class DockingDataset:
     `cfg.data.swap_train` says, off elsewhere. The complexes are held in
     memory (`samples`), or, for a streamed DIPS split, read through a shard
     LRU by the shard index (`index`); `pair_max_nodes`, `pocket_size` and
-    `get_sample` serve both."""
+    `get_sample` serve both. Collation reads the padded static fields from a
+    `PadCache` of `cfg.data.pad_cache_gb` (`pad_cache`)."""
 
     def __init__(self, cfg: Config, samples: Optional[Sequence[ComplexSample]],
                  codes: Optional[Sequence[str]] = None, split: str = "train",
@@ -221,6 +222,7 @@ class DockingDataset:
         else:
             self.codes = [str(i) for i in range(len(self.samples))]
         self.swap = (split == "train" and cfg.data.swap_train) if swap is None else swap
+        self.pad_cache = PadCache(max_bytes=int(cfg.data.pad_cache_gb * (1 << 30)))
 
     @classmethod
     def from_cache(cls, cfg: Config, split: str, swap: Optional[bool] = None,
@@ -338,10 +340,12 @@ class DockingDataset:
             if dc.pack and dc.pack_max_per_slot > 1:
                 yield collate_packed(ligs, recs, new_xs, gts, pls, prs, dc.node_buckets,
                                      dc.pocket_buckets, dc.pack_max_per_slot,
-                                     dc.slot_count_buckets, dev, pin_memory=pin_memory)
+                                     dc.slot_count_buckets, dev, pin_memory=pin_memory,
+                                     pad_cache=self.pad_cache)
             else:
                 yield collate(ligs, recs, new_xs, gts, pls, prs, dc.node_buckets,
-                              dc.pocket_buckets, dev, batch_size=bs, pin_memory=pin_memory)
+                              dc.pocket_buckets, dev, batch_size=bs, pin_memory=pin_memory,
+                              pad_cache=self.pad_cache)
 
     def _stream_batches(self, rng: np.random.Generator, dev, shuffle: bool,
                         pin_memory: bool) -> Iterator[PairBatch]:

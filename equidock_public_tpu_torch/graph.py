@@ -15,7 +15,9 @@ is the JAX package's, bit for bit.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import weakref
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,6 +77,86 @@ def _pad_axis0(a: np.ndarray, n: int, fill=0) -> np.ndarray:
     return np.pad(a, pad, constant_values=fill)
 
 
+class PadCache:
+    """The padded static fields of each (graph, n_max), built once: the
+    port of `equidock_public_tpu/graph.py::PadCache` (`-pad_cache_gb`).
+    Augmentation moves only coordinates, so res_id, mu_r_norm, the
+    neighbour tables and edge features pad alike every epoch. Keyed on the
+    live graph object by weak reference (an entry dies with its graph),
+    bounded by `max_bytes` of padded arrays, least recently used out first
+    (an evicted entry is rebuilt at its next use). Callers copy an entry's
+    dict before changing a field, so a batch is bit-equal with and without
+    the cache."""
+
+    def __init__(self, max_bytes: int = 4 << 30):
+        self.max_bytes = int(max_bytes)
+        self._cache: "weakref.WeakKeyDictionary[ProteinGraph, dict]" = weakref.WeakKeyDictionary()
+        self._lru: "collections.OrderedDict[tuple, int]" = collections.OrderedDict()
+        self._refs: dict = {}       # id(graph) -> weak reference
+        self._gid_keys: dict = {}   # id(graph) -> its live LRU keys
+        self._bytes = 0
+        self.hits = self.misses = 0
+
+    @property
+    def nbytes(self) -> int:
+        return self._bytes
+
+    def __len__(self) -> int:
+        return len(self._lru)
+
+    def _drop_key(self, key: tuple) -> None:
+        gid = key[0]
+        keys = self._gid_keys.get(gid)
+        if keys is not None:
+            keys.discard(key)
+            if not keys:
+                self._gid_keys.pop(gid, None)
+                self._refs.pop(gid, None)
+
+    def _forget_graph(self, gid: int) -> None:
+        for key in self._gid_keys.pop(gid, set()):
+            self._bytes -= self._lru.pop(key, 0)
+        self._refs.pop(gid, None)
+
+    def get(self, g: ProteinGraph, n_max: int) -> dict:
+        """`pad_protein(g, n_max)`, from the cache when held (do not change
+        the dict or its arrays)."""
+        per_graph = self._cache.get(g)
+        if per_graph is None:
+            per_graph = {}
+            self._cache[g] = per_graph
+            weakref.finalize(g, self._forget_graph, id(g))
+        key = (id(g), n_max)
+        hit = per_graph.get(n_max)
+        if hit is not None:
+            self.hits += 1
+            self._lru.move_to_end(key)
+            return hit
+        self.misses += 1
+        hit = pad_protein(g, n_max)
+        nb = sum(a.nbytes for a in hit.values())
+        if nb <= self.max_bytes:
+            per_graph[n_max] = hit
+            self._refs[id(g)] = weakref.ref(g)
+            self._gid_keys.setdefault(id(g), set()).add(key)
+            self._lru[key] = nb
+            self._bytes += nb
+            while self._bytes > self.max_bytes and self._lru:
+                (ogid, on), onb = self._lru.popitem(last=False)
+                self._bytes -= onb
+                ref = self._refs.get(ogid)
+                og = ref() if ref is not None else None
+                if og is not None:
+                    self._cache.get(og, {}).pop(on, None)
+                self._drop_key((ogid, on))
+        return hit
+
+
+def _padded(g: ProteinGraph, n_max: int, pad_cache: Optional[PadCache]) -> dict:
+    """A fresh dict of g's padded fields (its arrays shared with the cache)."""
+    return dict(pad_cache.get(g, n_max)) if pad_cache is not None else pad_protein(g, n_max)
+
+
 def pad_protein(g: ProteinGraph, n_max: int) -> dict:
     """Pad one ProteinGraph to n_max nodes. Padded nodes self-loop (masked)."""
     n = g.num_nodes
@@ -106,9 +188,11 @@ def collate(
     device: torch.device,
     batch_size: Optional[int] = None,
     pin_memory: bool = False,
+    pad_cache: Optional[PadCache] = None,
 ) -> PairBatch:
     """Collate complexes into one padded PairBatch on `device` (with
-    `pin_memory`, on the CPU in page-locked memory instead).
+    `pin_memory`, on the CPU in page-locked memory instead; `pad_cache`
+    serves the padded static fields).
 
     `lig_new_x` is the ligand's input coordinates; `gt_lig` the bound target.
     Slots past len(ligs) repeat the last complex with every mask zeroed."""
@@ -128,7 +212,7 @@ def collate(
         cols: List[dict] = []
         for i in range(B):
             j = min(i, b_actual - 1)
-            d = pad_protein(graphs[j], n_max)
+            d = _padded(graphs[j], n_max, pad_cache)
             if coords_override is not None:
                 d["x"] = _pad_axis0(
                     np.asarray(coords_override[j], dtype=np.float32), n_max)
@@ -294,7 +378,7 @@ _PACK_FIELDS = ("res_id", "x", "mu_r_norm", "nbr", "nbr_mask", "edge_feat", "nod
 
 
 def _pack_side(graphs: Sequence[ProteinGraph], coords_override, slot_assign, n_max: int,
-               n_segs: int):
+               n_segs: int, pad_cache: Optional[PadCache] = None):
     """(field dict of stacked numpy arrays with seg_id, per slot the (start,
     n) of each member): each slot's complexes concatenated along the node
     axis, neighbour indices offset, padded to n_max. The pad tail self-loops
@@ -307,7 +391,7 @@ def _pack_side(graphs: Sequence[ProteinGraph], coords_override, slot_assign, n_m
         segs, offs, base = [], [], 0
         for c, gi in enumerate(members):
             g = graphs[gi]
-            d = pad_protein(g, g.num_nodes)
+            d = _padded(g, g.num_nodes, pad_cache)
             if coords_override is not None:
                 d["x"] = np.asarray(coords_override[gi], dtype=np.float32)
             d["nbr"] = d["nbr"] + base
@@ -353,6 +437,7 @@ def collate_packed(
     slot_count_buckets: Tuple[int, ...] = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10),
     device: Optional[torch.device] = None,
     pin_memory: bool = False,
+    pad_cache: Optional[PadCache] = None,
 ) -> PairBatch:
     """Pack the complexes into slots (`plan_packing`) and collate one
     PairBatch whose slots each hold up to `max_per_slot` complexes, on
@@ -369,8 +454,8 @@ def collate_packed(
     C = max_per_slot
     P = bucket_for(max(p.shape[0] for p in pockets_lig), pocket_buckets)
     slot_assign = list(slot_assign) + [[] for _ in range(B - len(slot_assign))]
-    lig, lig_offs = _pack_side(ligs, lig_new_x, slot_assign, n_l, C)
-    rec, _ = _pack_side(recs, None, slot_assign, n_r, C)
+    lig, lig_offs = _pack_side(ligs, lig_new_x, slot_assign, n_l, C, pad_cache)
+    rec, _ = _pack_side(recs, None, slot_assign, n_r, C, pad_cache)
 
     gt = np.zeros((B, n_l, 3), np.float32)
     pl = np.zeros((B, C, P, 3), np.float32)

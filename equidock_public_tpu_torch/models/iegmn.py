@@ -68,12 +68,13 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("config not covered by the port: " + ", ".join(problems))
 
 
-def fused_edge_eligible(cfg: ModelConfig, train: bool) -> bool:
+def fused_edge_eligible(cfg: ModelConfig, train: bool, debug: bool = False) -> bool:
     """Whether the edge kernels (rows 1-2) cover this config: the JAX
     package's eligibility (LeakyReLU, layer_norm LN or none, no coordinate
-    norm, no dropout in training) without its `fused_edge_message` flag,
-    since the port always runs the kernel where it can."""
-    return (cfg.nonlin == "lkyrelu" and (not train or cfg.dropout == 0.0)
+    norm, no dropout in training, no debug trace) without its
+    `fused_edge_message` flag, since the port always runs the kernel where
+    it can."""
+    return (not debug and cfg.nonlin == "lkyrelu" and (not train or cfg.dropout == 0.0)
             and cfg.layer_norm in ("LN", "0") and cfg.layer_norm_coors == "0")
 
 
@@ -237,7 +238,8 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
                         x_l, h_l, x_r, h_r, orig_h_l, orig_h_r, he_l, he_r,
                         orig_x_l, orig_x_r, src_l=None, src_r=None,
                         attend: Optional[Callable] = None, inv_l=None, inv_r=None,
-                        train: bool = False, drop=None, bn=None, bn_scope: str = ""):
+                        train: bool = False, drop=None, bn=None, bn_scope: str = "",
+                        gn_reduce: Optional[Callable] = None, stats: Optional[dict] = None):
     """One IEGMN layer on both proteins. Returns (x_l, h_l, x_r, h_r).
 
     Node-sharded (halo) mode, used by `parallel/halo.py` so that one layer
@@ -249,6 +251,8 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
         `ops.attention.cross_attention` (the halo path passes the ring
         attention over the shards' K/V chunks); it replaces the attention
         kernel and the fine-tune stage's attention.
+      * `gn_reduce`: sums GraphNorm's per-shard statistics over the shards
+        (JAX's `gn_axis`).
     `inv_l` / `inv_r`: each side's inverse neighbour list
     (`inverse_neighbors(side.nbr, rows of the source)`), built once per
     forward that records gradients by the caller and shared by its layers;
@@ -256,8 +260,14 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
     `bn` (a BNContext, its sites under `bn_scope`) as in `docking_forward`.
     Dropout masks and BatchNorm statistics are taken in the JAX package's
     order: edge MLP ligand, receptor, coordinate MLP ligand, receptor, node
-    MLP (and final norm) ligand, receptor."""
-    if fused_edge_eligible(cfg, train):
+    MLP (and final norm) ligand, receptor. `stats`, a dict, records the
+    ligand's activation maxima under the JAX package's labels (its debug
+    trace), through the plain layer body."""
+    def rec_stat(name, value, mask):
+        if stats is not None:
+            stats[name] = torch.where(mask > 0, value, torch.full_like(value, float("-inf"))).max()
+
+    if fused_edge_eligible(cfg, train, debug=stats is not None):
         aggr_l, xupd_l = _edge_step(p, cfg, lig, x_l, h_l, he_l, src_l, inv_l)
         aggr_r, xupd_r = _edge_step(p, cfg, rec, x_r, h_r, he_r, src_r, inv_r)
     else:
@@ -267,6 +277,10 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
         aggr_r = masked_mean_over_k(msg_r, rec.nbr_mask)
         xupd_l = _coord_update(p, cfg, lig, x_rel_l, msg_l, drop, bn, bn_scope)
         xupd_r = _coord_update(p, cfg, rec, x_rel_r, msg_r, drop, bn, bn_scope)
+        rec_stat("x_now", x_l, lig.node_mask[..., None])
+        rec_stat("h_feat", h_l, lig.node_mask[..., None])
+        rec_stat("x_rel", x_rel_l, lig.nbr_mask[..., None])
+        rec_stat("msg", msg_l, lig.nbr_mask[..., None])
 
     def qk(h, which, dtype=cfg.dtype):
         return nonlin(linear(p[which], h, dtype), cfg.nonlin, cfg.leakyrelu_neg_slope)
@@ -293,12 +307,15 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
         cross_l = torch.zeros_like(h_l)
         cross_r = torch.zeros_like(h_r)
 
+    rec_stat("aggr_cross_msg", cross_l, lig.node_mask[..., None])
+
     def x_update(x, orig_x, x_upd):
         return (cfg.x_connection_init * orig_x
                 + (1.0 - cfg.x_connection_init) * x + x_upd)
 
     x_final_l = x_update(x_l, orig_x_l, xupd_l)
     x_final_r = x_update(x_r, orig_x_r, xupd_r)
+    rec_stat("x_final", x_final_l, lig.node_mask[..., None])
 
     if fine_tune:
         def ft_v(h):
@@ -330,7 +347,7 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
             if side.seg_id is not None:
                 raise ValueError("final_h_layer_norm='GN' normalizes per graph and is not "
                                  "segment-aware; train packed batches with 'LN'/'0'")
-            upd = graph_norm(p["final_h_norm"], upd, side.node_mask)
+            upd = graph_norm(p["final_h_norm"], upd, side.node_mask, reduce=gn_reduce)
         elif cfg.final_h_layer_norm == "BN":
             if bn is None:
                 raise ValueError("final_h_layer_norm='BN' needs running statistics: pass "
@@ -341,6 +358,7 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
 
     h_final_l = node_update(lig, h_l, aggr_l, cross_l, orig_h_l)
     h_final_r = node_update(rec, h_r, aggr_r, cross_r, orig_h_r)
+    rec_stat("h_final", h_final_l, lig.node_mask[..., None])
     return x_final_l, h_final_l, x_final_r, h_final_r
 
 
@@ -380,33 +398,37 @@ def trunk_inputs(p: Params, cfg: ModelConfig, lig: ProteinBatch, rec: ProteinBat
 
 def iegmn_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
                   x_l_in: torch.Tensor, n_lays: int, fine_tune: bool,
-                  train: bool = False, drop=None, bn=None, bn_scope: str = ""):
+                  train: bool = False, drop=None, bn=None, bn_scope: str = "",
+                  trace: Optional[list] = None):
     """IEGMN trunk + keypoint head. Returns (R, t, keypts_lig, keypts_rec):
     (B, 3, 3), (B, 1, 3), (B, H, 3) x 2, packed (B, C, 3, 3), (B, C, 1, 3),
     (B, C, H, 3) x 2. When the forward records gradients through the edge
     kernels, each side's inverse neighbour list (read only by the backward's
     scatter) is built once here and shared by every layer; with
-    `remat_active(cfg)` layers 1..n-1 are recomputed in the backward."""
+    `remat_active(cfg)` layers 1..n-1 are recomputed in the backward.
+    `trace`, a list, gets one dict of activation maxima a layer (the debug
+    trace: the plain layer body, no remat)."""
     lig, rec = batch.lig, batch.rec
     x_l, x_r = x_l_in, rec.x
     h_l, h_r, he_l, he_r = trunk_inputs(p, cfg, lig, rec)
     orig_h_l, orig_h_r = h_l, h_r
     inv_l = inv_r = None
     grad = torch.is_grad_enabled()
-    if grad and fused_edge_eligible(cfg, train):
+    if grad and fused_edge_eligible(cfg, train, debug=trace is not None):
         inv_l = inverse_neighbors(lig.nbr, lig.nbr.shape[1])
         inv_r = inverse_neighbors(rec.nbr, rec.nbr.shape[1])
-    remat = grad and remat_active(cfg)
+    remat = grad and remat_active(cfg) and trace is None
     for i in range(n_lays):
         layer = dict(p=layer_params(cfg, p, i), skip=i > 0, bn_scope=bn_scope + layer_scope(cfg, i))
+        stats = {} if trace is not None else None
 
-        def run(x_l, h_l, x_r, h_r, layer=layer, drop=drop):
+        def run(x_l, h_l, x_r, h_r, layer=layer, drop=drop, stats=stats):
             if isinstance(drop, ReplayLayer):
                 drop.rewind()
             return iegmn_layer_forward(
                 layer["p"], cfg, fine_tune, layer["skip"], lig, rec, x_l, h_l, x_r, h_r,
                 orig_h_l, orig_h_r, he_l, he_r, x_l_in, rec.x, inv_l=inv_l, inv_r=inv_r,
-                train=train, drop=drop, bn=bn, bn_scope=layer["bn_scope"])
+                train=train, drop=drop, bn=bn, bn_scope=layer["bn_scope"], stats=stats)
 
         if remat and i > 0:
             layer_drop = ReplayLayer(drop) if drop is not None and drop.rate > 0 else drop
@@ -414,6 +436,8 @@ def iegmn_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
                                             use_reentrant=False)
         else:
             x_l, h_l, x_r, h_r = run(x_l, h_l, x_r, h_r)
+        if trace is not None:
+            trace.append(stats)
     oh = ((lig.seg_onehot(batch.n_segs), rec.seg_onehot(batch.n_segs))
           if batch.n_segs > 1 else (None, None))
     return keypoint_head(p, cfg, h_l, x_l, h_r, x_r, lig.node_mask, rec.node_mask,
@@ -469,7 +493,7 @@ def keypoint_head(p: Params, cfg: ModelConfig, h_l, x_l, h_r, x_r,
 
 def docking_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
                     n_lays: Optional[int] = None, train: bool = False, drop=None,
-                    bn_state: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+                    bn_state: Optional[dict] = None, debug: bool = False):
     """Rigid docking forward. Returns ligand_coords (B, N_l, 3) = R x + t of
     the input ligand (packed: each node by its complex's transform),
     keypts_lig / keypts_rec, R and t; with a fine-tune stage, (R, t) is the
@@ -478,7 +502,10 @@ def docking_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
     batch statistics, and dropout (rate above 0) draws its masks from
     `drop` (`layers.Dropout`). `bn_state` (required when an option is 'BN';
     `init_bn_state`) adds "bn_updates", the new running statistics, to a
-    training forward's outputs."""
+    training forward's outputs. `debug` adds "trace", one dict of the
+    ligand's activation maxima a layer (both stages' layers in turn) under
+    the JAX package's labels, and runs the plain layer body (as the JAX
+    package's debug mode runs its XLA path)."""
     check_supported(cfg)
     if uses_batch_norm(cfg) and bn_state is None:
         raise ValueError("config uses 'BN' normalization: pass bn_state=init_bn_state(cfg) "
@@ -496,7 +523,8 @@ def docking_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
         return apply_rigid(x, R, t) if C == 1 else apply_rigid_packed(x, R, t,
                                                                        batch.lig.seg_id, C)
 
-    kw = dict(train=train, drop=drop, bn=bn)
+    trace: Optional[list] = [] if debug else None
+    kw = dict(train=train, drop=drop, bn=bn, trace=trace)
     if cfg.fine_tune and "finetune" in p:
         R0, t0, _, _ = iegmn_forward(p["original"], cfg, batch, x_l, n_lays, False,
                                      bn_scope="original/", **kw)
@@ -514,4 +542,6 @@ def docking_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
     out = {"ligand_coords": lig_pred, "keypts_lig": kl, "keypts_rec": kr, "R": R, "t": t}
     if bn is not None and train:
         out["bn_updates"] = {**bn.state, **bn.updates}
+    if debug:
+        out["trace"] = trace
     return out

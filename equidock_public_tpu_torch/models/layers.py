@@ -13,7 +13,7 @@ explicit `torch.Generator`, or replays recorded masks in call order
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -184,12 +184,20 @@ def nonlin(x: torch.Tensor, kind: str, neg_slope: float) -> torch.Tensor:
 
 
 def graph_norm(p: Params, x: torch.Tensor, node_mask: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, reduce: Optional[Callable] = None) -> torch.Tensor:
     """Per-graph feature normalization over the valid nodes (GraphNorm):
-    (x - mean) / (std + eps) with the sample std (ddof=1). x (B, N, D)."""
+    (x - mean) / (std + eps) with the sample std (ddof=1). x (B, N, D).
+    With the node axis sharded (the halo path), `reduce` sums each per-shard
+    statistic (B, 1, .) over the shards, so it covers the whole complex:
+    JAX's `axis` (its psum over the graph mesh axis)."""
     w = node_mask[..., None]
-    n = torch.clamp(w.sum(dim=1, keepdim=True), min=1.0)
-    mean = (x * w).sum(dim=1, keepdim=True) / n
-    var = (((x - mean) ** 2) * w).sum(dim=1, keepdim=True) / torch.clamp(n - 1.0, min=1.0)
+
+    def _sum(v):
+        s = v.sum(dim=1, keepdim=True)
+        return reduce(s) if reduce is not None else s
+
+    n = torch.clamp(_sum(w), min=1.0)
+    mean = _sum(x * w) / n
+    var = _sum(((x - mean) ** 2) * w) / torch.clamp(n - 1.0, min=1.0)
     out = (x - mean) / (torch.sqrt(var) + eps)
     return out * p["g"] + p["b"]

@@ -24,7 +24,17 @@ sequential `index_add_` of the same table on the CPU.
 
 On CUDA tensors the Function always launches the kernels, both sides of a
 layer in one launch each way (a failed build or launch raises); on CPU
-tensors it runs the plain versions. `ring_exchange`, `ring_ship` and
+tensors it runs the plain versions.
+
+Across ranks (the shards of a data group in processes of their own,
+`parallel/mesh.py`) the same two gathers run in a peer form: a rank's
+`PeerTable` names (rank, row) for each slot of its view and, for each of
+its rows, the peers' cotangent slots that read it, in the stacked table's
+order; the rows come from every rank's `PeerArena`, a buffer mapped into
+its peers by CUDA IPC (handles swapped once a buffer over the group's host
+object collectives), between two host barriers (rows written, rows read).
+The plain form gathers the group's rows by an all_reduce and runs the
+stacked plain versions. Either gives the stacked form's bits. `ring_exchange`, `ring_ship` and
 `take_rows` are the plain ring composition (`parallel/halo.py::
 ring_composition`): cat, zeros and gather, differentiable, launching no
 kernel.
@@ -35,7 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -511,3 +521,355 @@ def exchange_tiles_bwd(sides, vec: int = 4):
         res.append((torch.from_numpy(dx.reshape(Bp, S, 3)), torch.from_numpy(dh.reshape(Bp, S, D))))
         writes.append((wx, wh))
     return res, writes, longest
+
+
+# --------------------------------------------------------------------------- #
+# The peer form: the shards of a complex as ranks (processes)
+# --------------------------------------------------------------------------- #
+
+# Launches of the peer form's kernels in this process (plain versions excluded).
+peer_launches = 0       # row 8 across ranks
+peer_bwd_launches = 0   # row 9 across ranks
+
+
+@dataclasses.dataclass
+class PeerTable:
+    """One side's exchange on graph rank `rank` of a group of `gp` ranks
+    that hold the `Bl` complexes of one data group, shard p of each on rank
+    p. Forward: `peer_row` (Bl Ssrc,) int32, slot bl Ssrc + s of this rank's
+    view reads row q (Bl S) + bl' S + r (row bl' S + r of rank q), or -1 for
+    a zero. Backward: this rank's Bl S local rows, each summing the slots
+    that read it in ascending table order (b, p, s): `order` p (Bl Ssrc) +
+    pos (slot pos of rank p's cotangents), `offsets` (Bl S + 1,). `group`:
+    the group's stacked table (dp 1), which the plain form reads."""
+
+    peer_row: torch.Tensor
+    order: torch.Tensor
+    offsets: torch.Tensor
+    group: ExchangeTable
+    rank: int
+    gp: int
+    Bl: int
+    S: int
+    Ssrc: int
+
+    def to(self, device) -> "PeerTable":
+        return dataclasses.replace(self, peer_row=self.peer_row.to(device),
+                                   order=self.order.to(device),
+                                   offsets=self.offsets.to(device),
+                                   group=self.group.to(device))
+
+
+def peer_table(tab: ExchangeTable, rank: int, device=None) -> PeerTable:
+    """Rank `rank`'s peer table of a data group's stacked table (numpy, once
+    a batch). Slot and row orders are the stacked table's, so the peer form
+    moves and sums exactly what the stacked form does."""
+    if tab.dp != 1:
+        raise ValueError(f"peer tables come from a data group's own table (dp 1), got dp {tab.dp}")
+    Bl, gp, Ssrc = tab.src_row.shape
+    N = tab.N
+    S = N // gp
+    src = tab.src_row.cpu().numpy().astype(np.int64)
+    v = src[:, rank, :]
+    b, n = v // N, v % N
+    q, r = n // S, n % S
+    peer_row = np.where(v >= 0, q * (Bl * S) + b * S + r, -1).reshape(-1)
+    flat = src.reshape(-1)                       # table order (b gp + p) Ssrc + s
+    sel = np.flatnonzero((flat >= 0) & ((flat % N) // S == rank))
+    local = (flat[sel] // N) * S + (flat[sel] % N) - rank * S
+    o = np.argsort(local, kind="stable")
+    sel, local = sel[o], local[o]
+    bb, rem = sel // (gp * Ssrc), sel % (gp * Ssrc)
+    order = (rem // Ssrc) * (Bl * Ssrc) + bb * Ssrc + rem % Ssrc
+    offsets = np.searchsorted(local, np.arange(Bl * S + 1))
+    dev = tab.src_row.device if device is None else device
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
+    return PeerTable(T(peer_row), T(order), T(offsets), tab.to(dev), rank, gp, Bl, S, Ssrc)
+
+
+def _gather_group(a: torch.Tensor, group, rank: int, gp: int) -> torch.Tensor:
+    """(gp Bl, ...): every rank's (Bl, ...) block, rank-major (an all_reduce
+    of a buffer that is zero outside this rank's block: exact, every other
+    term is +0.0)."""
+    from ...parallel.dist import gather_slots
+
+    return gather_slots(a, group, rank, gp).reshape((gp * a.shape[0],) + tuple(a.shape[1:]))
+
+
+def peer_exchange_plain(x, h, tab: PeerTable, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain row 8 across ranks: the group's rows gathered by an all_reduce,
+    the stacked plain gather, this rank's blocks. x (Bl, S, 3), h (Bl, S,
+    D) -> (Bl, Ssrc, 3), (Bl, Ssrc, D)."""
+    full = _gather_group(torch.cat([x, h], dim=-1), group, tab.rank, tab.gp)
+    xs, hs = exchange_plain(full[..., :3].contiguous(), full[..., 3:].contiguous(), tab.group)
+    own = slice(tab.rank * tab.Bl, (tab.rank + 1) * tab.Bl)
+    return xs[own], hs[own]
+
+
+def peer_exchange_bwd_plain(g_x, g_h, tab: PeerTable, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain row 9 across ranks: every rank's cotangent slots gathered by an
+    all_reduce, the stacked plain backward (a sequential `index_add_` in
+    table order on the CPU), this rank's rows."""
+    full = _gather_group(torch.cat([g_x, g_h], dim=-1), group, tab.rank, tab.gp)
+    dx, dh = exchange_bwd_plain(full[..., :3].contiguous(), full[..., 3:].contiguous(),
+                                tab.group)
+    own = slice(tab.rank * tab.Bl, (tab.rank + 1) * tab.Bl)
+    return dx[own], dh[own]
+
+
+def allocation_base(t: torch.Tensor) -> Tuple[int, int]:
+    """(base, offset): the device allocation (the caching allocator's
+    segment) that holds `t`, and `t`'s byte offset in it. A CUDA IPC handle
+    names a whole allocation, so a peer adds the offset to the base it
+    maps."""
+    ptr = t.data_ptr()
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] == t.device.index and seg["address"] <= ptr < seg["address"] + \
+                seg["total_size"]:
+            return seg["address"], ptr - seg["address"]
+    raise RuntimeError(f"no allocator segment holds the tensor at {ptr:#x}")
+
+
+@functools.lru_cache(maxsize=None)
+def _peer_fns():
+    lib = load_library()
+    fwd, bwd = lib.equidock_halo_peer_exchange, lib.equidock_halo_peer_exchange_bwd
+    for f in (fwd, bwd):
+        f.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    get, open_, close = lib.equidock_ipc_handle, lib.equidock_ipc_open, lib.equidock_ipc_close
+    get.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    open_.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+    close.argtypes = [ctypes.c_void_p]
+    for f in (get, open_, close):
+        f.restype = ctypes.c_int
+    return fwd, bwd, get, open_, close
+
+
+class PeerArena:
+    """This rank's exchange buffer and its graph-group peers' buffers,
+    mapped by CUDA IPC. Handles are swapped once per buffer, over the
+    group's host (gloo) object collectives; a larger buffer is agreed by
+    all ranks of the group alike (the same shapes reach every rank). The
+    exporting tensor stays alive while it is mapped; `close` unmaps the
+    peers' buffers (a handle is never opened in the process that made it:
+    a rank reads its own buffer by its own pointer)."""
+
+    def __init__(self, cpu_group, rank: int, gp: int, device):
+        self.cpu_group, self.rank, self.gp, self.device = cpu_group, rank, gp, device
+        self.buf: Optional[torch.Tensor] = None
+        self.bases: List[int] = []
+        self._opened: List[int] = []
+        self._ptr_arrays: dict = {}
+
+    def ensure(self, floats: int) -> None:
+        """A buffer of at least `floats` f32 on every rank (collective)."""
+        import torch.distributed as dist
+
+        if self.buf is not None and self.buf.numel() >= floats:
+            return
+        self.close()
+        _, _, get, open_, _ = _peer_fns()
+        self.buf = torch.zeros(max(floats, 1 << 16), dtype=torch.float32, device=self.device)
+        torch.cuda.synchronize(self.device)
+        base, off = allocation_base(self.buf)
+        handle = ctypes.create_string_buffer(64)
+        check_launch(get(ctypes.c_void_p(base), ctypes.cast(handle, ctypes.c_void_p)),
+                     "cudaIpcGetMemHandle")
+        mine = (bytes(handle.raw), off)
+        everyone = [None] * self.gp
+        dist.all_gather_object(everyone, mine, group=self.cpu_group)
+        self.bases = []
+        for q, (h, o) in enumerate(everyone):
+            if q == self.rank:
+                self.bases.append(self.buf.data_ptr())
+                continue
+            ptr = ctypes.c_void_p()
+            raw = ctypes.create_string_buffer(h, 64)
+            check_launch(open_(ctypes.cast(raw, ctypes.c_void_p), ctypes.byref(ptr)),
+                         f"cudaIpcOpenMemHandle (rank {q}'s buffer)")
+            self._opened.append(ptr.value)
+            self.bases.append(ptr.value + o)
+        dist.barrier(group=self.cpu_group)
+
+    def pointers(self, offsets: Sequence[int]) -> torch.Tensor:
+        """A device array of len(offsets) x gp pointers: region i of every
+        rank's buffer (offsets in floats)."""
+        key = tuple(offsets)
+        if key not in self._ptr_arrays:
+            ptrs = [b + 4 * o for o in offsets for b in self.bases]
+            self._ptr_arrays[key] = torch.tensor(ptrs, dtype=torch.int64).to(self.device)
+        return self._ptr_arrays[key]
+
+    def close(self) -> None:
+        """Unmap the peers' buffers, after every rank is done reading
+        (collective when a buffer is mapped)."""
+        import torch.distributed as dist
+
+        if self.buf is None:
+            return
+        torch.cuda.synchronize(self.device)
+        dist.barrier(group=self.cpu_group)
+        _, _, _, _, close = _peer_fns()
+        for ptr in self._opened:
+            check_launch(close(ctypes.c_void_p(ptr)), "cudaIpcCloseMemHandle")
+        dist.barrier(group=self.cpu_group)
+        self._opened, self.bases, self._ptr_arrays, self.buf = [], [], {}, None
+
+
+def _regions(shapes) -> Tuple[List[int], int]:
+    """Float offsets of consecutive regions, each on a 16-byte boundary."""
+    offs, at = [], 0
+    for s in shapes:
+        offs.append(at)
+        at += -(-int(np.prod(s)) // 4) * 4
+    return offs, at
+
+
+def peer_launch(backward: bool, ptr_arr: torch.Tensor, sides, outs, vec: int) -> None:
+    """One launch of the peer kernel: `sides` (D, PeerTable), `ptr_arr` the
+    device array of x then h pointers of each side, `outs` [(out_x,
+    out_h)]."""
+    dev = ptr_arr.device
+    dims, ptrs = [], []
+    plans = exchange_launch_plan(
+        [(t.Bl * t.gp, t.S, t.S * t.gp, t.Ssrc, t.gp, t.Bl) for _, t in sides],
+        [D for D, _ in sides], vec, backward)
+    base = ptr_arr.data_ptr()
+    for i, ((D, t), (ox, oh), pl) in enumerate(zip(sides, outs, plans)):
+        rows = t.Bl * (t.S if backward else t.Ssrc)
+        blocks = -(-rows // (THREADS // pl.lpr))
+        span = t.Bl * (t.Ssrc if backward else t.S)
+        dims += [D, span, rows, blocks, pl.lpr, vec]
+        ptrs += [base + 8 * t.gp * (2 * i), base + 8 * t.gp * (2 * i + 1), ox.data_ptr(),
+                 oh.data_ptr(), t.peer_row.data_ptr(), t.order.data_ptr(), t.offsets.data_ptr()]
+    p_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    i_arr = (ctypes.c_int * len(dims))(*dims)
+    fwd, bwd, *_ = _peer_fns()
+    with torch.cuda.device(dev):
+        err = (bwd if backward else fwd)(len(sides), p_arr, i_arr,
+                                         torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(err, "halo_peer_exchange" + ("_bwd" if backward else ""))
+
+
+def _peer_sides(pairs, backward: bool, out):
+    """Checks of one launch's operands: ([(out_x, out_h)], [(D, PeerTable)],
+    the operands' shapes)."""
+    dev = pairs[0][0].device
+    if dev.type != "cuda" or not 1 <= len(pairs) <= 2:
+        raise ValueError(f"halo_peer_exchange: {len(pairs)} sides on {dev}")
+    shapes, res, sides = [], [], []
+    for i, (ax, ah, t) in enumerate(pairs):
+        D = ah.shape[-1]
+        rows_in, rows_out = (t.Ssrc, t.S) if backward else (t.S, t.Ssrc)
+        check_tensor(ax, "x", (t.Bl, rows_in, 3), torch.float32, dev)
+        check_tensor(ah, "h", (t.Bl, rows_in, D), torch.float32, dev)
+        for name, tt in (("peer_row", t.peer_row), ("order", t.order), ("offsets", t.offsets)):
+            check_tensor(tt, name, tuple(tt.shape), torch.int32, dev)
+        if t.offsets.numel() != t.Bl * t.S + 1 or t.peer_row.numel() != t.Bl * t.Ssrc:
+            raise ValueError(f"peer table of rank {t.rank} does not fit Bl={t.Bl}, S={t.S}")
+        shapes += [ax.shape, ah.shape]
+        res.append(outputs(((t.Bl, rows_out, 3), (t.Bl, rows_out, D)), dev,
+                           None if out is None else out[i], "halo_peer_exchange"))
+        sides.append((D, t))
+    return res, sides, shapes
+
+
+def peer_exchange_kernel(pairs, arena: PeerArena, backward: bool = False, out=None):
+    """Row 8 (or 9, `backward`) across ranks on CUDA operands: `pairs` one or
+    two (a_x, a_h, PeerTable) (forward: x (Bl, S, 3), h (Bl, S, D);
+    backward: g_x (Bl, Ssrc, 3), g_h (Bl, Ssrc, D)). Writes them into this
+    rank's arena, host barrier (rows written), one launch reading the
+    peers' arenas, host barrier (read, reusable). Returns [(out_x, out_h)]."""
+    from ...parallel.dist import host_barrier
+
+    dev = pairs[0][0].device
+    res, sides, shapes = _peer_sides(pairs, backward, out)
+    offs, total = _regions(shapes)
+    arena.ensure(total)
+    for (ax, ah, _), i in zip(pairs, range(0, 2 * len(pairs), 2)):
+        arena.buf[offs[i]:offs[i] + ax.numel()].copy_(ax.reshape(-1))
+        arena.buf[offs[i + 1]:offs[i + 1] + ah.numel()].copy_(ah.reshape(-1))
+    vec = _vec_width([r[1] for r in res], [D for D, _ in sides])
+    ptr_arr = arena.pointers(offs)
+    torch.cuda.current_stream(dev).synchronize()
+    host_barrier(arena.cpu_group)                    # every rank's rows written
+    peer_launch(backward, ptr_arr, sides, res, vec)
+    torch.cuda.current_stream(dev).synchronize()
+    host_barrier(arena.cpu_group)                    # read: the buffers are free again
+    global peer_launches, peer_bwd_launches
+    if backward:
+        peer_bwd_launches += 1
+    else:
+        peer_launches += 1
+    return res
+
+
+def peer_kernel_only(pairs, arena: PeerArena, backward: bool = False):
+    """A launcher of the peer kernel alone on what the arenas hold now (for
+    timing the kernel apart from its copies and barriers; the caller keeps
+    every rank from writing its arena meanwhile). Counts nothing."""
+    res, sides, shapes = _peer_sides(pairs, backward, None)
+    offs, _ = _regions(shapes)
+    vec = _vec_width([r[1] for r in res], [D for D, _ in sides])
+    ptr_arr = arena.pointers(offs)
+    return lambda: peer_launch(backward, ptr_arr, sides, res, vec)
+
+
+@dataclasses.dataclass
+class PeerGroup:
+    """The graph group a rank exchanges rows with: `group` (all_reduce, any
+    device), `cpu_group` (host barriers, objects), this rank's place and the
+    arena of the kernels (made at first use on the card)."""
+
+    group: object
+    cpu_group: object
+    rank: int
+    gp: int
+    device: torch.device
+    arena: Optional[PeerArena] = None
+
+    def get_arena(self) -> PeerArena:
+        if self.arena is None:
+            self.arena = PeerArena(self.cpu_group, self.rank, self.gp, self.device)
+        return self.arena
+
+    def close(self) -> None:
+        if self.arena is not None:
+            self.arena.close()
+            self.arena = None
+
+
+class _PeerExchange(torch.autograd.Function):
+    """Rows 8 and 9 across ranks over one or two sides: inputs (x_1, h_1,
+    x_2, h_2), outputs (x_src_1, h_src_1, ...); the kernels on CUDA tensors,
+    the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, pg: PeerGroup, tabs, *xh):
+        ctx.pg, ctx.tabs = pg, tabs
+        pairs = [(xh[2 * i].contiguous(), xh[2 * i + 1].contiguous(), t)
+                 for i, t in enumerate(tabs)]
+        if xh[0].device.type == "cpu":
+            res = [peer_exchange_plain(x, h, t, pg.group) for x, h, t in pairs]
+        else:
+            res = peer_exchange_kernel(pairs, pg.get_arena())
+        return tuple(a for r in res for a in r)
+
+    @staticmethod
+    def backward(ctx, *g):
+        pg = ctx.pg
+        pairs = [(g[2 * i].contiguous(), g[2 * i + 1].contiguous(), t)
+                 for i, t in enumerate(ctx.tabs)]
+        if g[0].device.type == "cpu":
+            res = [peer_exchange_bwd_plain(gx, gh, t, pg.group) for gx, gh, t in pairs]
+        else:
+            res = peer_exchange_kernel(pairs, pg.get_arena(), backward=True)
+        return (None, None) + tuple(a for r in res for a in r)
+
+
+def peer_exchange_sides(pg: PeerGroup, tabs: Sequence[PeerTable], xh: Sequence[torch.Tensor]):
+    """(x_src_1, h_src_1, ...) of one or two sides across the ranks of `pg`,
+    differentiable: one launch of row 8's peer form on CUDA tensors
+    (backward: one of row 9's), the plain versions on CPU tensors."""
+    return _PeerExchange.apply(pg, tuple(tabs), *xh)

@@ -31,8 +31,22 @@ src views) on its local block, with a ring cross-attention.
          `ring_composition` keeps that composition in plain PyTorch, the
          reference the tables are pinned to.
 
-Moving rows between cards (NCCL send/recv, peer stores) is not ported:
-a mesh that names several devices raises (ROADMAP A9).
+Across ranks (a `ParallelMesh` over a world of dp gp processes): every
+rank of a data group builds the group's HaloBatch alike and keeps its own
+shard p. A layer's exchange is row 8's peer form
+(`ops/cuda/halo_ring.py::peer_exchange_sides`): the receiving rank reads
+the rows it needs from its peers' buffers, mapped by CUDA IPC, through its
+`PeerTable` (the group's table as (rank, row)); the backward (row 9's peer
+form) has each owner pull its rows' cotangent slots from its peers' in
+table order, so the ranks compute the stacked form's bits. The ring
+attention gathers the peers' K/V chunks by an all_reduce and folds them in
+JAX's order; GraphNorm sums its statistics over the graph group; the trunk
+ends with an all-gather over it, and every rank of the group runs the
+dense head and the loss on the gathered rows alike. So a trunk
+parameter's gradient on a rank is its shard's part, summed over the graph
+group, while the head's is whole on each rank (`head_leaf`):
+`parallel/train.py` sums the trunk's over every rank and the head's from
+graph rank 0 of each data group alone.
 """
 
 from __future__ import annotations
@@ -48,12 +62,14 @@ from ..graph import PairBatch, ProteinBatch
 from ..models.iegmn import (check_supported, fused_edge_eligible, iegmn_layer_forward,
                             keypoint_head, layer_params, trunk_inputs, uses_batch_norm)
 from ..ops.cuda.edge_message import inverse_neighbors
-from ..ops.cuda.halo_ring import (ExchangeTable, halo_exchange_pair, halo_exchange_sides,
+from ..ops.cuda.halo_ring import (ExchangeTable, PeerTable, halo_exchange_pair,
+                                   halo_exchange_sides, peer_exchange_sides, peer_table,
                                    ring_exchange, ring_ship, take_rows)
 from ..ops.kabsch import apply_rigid
 from ..params import flatten
 from .mesh import ParallelMesh
-from .ring_attention import ring_cross_attention_local
+from .dist import all_reduce_sum, gather_slots, scatter_own
+from .ring_attention import ring_cross_attention_local, ring_cross_attention_ranks
 
 HALO_BUCKETS = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 
@@ -107,6 +123,10 @@ class HaloBatch:
     plan_rec: HaloPlan
     table_lig: ExchangeTable
     table_rec: ExchangeTable
+    # across ranks: this rank's PeerTables of both sides, by (rank, device),
+    # built at the batch's first forward on a rank (`rank_tables`)
+    peer_tables: Dict[tuple, Tuple[PeerTable, PeerTable]] = dataclasses.field(
+        default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -524,6 +544,78 @@ def _ring_attend(mesh: ParallelMesh) -> Callable:
     return attend
 
 
+def rank_tables(hb: HaloBatch, mesh: ParallelMesh) -> Tuple[PeerTable, PeerTable]:
+    """This rank's peer tables of both sides, once a batch a rank. The
+    batch is the rank's data group's (its tables for dp 1)."""
+    key = (mesh.p, str(mesh.device))
+    if key not in hb.peer_tables:
+        for t in (hb.table_lig, hb.table_rec):
+            if t.src_row.shape[1] != mesh.gp or t.dp != 1:
+                raise ValueError(f"halo batch for gp={t.src_row.shape[1]}, dp={t.dp}: across "
+                                 f"ranks each data group builds its own batch at dp 1 ({mesh})")
+        hb.peer_tables[key] = tuple(peer_table(t, mesh.p, mesh.device)
+                                    for t in (hb.table_lig, hb.table_rec))
+    return hb.peer_tables[key]
+
+
+def _local_protein(side: ProteinBatch, mesh: ParallelMesh) -> ProteinBatch:
+    """Every per-node array of one side, this rank's shard."""
+    return ProteinBatch(**{f.name: mesh.local_nodes(getattr(side, f.name))
+                           for f in dataclasses.fields(side)
+                           if getattr(side, f.name) is not None})
+
+
+def _ranked_attend(mesh: ParallelMesh) -> Callable:
+    def attend(q, k, v, q_mask, k_mask, cross_msgs: bool = True):
+        if not cross_msgs:
+            return torch.zeros(q.shape[:-1] + (v.shape[-1],), dtype=q.dtype, device=q.device)
+        return ring_cross_attention_ranks(q, k, v, q_mask, k_mask, mesh.graph, mesh.p, mesh.gp)
+    return attend
+
+
+def _gather_nodes(a: torch.Tensor, mesh: ParallelMesh) -> torch.Tensor:
+    """(Bl, S, F) shards -> (Bl, gp S, F) on every rank of the graph group;
+    each rank seeds only its own shard's cotangent in the backward (every
+    rank repeats the computation on the gathered rows)."""
+    full = gather_slots(a, mesh.graph, mesh.p, mesh.gp, own_slot_grad=True)
+    return full.transpose(0, 1).reshape(a.shape[0], -1, *a.shape[2:])
+
+
+def _trunk_ranked(p, cfg: ModelConfig, mesh: ParallelMesh, n_lays: int, fine_tune: bool,
+                  lig: ProteinBatch, rec: ProteinBatch, x_l_in, tab_l: PeerTable,
+                  tab_r: PeerTable):
+    """The trunk on this rank's shard of the data group's complexes: per
+    layer the peer exchange of both sides in one call, the unchanged layer
+    body with the ring attention over the graph group and GraphNorm's sums
+    over it. Returns x and h of both sides gathered to (Bl, N, .)."""
+    x_l, x_r = x_l_in, rec.x
+    h_l, h_r, he_l, he_r = trunk_inputs(p, cfg, lig, rec)
+    orig_h_l, orig_h_r = h_l, h_r
+    attend = _ranked_attend(mesh)
+    gn = lambda s: all_reduce_sum(s, mesh.graph)
+    inv_l = inv_r = None
+    for i in range(n_lays):
+        xs_l, hs_l, xs_r, hs_r = peer_exchange_sides(mesh.peers, (tab_l, tab_r),
+                                                     (x_l, h_l, x_r, h_r))
+        if i == 0 and torch.is_grad_enabled():
+            inv_l = inverse_neighbors(lig.nbr, xs_l.shape[1])
+            inv_r = inverse_neighbors(rec.nbr, xs_r.shape[1])
+        x_l, h_l, x_r, h_r = iegmn_layer_forward(
+            layer_params(cfg, p, i), cfg, fine_tune, i > 0, lig, rec, x_l, h_l, x_r, h_r,
+            orig_h_l, orig_h_r, he_l, he_r, x_l_in, rec.x, src_l=(xs_l, hs_l),
+            src_r=(xs_r, hs_r), attend=attend, inv_l=inv_l, inv_r=inv_r, gn_reduce=gn)
+    return tuple(_gather_nodes(a, mesh) for a in (x_l, h_l, x_r, h_r))
+
+
+def _stacked_gn(mesh: ParallelMesh) -> Callable:
+    """GraphNorm's per-shard sums of folded blocks, summed over the stacked
+    shard axis and handed back to every shard."""
+    def reduce(s):
+        st = mesh.unfold(s)
+        return st.sum(dim=1, keepdim=True).expand_as(st).reshape(s.shape)
+    return reduce
+
+
 def _trunk(p, cfg: ModelConfig, mesh: ParallelMesh, n_lays: int, fine_tune: bool,
            lig: ProteinBatch, rec: ProteinBatch, x_l_in, tab_l: ExchangeTable,
            tab_r: ExchangeTable):
@@ -533,7 +625,7 @@ def _trunk(p, cfg: ModelConfig, mesh: ParallelMesh, n_lays: int, fine_tune: bool
     x_l, x_r = x_l_in, rec.x
     h_l, h_r, he_l, he_r = trunk_inputs(p, cfg, lig, rec)
     orig_h_l, orig_h_r = h_l, h_r
-    attend = _ring_attend(mesh)
+    attend, gn = _ring_attend(mesh), _stacked_gn(mesh)
     inv_l = inv_r = None
     for i in range(n_lays):
         xs_l, hs_l, xs_r, hs_r = halo_exchange_pair(x_l, h_l, x_r, h_r, tab_l, tab_r)
@@ -544,7 +636,7 @@ def _trunk(p, cfg: ModelConfig, mesh: ParallelMesh, n_lays: int, fine_tune: bool
         x_l, h_l, x_r, h_r = iegmn_layer_forward(
             layer_params(cfg, p, i), cfg, fine_tune, i > 0, lig, rec, x_l, h_l, x_r, h_r,
             orig_h_l, orig_h_r, he_l, he_r, x_l_in, rec.x, src_l=src_l, src_r=src_r,
-            attend=attend, inv_l=inv_l, inv_r=inv_r)
+            attend=attend, inv_l=inv_l, inv_r=inv_r, gn_reduce=gn)
     return tuple(mesh.gather(a) for a in (x_l, h_l, x_r, h_r))
 
 
@@ -559,9 +651,6 @@ def check_halo_supported(cfg: ModelConfig) -> None:
             f"the halo path runs the edge kernels without BatchNorm only: nonlin={cfg.nonlin!r}, "
             f"layer_norm={cfg.layer_norm!r}, layer_norm_coors={cfg.layer_norm_coors!r}, "
             f"final_h_layer_norm={cfg.final_h_layer_norm!r}")
-    if cfg.final_h_layer_norm == "GN":
-        raise NotImplementedError("final_h_layer_norm='GN' in the halo path: GraphNorm "
-                                  "statistics summed across shards are not ported")
 
 
 def make_halo_forward(cfg: Config, mesh: ParallelMesh):
@@ -569,7 +658,9 @@ def make_halo_forward(cfg: Config, mesh: ParallelMesh):
     HaloBatch, the sharded trunk(s) plus the dense keypoint head and rigid
     fit, with the same output dict (coordinates in the HaloBatch's node
     order; with a fine-tune stage, (R, t) composed from the original input
-    ligand, as the dense forward does)."""
+    ligand, as the dense forward does). Across ranks `hb` is the rank's
+    data group's batch (every rank of the group passes the same one) and
+    every rank of the group returns the group's whole outputs."""
     mc = cfg.model
     check_halo_supported(mc)
 
@@ -578,6 +669,16 @@ def make_halo_forward(cfg: Config, mesh: ParallelMesh):
         for t in (lig.x, rec.x, x_l_in):
             if t.device != mesh.device:
                 raise ValueError(f"halo batch on {t.device}, mesh on {mesh.device}")
+        if mesh.ranked:
+            tab_l, tab_r = rank_tables(hb, mesh)
+            x_local = (mesh.local_nodes(x_l_in) if not x_l_in.requires_grad else
+                       scatter_own(x_l_in.reshape(x_l_in.shape[0], mesh.gp, -1, 3)
+                                   .transpose(0, 1), mesh.graph, mesh.p))
+            x_l_f, h_l_f, x_r_f, h_r_f = _trunk_ranked(
+                params_stage, mc, mesh, n_lays, fine_tune, _local_protein(lig, mesh),
+                _local_protein(rec, mesh), x_local, tab_l, tab_r)
+            return keypoint_head(params_stage, mc, h_l_f, x_l_f, h_r_f, x_r_f,
+                                 lig.node_mask, rec.node_mask)
         x_l_f, h_l_f, x_r_f, h_r_f = _trunk(
             params_stage, mc, mesh, n_lays, fine_tune, mesh.shard_protein(lig),
             mesh.shard_protein(rec), mesh.fold(x_l_in), mesh_table(hb.table_lig, mesh),
@@ -622,17 +723,35 @@ def make_halo_train_step(cfg: Config, mesh: ParallelMesh):
     """Returns step(state, hb, lr_scale=1.0) -> (state, metrics): the port's
     `train_step` with the halo loss swapped in, so the optimizer, the clip
     telemetry and the "no gradient reached" check are the dense step's. As
-    in the JAX package, the metrics leave out ligand_coords."""
+    in the JAX package, the metrics leave out ligand_coords. Across ranks
+    `hb` is the rank's data group's batch, its loss terms a share of the
+    whole batch's mean, and the gradients are summed over the ranks before
+    the optimizer (`parallel/train.py::ranked_step`)."""
     from ..train.step import train_step
+    from .train import check_ranked_supported, global_count, ranked_step
 
+    if mesh.ranked:
+        check_ranked_supported(cfg)
+    fwd = make_halo_forward(cfg, mesh)
     halo_loss_fn = make_halo_loss(cfg, mesh)
 
     def step(state, hb: HaloBatch, lr_scale: float = 1.0):
         dev = next(iter(flatten(state.params).values())).device
         if dev != mesh.device:
             raise ValueError(f"train state on {dev}, mesh on {mesh.device}")
-        state, metrics = train_step(state, hb, cfg, lr_scale, loss_fn_=halo_loss_fn)
-        metrics.pop("ligand_coords", None)
-        return state, metrics
+        if not mesh.ranked:
+            state, metrics = train_step(state, hb, cfg, lr_scale, loss_fn_=halo_loss_fn)
+            metrics.pop("ligand_coords", None)
+            return state, metrics
+        from ..train.losses import total_loss
+
+        denom = global_count(hb.pair.complex_mask, mesh)
+
+        def loss_fn_(params, cfg_: Config, hb_: HaloBatch):
+            out = fwd(params, hb_)
+            loss, metrics = total_loss(out, hb_.pair, cfg_.train, denom=denom)
+            return loss, (metrics, out)
+
+        return ranked_step(state, hb, cfg, lr_scale, mesh, loss_fn_, halo=True)
 
     return step

@@ -1,18 +1,29 @@
-"""The (data, graph) mesh of the halo path, in one process on one device:
-the port's counterpart of `equidock_public_tpu/parallel/mesh.py::make_mesh`
-and of `shard_map` over `P("data", "graph")`.
+"""The (data, graph) mesh: the port's counterpart of
+`equidock_public_tpu/parallel/mesh.py::make_mesh` and of `shard_map` over
+`P("data", "graph")`, in two forms.
 
-Every shard lives on the mesh's one device, stacked on leading axes: a node
+Across ranks (`ParallelMesh(dp, gp, world=init_from_env())` with a world
+of dp gp processes, `parallel/dist.py`): rank r = g gp + p, JAX's
+`devices.reshape(dp, gp)`, holds data group g (complexes g B/dp ...
+(g+1) B/dp - 1, as `P("data")` cuts the batch) and graph shard p of each
+(nodes p S ... (p+1) S - 1). `graph` is the subgroup of the ranks of one
+g, `data` that of the ranks of one p (None for a group of one rank);
+`peers` is the graph group's exchange (`ops/cuda/halo_ring.py::
+PeerGroup`).
+
+In one process (a world of one, the default): every shard lives on the
+mesh's one device, stacked on leading axes: a node
 array (B, N, ...) of one side becomes (dp, gp, B/dp, S, ...) with
 S = N / gp (data group g holds complexes g B/dp ... (g+1) B/dp - 1, as
 `P("data")` cuts the batch; graph shard p holds nodes p S ... (p+1) S - 1).
 The layer body runs once over the folded (dp gp B/dp, S, ...) blocks; the
-ring kernels read and write the (dp, gp, ...) view of the same memory.
-Shards on several devices (NCCL or peer copies between cards) are not
-ported: a mesh that names more than one device raises.
+ring kernels read and write the (dp, gp, ...) view of the same memory. The
+stacked form is what the rank form is held to. A world of any other size
+than 1 or dp gp raises.
 
-The JAX package's SPMD specs (`protein_pspec`, `batch_pspec`,
-`shard_batch`, `replicate`) serve `fit`'s mesh path, which is not ported.
+The JAX package's SPMD specs (`batch_pspec`, `shard_batch`, `replicate`)
+have no counterpart: a rank holds its rows of the batch itself
+(`parallel/input_pipeline.py`) and a full copy of the parameters.
 """
 
 from __future__ import annotations
@@ -37,25 +48,75 @@ def _resolve(device) -> torch.device:
 
 
 class ParallelMesh:
-    """dp data groups x gp graph shards, all on one device (the card unless
-    the caller asks for the CPU)."""
+    """dp data groups x gp graph shards: across the ranks of `world` (a
+    `parallel.dist.World` of dp gp ranks, each on its own device), or all
+    on one device (no world, or a world of one: the card unless the caller
+    asks for the CPU)."""
 
     def __init__(self, dp: int = 1, gp: int = 1,
-                 device: Optional[Union[DeviceLike, Sequence[DeviceLike]]] = None):
+                 device: Optional[Union[DeviceLike, Sequence[DeviceLike]]] = None,
+                 world=None):
         if dp < 1 or gp < 1:
             raise ValueError(f"dp={dp}, gp={gp}: both must be at least 1")
+        self.dp, self.gp = dp, gp
+        self.world = world if world is not None and world.size > 1 else None
+        self.g, self.p = 0, 0
+        self.graph = self.graph_cpu = self.data = self.peers = None
+        if self.world is not None:
+            if world.size != dp * gp:
+                raise ValueError(f"a world of {world.size} ranks for dp={dp} x gp={gp}: give "
+                                 f"{dp * gp} ranks, or one for the stacked form")
+            from ..ops.cuda.halo_ring import PeerGroup
+
+            self.device = world.device
+            self.g, self.p = divmod(world.rank, gp)
+            # every rank makes its two groups, graph then data (a group of one
+            # rank is None: its collectives are the identity)
+            if gp > 1:
+                self.graph, self.graph_cpu = world.new_group([self.g * gp + p
+                                                              for p in range(gp)])
+                self.peers = PeerGroup(self.graph, self.graph_cpu, self.p, gp, self.device)
+            if dp > 1:
+                self.data = world.new_group([g * gp + self.p for g in range(dp)])[0]
+            return
         if isinstance(device, (list, tuple)):
             devs = {_resolve(d) for d in device}
             if len(devs) > 1:
-                raise NotImplementedError(
-                    f"shards on {len(devs)} devices ({sorted(map(str, devs))}): moving halo "
-                    "rows between cards is not ported (ROADMAP A9); give one device")
+                raise ValueError(
+                    f"shards on {len(devs)} devices ({sorted(map(str, devs))}) in one process: "
+                    "run one rank a device (parallel/dist.py) and pass world=")
             device = next(iter(devs)) if devs else None
-        self.dp, self.gp = dp, gp
         self.device = _resolve(device)
 
+    @property
+    def ranked(self) -> bool:
+        """Whether the shards are ranks (processes) rather than stacked blocks."""
+        return self.world is not None
+
     def __repr__(self) -> str:
-        return f"ParallelMesh(dp={self.dp}, gp={self.gp}, device={self.device})"
+        where = (f"rank {self.world.rank} of {self.world.size}" if self.ranked
+                 else f"device={self.device}")
+        return f"ParallelMesh(dp={self.dp}, gp={self.gp}, {where})"
+
+    def close(self) -> None:
+        """Unmap the peers' exchange buffers (collective over the graph group)."""
+        if self.peers is not None:
+            self.peers.close()
+
+    def local_slice(self, B: int) -> slice:
+        """This rank's complexes of a global batch of B."""
+        if B % self.dp:
+            raise ValueError(f"batch {B} does not split into dp={self.dp} groups")
+        Bl = B // self.dp
+        return slice(self.g * Bl, (self.g + 1) * Bl)
+
+    def local_nodes(self, a: torch.Tensor) -> torch.Tensor:
+        """(Bl, N, ...) of this rank's data group -> its shard (Bl, S, ...)."""
+        N = a.shape[1]
+        if N % self.gp:
+            raise ValueError(f"{N} nodes do not split into gp={self.gp} shards")
+        S = N // self.gp
+        return a[:, self.p * S:(self.p + 1) * S].contiguous()
 
     def check(self, B: int, N: int) -> None:
         if B % self.dp or N % self.gp:

@@ -42,8 +42,9 @@ from ..params import flatten, init_params
 from .checkpoint import load_checkpoint, save_checkpoint
 from .meter import RmsdMeter
 from .optim import ReduceOnPlateau, epoch_lr_factor
-from .resident import (StreamedResidentSplit, build_resident_split, draws_factory,
-                       run_eval_epoch_resident, run_train_epoch_resident,
+from .resident import (ResidentSplitDP, StreamedResidentSplit, build_resident_split,
+                       build_resident_split_dp, draws_factory, run_eval_epoch_resident,
+                       run_train_epoch_resident, run_train_epoch_resident_dp,
                        run_train_epoch_resident_streamed)
 from .step import TrainState, create_train_state, eval_step, make_dropout, train_step
 
@@ -121,13 +122,15 @@ def _batches(ds: DockingDataset, rng, device, shuffle: bool):
 
 def run_train_epoch(state: TrainState, ds: DockingDataset, cfg: Config,
                     rng: np.random.Generator, epoch: int, log=print,
-                    lr_scale: float = 1.0, drop=None):
+                    lr_scale: float = 1.0, drop=None, step_fn=None):
     """One training epoch. Returns (state, averages): the loss terms over
     the batches, the complex-RMSD median and mean of the metered batches
     (the first, and each further one with probability
     `train_rmsd_fraction`), num_clips and num_batches. Dropout above 0
     draws from `drop`, by default a generator of the epoch
-    (`step.make_dropout`)."""
+    (`step.make_dropout`). `step_fn(state, batch, lr_scale)` swaps the
+    step (the mesh path of `fit`); its metrics carry no ligand_coords, so
+    the train RMSD reads nan, as in the JAX package's mesh path."""
     dev = next(iter(flatten(state.params).values())).device
     drop = drop if drop is not None else make_dropout(cfg, dev, epoch)
     meter_rng = np.random.default_rng((cfg.train.random_seed, 7919, epoch))
@@ -136,13 +139,16 @@ def run_train_epoch(state: TrainState, ds: DockingDataset, cfg: Config,
     clips = []
     num_batches = 0
     for batch in _batches(ds, rng, dev, shuffle=True):
-        state, metrics = train_step(state, batch, cfg, lr_scale, drop=drop)
+        if step_fn is not None:
+            state, metrics = step_fn(state, batch, lr_scale)
+        else:
+            state, metrics = train_step(state, batch, cfg, lr_scale, drop=drop)
         num_batches += 1
         for k in LOSS_KEYS:           # summed in float64 on the device: no sync a step
             sums[k] = sums.get(k, 0.0) + metrics[k].double()
         clips.append(metrics["clipped"])
         sampled = meter_rng.uniform() < cfg.train.train_rmsd_fraction
-        if num_batches == 1 or sampled:
+        if (num_batches == 1 or sampled) and "ligand_coords" in metrics:
             meter.update_batch(batch, metrics["ligand_coords"].cpu().numpy())
     avg = {k: float(v) / max(num_batches, 1) for k, v in sums.items()}
     _, _, crmsd_median = meter.summarize("median")
@@ -203,9 +209,21 @@ def selection_value(va: Dict[str, float], metric: str) -> float:
 
 def check_fit_supported(cfg: Config) -> None:
     """Raise NotImplementedError naming every loop option outside the port
-    (and, through `models.iegmn.check_supported`, every model option)."""
+    (and, through `models.iegmn.check_supported`, every model option), and
+    ValueError for the JAX package's own refusals."""
     check_supported(cfg.model)
-    dc = cfg.data
+    dc, par = cfg.data, cfg.parallel
+    if dc.device_resident and par.gp > 1:
+        raise ValueError("-device_resident shards pairs (dp); node sharding (gp) needs the "
+                         "halo path: drop -gp or -device_resident")
+    if dc.device_resident and dc.data == "dips" and dc.stream_dips and par.dp > 1:
+        raise ValueError("-stream_dips -device_resident runs on one rank: drop -dp for "
+                         "streamed-resident or -stream_dips for dp")
+    if par.dp * par.gp > 1 and cfg.train.bs % par.dp:
+        raise ValueError(f"-bs {cfg.train.bs} does not split into dp={par.dp} ranks")
+    if dc.pack and par.gp > 1:
+        raise NotImplementedError("-pack with -gp: the halo path takes one complex a slot")
+
     if dc.pack and cfg.model.final_h_layer_norm == "GN":
         raise ValueError("-pack with final_h_layer_norm='GN': GraphNorm normalizes per graph "
                          "and is not segment-aware; train packed batches with 'LN'/'0'")
@@ -245,10 +263,36 @@ def _json_scalars(d: dict) -> dict:
             for k, v in d.items()}
 
 
+def mesh_step(cfg: Config, mesh, log) -> Callable:
+    """The step of `fit`'s mesh path, step(state, batch, lr_scale) on a
+    whole batch as the dataset yields it: across ranks this rank's rows
+    (dp; `parallel/train.py`), with gp > 1 through the halo step on the
+    rank's data group's halo batch (built on the host once a batch); in one
+    process the stacked form."""
+    from ..parallel.halo import build_halo_batch, make_halo_train_step
+    from ..parallel.input_pipeline import local_rows
+    from ..parallel.train import make_parallel_train_step
+
+    if mesh.gp == 1:
+        pstep = make_parallel_train_step(cfg, mesh)
+        return lambda state, batch, scale: pstep(
+            state, local_rows(batch, mesh) if mesh.ranked else batch, scale)
+    hstep = make_halo_train_step(cfg, mesh)
+
+    def step(state, batch, scale):
+        if mesh.ranked:
+            hb = build_halo_batch(local_rows(batch, mesh), mesh.gp)[0]
+        else:
+            hb = build_halo_batch(batch, mesh.gp)[0]
+        return hstep(state, hb, scale)
+
+    return step
+
+
 def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[int] = None,
         log=None, checkpoint_name: Optional[str] = None,
         max_seconds: Optional[float] = None, device=None,
-        history: Optional[List[dict]] = None, draws=None) -> TrainState:
+        history: Optional[List[dict]] = None, draws=None, world=None) -> TrainState:
     """Train on the cached train split with early stopping on the val
     selection metric (a new best must beat the old by 2% of its size, sign
     safe), `patience` epochs, the epoch LR factor (cyclic or
@@ -261,10 +305,20 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
     (`train/resident.py`; the train split streamed group by group for
     `data='dips'` with `stream_dips`), and `draws`, if given, maps
     (purpose, epoch) to the draw source of that epoch's train ('train'),
-    val ('val') or test ('test') pass."""
+    val ('val') or test ('test') pass.
+
+    With `cfg.parallel` dp x gp above 1 (the JAX package's mesh path):
+    across the ranks of `world` (`parallel/dist.py::init_from_env`, a
+    world of dp gp), each rank draws the same batches and steps on its
+    share (`mesh_step`); in one process the stacked form. Packed batches
+    round the slot-count buckets up to multiples of dp. Rank 0 alone
+    writes checkpoints, logs and scalars; the val averages that decide
+    early stopping are rank 0's, broadcast to every rank."""
     check_fit_supported(cfg)
-    dev = resolve_device(device)
-    log = log or make_logger(cfg)
+    world = world if world is not None and world.size > 1 else None
+    lead = world is None or world.rank == 0
+    dev = world.device if world is not None else resolve_device(device)
+    log = (log or make_logger(cfg)) if lead else (lambda *a: None)
     tc = cfg.train
     rng = np.random.default_rng(tc.random_seed)
 
@@ -277,9 +331,24 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
         state = create_train_state(init_params(cfg.model, tc.random_seed, dev), cfg, dev)
         log(f"Number of parameters = {sum(v.numel() for v in state.mu.values()):,}")
 
-    resident = _resident_splits(cfg, (train_ds, val_ds, test_ds), dev, log)
+    resident = _resident_splits(cfg, (train_ds, val_ds, test_ds), dev, log, world)
     if resident is not None and draws is None:
         draws = draws_factory(cfg, dev)
+    step_fn, par = None, cfg.parallel
+    if par.dp * par.gp > 1 and resident is None:
+        from ..parallel.mesh import ParallelMesh
+
+        if cfg.data.pack and cfg.data.pack_max_per_slot > 1 and par.dp > 1:
+            scb = tuple(sorted({-(-b // par.dp) * par.dp for b in cfg.data.slot_count_buckets}))
+            cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
+                                                                    slot_count_buckets=scb))
+            train_ds.cfg = cfg
+            log(f"packed mesh training: slot-count buckets -> {scb}")
+        mesh = ParallelMesh(par.dp, par.gp, dev, world=world)
+        step_fn = mesh_step(cfg, mesh, log)
+        log(f"mesh training: dp={par.dp} x gp={par.gp} "
+            + (f"over {world.size} ranks ({world.backend})" if world is not None
+               else "stacked in one process"))
 
     ckpt_dir = os.path.join(cfg.checkpoint_dir, cfg.banner())
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -299,22 +368,31 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
         t0 = time.perf_counter()
         lr_scale = epoch_lr_factor(tc, epoch, plateau)
         if resident is not None:
-            runner = (run_train_epoch_resident_streamed
-                      if isinstance(resident["train"], StreamedResidentSplit)
-                      else run_train_epoch_resident)
-            state, tr = runner(state, resident["train"], cfg, rng, draws("train", epoch), epoch,
-                               log, lr_scale=lr_scale, do_swap=train_ds.swap)
+            if isinstance(resident["train"], ResidentSplitDP):
+                state, tr = run_train_epoch_resident_dp(
+                    state, resident["train"], cfg, resident["mesh"], rng, draws("train", epoch),
+                    epoch, log, lr_scale=lr_scale, do_swap=train_ds.swap)
+            else:
+                runner = (run_train_epoch_resident_streamed
+                          if isinstance(resident["train"], StreamedResidentSplit)
+                          else run_train_epoch_resident)
+                state, tr = runner(state, resident["train"], cfg, rng, draws("train", epoch),
+                                   epoch, log, lr_scale=lr_scale, do_swap=train_ds.swap)
             t1 = time.perf_counter()
             va = run_eval_epoch_resident(state.params, resident["val"], cfg,
                                          draws("val", epoch), repeats=max(tc.val_repeats, 1),
                                          bn_state=state.bn_state)
         else:
             state, tr = run_train_epoch(state, train_ds, cfg, rng, epoch, log,
-                                        lr_scale=lr_scale)
+                                        lr_scale=lr_scale, step_fn=step_fn)
             t1 = time.perf_counter()
             reps = [run_eval_epoch(state.params, val_ds, cfg, rng, state.bn_state)
                     for _ in range(max(tc.val_repeats, 1))]
             va = {k: float(np.mean([r[k] for r in reps])) for k in reps[0]}
+        if world is not None:
+            from ..parallel.dist import broadcast_object
+
+            va = broadcast_object(va, world)
         t2 = time.perf_counter()
         if plateau is not None:
             new_scale = plateau.step(va["loss"])
@@ -333,7 +411,7 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
             f"time {t2 - t0:.1f}s rss {rss:.1f}G")
 
         ckpt_s = 0.0
-        if tc.save_every_epochs and (epoch + 1) % tc.save_every_epochs == 0:
+        if lead and tc.save_every_epochs and (epoch + 1) % tc.save_every_epochs == 0:
             t = time.perf_counter()
             save_checkpoint(ckpt_path + "_latest", state, cfg, epoch)
             ckpt_s += time.perf_counter() - t
@@ -343,7 +421,8 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
             best_val, best_epoch = sel, epoch
             patience_left = tc.patience
             t = time.perf_counter()
-            save_checkpoint(ckpt_path, state, cfg, epoch)
+            if lead:
+                save_checkpoint(ckpt_path, state, cfg, epoch)
             ckpt_s += time.perf_counter() - t
             log(f"  saved best checkpoint (val {tc.select_metric} {best_val:.4f})")
         else:
@@ -356,14 +435,19 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
                   "best_epoch": best_epoch, "rss_gb": rss}
         if resident is not None:
             record["resident_mb"] = resident["mb"]
-        with open(scalars_path, "a") as f:
-            f.write(json.dumps(record) + "\n")
+        if lead:
+            with open(scalars_path, "a") as f:
+                f.write(json.dumps(record) + "\n")
         if history is not None:
             history.append(record)
         if patience_left <= 0:
             log("Early stopping.")
             break
 
+    if world is not None:
+        from ..parallel.dist import host_barrier
+
+        host_barrier(world.cpu_group)          # rank 0's checkpoint is written
     if os.path.exists(ckpt_path):
         state, _, _ = load_checkpoint(ckpt_path, dev)
     if resident is not None:
@@ -378,24 +462,35 @@ def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[in
     return state
 
 
-def _resident_splits(cfg: Config, datasets, dev, log) -> Optional[dict]:
+def _resident_splits(cfg: Config, datasets, dev, log, world=None) -> Optional[dict]:
     """With `device_resident`: {"train", "val", "test": the resident splits
-    (the train split a `StreamedResidentSplit` for streamed DIPS), "mb":
-    the stores' MB on the device}; else None."""
+    (the train split a `StreamedResidentSplit` for streamed DIPS, a
+    `ResidentSplitDP` sharded over the data ranks of "mesh" with dp above
+    1), "mb": the stores' MB on the device}; else None."""
     if not cfg.data.device_resident:
         return None
     train_ds, val_ds, test_ds = datasets
     streamed = cfg.data.data == "dips" and cfg.data.stream_dips
+    mesh = None
     if streamed:
         train = StreamedResidentSplit.build(train_ds, cfg)
         log("streamed-resident epochs: groups uploaded per epoch (prefetch 1), "
             f"{len(train.by_bucket)} bucket groups")
+    elif cfg.parallel.dp > 1:
+        from ..parallel.mesh import ParallelMesh
+
+        mesh = ParallelMesh(cfg.parallel.dp, 1, dev, world=world)
+        train = build_resident_split_dp(train_ds, cfg, mesh)
+        log(f"dp-resident epochs: pair axis sharded over dp={cfg.parallel.dp} "
+            + (f"ranks ({world.backend})" if mesh.ranked else "shards stacked in one process"))
     else:
         train = build_resident_split(train_ds, cfg, dev)
     out = {"train": train, "val": build_resident_split(val_ds, cfg, dev),
-           "test": build_resident_split(test_ds, cfg, dev)}
-    n_bytes = sum(rs.nbytes() for rs in out.values() if not isinstance(rs, StreamedResidentSplit))
-    groups = {k: sorted(getattr(rs, "groups", None) or rs.by_bucket) for k, rs in out.items()}
+           "test": build_resident_split(test_ds, cfg, dev), "mesh": mesh}
+    splits = {k: out[k] for k in ("train", "val", "test")}
+    n_bytes = sum(rs.nbytes() for rs in splits.values()
+                  if not isinstance(rs, StreamedResidentSplit))
+    groups = {k: sorted(getattr(rs, "groups", None) or rs.by_bucket) for k, rs in splits.items()}
     out["mb"] = n_bytes / 1e6
     log(f"device-resident epochs: {n_bytes / 1e6:.1f} MB on {dev}"
         + (" (train streams per epoch)" if streamed else "") + f", groups/split = {groups}")
@@ -403,7 +498,7 @@ def _resident_splits(cfg: Config, datasets, dev, log) -> Optional[dict]:
 
 
 def curriculum(cfg: Config, toy: bool = False, log=None, state: Optional[TrainState] = None,
-               device=None, history: Optional[List[dict]] = None) -> TrainState:
+               device=None, history: Optional[List[dict]] = None, world=None) -> TrainState:
     """The DIPS -> DB5 curriculum: `fit` on DIPS (lr 2e-4, patience 100),
     then on DB5 from the DIPS stage's best state (lr 1e-4, patience 500);
     `toy` runs the DB5 stage only. `history`, if given, gets each stage's
@@ -416,5 +511,5 @@ def curriculum(cfg: Config, toy: bool = False, log=None, state: Optional[TrainSt
             train=dataclasses.replace(cfg.train, lr=lr, patience=patience))
         if history is not None:
             history.append({"stage": data})
-        state = fit(stage_cfg, state, log=log, device=device, history=history)
+        state = fit(stage_cfg, state, log=log, device=device, history=history, world=world)
     return state

@@ -4,7 +4,7 @@ unpacked (one complex per slot) and packed (several a slot)."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,20 +31,23 @@ def masked_mse_packed(pred: torch.Tensor, target: torch.Tensor,
 
 
 def total_loss(outputs: Dict[str, torch.Tensor], batch: PairBatch,
-               tc: TrainConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               tc: TrainConfig, denom: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Scalar training loss and its terms, averaged over the valid complexes:
     coordinate MSE + w_ot * pocket OT (Sinkhorn, or the exact host LP with
     `ot_solver='exact'`) + w_int * body intersection (through the soft-min
     field sums when `tc.use_fused_intersection`). Packed batches (C > 1)
     take every term per packed complex, with the unpacked normalisations;
     their intersection term is the plain packed one, as in the JAX package,
-    whatever `use_fused_intersection` says."""
+    whatever `use_fused_intersection` says. `denom` replaces the count of
+    valid complexes (a rank's share of a batch is normalised by the whole
+    batch's count, as the JAX package's SPMD step computes it)."""
     if tc.ot_solver not in ("sinkhorn", "exact"):
         raise ValueError(f"unknown ot_solver {tc.ot_solver!r}")
     lig_pred = outputs["ligand_coords"]
     C = batch.n_segs
     pm = batch.complex_mask
-    denom = torch.clamp(pm.sum(), min=1.0)
+    denom = torch.clamp(pm.sum(), min=1.0) if denom is None else denom
 
     if C == 1:
         lig_coors = masked_mse(lig_pred, batch.gt_lig, batch.lig.node_mask)

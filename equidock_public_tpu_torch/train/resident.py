@@ -27,9 +27,10 @@ metered prefix, the val and test schedules.
 does not fit at once (DIPS): a producer thread materializes the next group
 in pinned host memory and copies it on a side CUDA stream while the
 current group trains; a group's tensors are dropped once its results are on
-the host. The data-parallel twin is not ported (`build_resident_split_dp`,
-`run_train_epoch_resident_dp` raise), and neither is a packed store (the
-store is unpacked, as in the JAX package).
+the host. The data-parallel twin (`build_resident_split_dp`,
+`run_train_epoch_resident_dp`) shards the train store's pair axis over the
+data ranks of a mesh (the val and test stores are not sharded). A packed
+store is not ported (the store is unpacked, as in the JAX package).
 
 The train state's BatchNorm statistics go through every step and evaluation
 as in the JAX package's scans; dropout above 0 draws its masks from a
@@ -629,11 +630,130 @@ def run_train_epoch_resident_streamed(
     return state, _train_averages(sums, meter, num_batches, num_clips)
 
 
-def build_resident_split_dp(*a, **kw):
-    raise NotImplementedError("dp-resident epochs (the store's pair axis sharded over "
-                              "dp devices) are not ported")
+# --------------------------------------------------------------------------- #
+# dp-resident epochs: the train store's pair axis sharded over data ranks
+# --------------------------------------------------------------------------- #
+
+@dataclasses.dataclass
+class ResidentSplitDP:
+    """A train split for dp data ranks (`parallel/mesh.py`): each bucket
+    group's pairs dealt round-robin to dp shards, each shard padded to the
+    largest with copies of its first pair (never scheduled). `groups`: this
+    rank's shard (P_loc, ...) on its device (across ranks), or every shard
+    stacked (dp P_loc, ...) in one process; `metas`: every shard's pairs,
+    shard after shard (the meter reads the whole batch)."""
+
+    groups: Dict[int, ResidentGroup]
+    metas: Dict[int, HostMeta]
+    n_locs: Dict[int, List[int]]       # real pairs of each shard, per group
+    p_loc: Dict[int, int]              # padded rows a shard, per group
+    bs: int
+    dp: int
+
+    def nbytes(self) -> int:
+        return sum(g.nbytes() for g in self.groups.values())
 
 
-def run_train_epoch_resident_dp(*a, **kw):
-    raise NotImplementedError("dp-resident epochs (the store's pair axis sharded over "
-                              "dp devices) are not ported")
+def build_resident_split_dp(ds, cfg: Config, mesh) -> ResidentSplitDP:
+    """The JAX package's `build_resident_split_dp`: shard d of a group holds
+    its pairs d, d + dp, ...; across ranks, data rank g uploads shard g
+    alone."""
+    dp = mesh.dp
+    if cfg.train.bs % dp:
+        raise ValueError(f"bs {cfg.train.bs} does not split into dp={dp} ranks")
+    groups, metas, n_locs, p_locs = {}, {}, {}, {}
+    for b, idxs in sorted(_group_by_bucket(ds, cfg).items()):
+        shards = [idxs[d::dp] for d in range(dp)]
+        p_loc = max(max(len(sh) for sh in shards), 1)
+        order = [i for sh in shards for i in sh + [sh[0] if sh else idxs[0]] * (p_loc - len(sh))]
+        group, meta = _materialize_group(ds, cfg, b, order)
+        if mesh.ranked:
+            rows = slice(mesh.g * p_loc, (mesh.g + 1) * p_loc)
+            group = group.map(lambda x: x[rows])
+        groups[b] = group.map(lambda x: x.contiguous().to(mesh.device))
+        metas[b], n_locs[b], p_locs[b] = meta, [len(sh) for sh in shards], p_loc
+    return ResidentSplitDP(groups, metas, n_locs, p_locs, cfg.train.bs, dp)
+
+
+def _schedule_dp(n_locs: List[int], bs_loc: int, rng: Optional[np.random.Generator]
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Every shard's plan with one step count: (S, dp bs_loc) local indices
+    and validity, columns [d bs_loc, (d+1) bs_loc) shard d's (the JAX
+    package's, bit for bit under one numpy seed)."""
+    dp = len(n_locs)
+    S = max(max(-(-n // bs_loc) for n in n_locs), 1)
+    idx = np.zeros((S, dp * bs_loc), np.int32)
+    valid = np.zeros((S, dp * bs_loc), np.float32)
+    for d, n in enumerate(n_locs):
+        if n == 0:
+            continue
+        cols = slice(d * bs_loc, (d + 1) * bs_loc)
+        order = (rng.permutation(n) if rng is not None else np.arange(n)).astype(np.int32)
+        idx[:, cols] = np.concatenate([order, np.full(S * bs_loc - n, order[-1],
+                                                      np.int32)]).reshape(S, bs_loc)
+        v = np.zeros((S, bs_loc), np.float32)
+        v.reshape(-1)[:n] = 1.0
+        valid[:, cols] = v
+    return idx, valid
+
+
+def run_train_epoch_resident_dp(state: TrainState, rs: ResidentSplitDP, cfg: Config, mesh,
+                                rng: np.random.Generator, draws, epoch: int, log=print,
+                                lr_scale: float = 1.0, do_swap: Optional[bool] = None
+                                ) -> Tuple[TrainState, Dict[str, float]]:
+    """The dp twin of `run_train_epoch_resident` (the JAX package's
+    `run_train_epoch_resident_dp`): the groups in an order shuffled by `rng`,
+    each group's per-shard schedule (`_schedule_dp`) permuted by the meter's
+    generator, each step's augmentation drawn for the whole dp bs_loc batch
+    and sliced per shard. Across ranks a rank assembles its columns from its
+    shard and steps through `parallel/train.py` (loss terms renormalised by
+    the valid count summed over the data group, gradients summed before the
+    optimizer); the metered steps' coordinates are gathered over the data
+    group. In one process the whole batch assembles from the stacked store
+    (global rows d P_loc + i) and takes the one-process step: the same
+    update. `trim_remainder` is not read (as in the JAX package)."""
+    from ..parallel.dist import gather_slots
+    from ..parallel.train import make_parallel_train_step
+
+    meter_rng = np.random.default_rng((cfg.train.random_seed, 7919, epoch))
+    meter, sums = RmsdMeter(), {}
+    dev = _device_of(state)
+    scale = torch.tensor(lr_scale, dtype=torch.float32, device=dev)
+    swap = cfg.data.swap_train if do_swap is None else do_swap
+    bs_loc = rs.bs // rs.dp
+    step = make_parallel_train_step(cfg, mesh, keep_coords=True) if mesh.ranked else None
+    cols = slice(mesh.g * bs_loc, (mesh.g + 1) * bs_loc)
+    T = lambda a, dtype: torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(dev)
+    num_batches = num_clips = 0
+    buckets = list(rs.groups)
+    rng.shuffle(buckets)
+    for b in buckets:
+        idx, valid = _schedule_dp(rs.n_locs[b], bs_loc, rng)
+        S = idx.shape[0]
+        num_batches += S
+        k_c = max(1, round(S * cfg.train.train_rmsd_fraction))
+        perm = meter_rng.permutation(S).astype(np.int64)
+        idx, valid = idx[perm], valid[perm]
+        gid = (np.arange(rs.dp * bs_loc) // bs_loc)[None, :] * rs.p_loc[b] + idx
+        for s in range(S):
+            flag, rot, tr = draws.draw(rs.dp * bs_loc, swap)
+            if mesh.ranked:
+                batch = assemble_batch(rs.groups[b], T(idx[s, cols], np.int64),
+                                       T(valid[s, cols], np.float32), flag[cols],
+                                       (rot[cols], tr[cols]))
+                state, m = step(state, batch, scale)
+                if s < k_c:
+                    coords = gather_slots(m["ligand_coords"], mesh.data, mesh.g, mesh.dp)
+                    coords = coords.reshape((-1,) + tuple(coords.shape[2:]))
+            else:
+                batch = assemble_batch(rs.groups[b], T(gid[s], np.int64),
+                                       T(valid[s], np.float32), flag, (rot, tr))
+                state, m = train_step(state, batch, cfg, scale)
+                coords = m["ligand_coords"]
+            for k in _SCALARS:
+                sums[k] = sums.get(k, 0.0) + float(m[k])
+            num_clips += int(float(m["clipped"]))
+            if s < k_c:
+                _meter_rows(meter, rs.metas[b], gid[s], valid[s], coords.detach().cpu().numpy(),
+                            flag.cpu().numpy(), meter_interface=False)
+    return state, _train_averages(sums, meter, num_batches, num_clips)

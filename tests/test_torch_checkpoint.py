@@ -109,8 +109,8 @@ def test_sidecars_of_both_packages_load(tmp_path):
     older["train"] = {k: v for k, v in jax_sidecar["train"].items() if k != "patience"}
     old = config_from_dict(older)
     assert old.model == cfg.model and old.data.node_buckets == cfg.data.node_buckets
-    with pytest.raises(NotImplementedError, match="mesh"):
-        config_from_dict(dict(jax_sidecar, parallel={"dp": 2, "gp": 1}))
+    mesh = config_from_dict(dict(jax_sidecar, parallel={"dp": 2, "gp": 1}))   # read, since
+    assert (mesh.parallel.dp, mesh.parallel.gp) == (2, 1)                     # fit's mesh path
 
 
 def test_other_files_are_refused(tmp_path):

@@ -38,8 +38,8 @@ def test_train_writes_a_checkpoint_and_resumes(tmp_path, monkeypatch):
     state, saved_cfg, epoch = load_checkpoint(path, "cpu")
     assert epoch == 0 and state.step == 2 and saved_cfg == cfg
     with open(path + ".config.json") as f:
-        assert set(json.load(f)) == {"model", "graph", "data", "train", "checkpoint_dir",
-                                     "log_dir"}
+        assert set(json.load(f)) == {"model", "graph", "data", "train", "parallel", "debug",
+                                     "checkpoint_dir", "log_dir"}
     assert cli.main(args + ["-max_epochs", "1", "-continue_train_model", path]) == 0
     assert load_checkpoint(path, "cpu")[0].step == 4      # two more steps from step 2
     log = open(os.path.join("stdouterr", cfg.banner() + ".txt")).read()
@@ -68,7 +68,15 @@ PORTED = {"pack": ([], lambda a, c: c.data.pack),
           # the cache builders' flags (their runs: tests/test_torch_preprocess.py)
           "n_jobs": (["2"], lambda a, c: c.data.n_jobs == 2),
           "raw_data_path": (["raw"], lambda a, c: c.data.raw_data_path == "raw"),
-          "split_files_path": (["cv"], lambda a, c: c.data.split_files_path == "cv")}
+          "split_files_path": (["cv"], lambda a, c: c.data.split_files_path == "cv"),
+          # the mesh and the last JAX-only flags (their runs: tests/test_torch_dist_fit.py,
+          # tests/test_torch_debug_padcache.py)
+          "dp": (["2"], lambda a, c: c.parallel.dp == 2),
+          "gp": (["2"], lambda a, c: c.parallel.gp == 2),
+          "pallas_ring_halo": ([], lambda a, c: c.parallel.pallas_ring_halo),
+          "pad_cache_gb": (["1.5"], lambda a, c: c.data.pad_cache_gb == 1.5),
+          "compile_cache": (["jax_cache"], lambda a, c: a.compile_cache == "jax_cache"),
+          "debug": ([], lambda a, c: c.debug)}
 
 
 @pytest.mark.parametrize("flag", sorted(cli.REFUSED) + sorted(PORTED))
@@ -138,14 +146,28 @@ def test_the_resident_and_streaming_flags_are_honoured():
 
 @pytest.mark.parametrize("flag", [["-dp", "2"], ["-pack"]])
 def test_dp_and_pack_with_device_resident_raise_by_name(flag):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        cli.main(TINY + ["-toy", "-max_epochs", "1", "-device_resident"] + flag)
+    """-pack does not compose with -device_resident; -dp does (dp-resident
+    epochs: tests/test_torch_dist_resident.py) but not with the streamed
+    store, which runs on one rank (the JAX package's rule)."""
+    extra = ["-data", "dips", "-stream_dips"] if flag[0] == "-dp" else []
+    with pytest.raises((NotImplementedError, ValueError), match=flag[0]):
+        cli.main(TINY + ["-toy", "-max_epochs", "1", "-device_resident"] + flag + extra)
 
 
-def test_pack_with_dp_raises_by_name():
-    """Packed batches on one device only: a mesh is refused by name."""
-    with pytest.raises(NotImplementedError, match="-dp"):
-        cli.main(TINY + ["-toy", "-max_epochs", "1", "-pack", "-dp", "2"])
+def test_pack_with_dp_raises_by_name(tmp_path, monkeypatch):
+    """Packed batches train on a dp mesh (here stacked in one process: the
+    slot-count buckets rounded up to multiples of dp, as the JAX package's
+    mesh path does); with graph shards (-gp) they are refused by name, since
+    the halo path takes one complex a slot."""
+    monkeypatch.chdir(tmp_path)
+    args = _args(tmp_path) + ["-toy", "-max_epochs", "1", "-pack"]
+    with pytest.raises(NotImplementedError, match="-pack with -gp"):
+        cli.main(args + ["-gp", "2"])
+    assert cli.main(args + ["-dp", "2"]) == 0
+    cfg = cli.config_from_args(cli._parser().parse_args(args + ["-dp", "2"]))
+    log = open(os.path.join("stdouterr", cfg.banner() + ".txt")).read()
+    assert "packed mesh training: slot-count buckets -> (2, 4, 6, 8, 10)" in log
+    assert "mesh training: dp=2 x gp=1 stacked in one process" in log
 
 
 def test_a_resident_run_writes_a_checkpoint(tmp_path, monkeypatch):

@@ -212,17 +212,18 @@ def test_the_clis_dock_and_score_a_directory(dirs, small_weights, tmp_path, caps
     (["-node_buckets", "auto:4"], None, "auto node buckets"),
     (["-pocket_buckets", "auto"], None, None),
     (["-pack"], NotImplementedError, "-pack"),
-    (["-dp", "2"], NotImplementedError, "-dp")],
+    (["-dp", "2"], None, None)],
     ids=["argv0-ValueError--batched", "argv1-NotImplementedError-auto",
          "argv2-NotImplementedError-auto", "argv3-NotImplementedError--pack",
          "argv4-NotImplementedError--dp"])
 def test_the_inference_cli_refuses_what_the_port_does_not_run(dirs, small_weights, tmp_path,
                                                                capsys, argv, error, match):
-    """Batched clash removal, packing and mesh flags raise. Auto buckets are
-    ported: `-node_buckets auto:4` docks the directory on the ladder of its
-    sizes and prints it (tests/test_torch_auto_buckets.py holds it to the
-    JAX CLI's); `-pocket_buckets auto` is parsed and, as in the JAX CLI,
-    changes nothing at inference."""
+    """Batched clash removal and packing raise. Auto buckets are ported:
+    `-node_buckets auto:4` docks the directory on the ladder of its sizes
+    and prints it (tests/test_torch_auto_buckets.py holds it to the JAX
+    CLI's); `-pocket_buckets auto` is parsed and, as in the JAX CLI,
+    changes nothing at inference; so are the mesh flags (`-dp`), which the
+    JAX CLI reads into its config and docks on one device with."""
     if error is None:
         inference_cli.main(["-input_dir", dirs["in"], "-ground_truth_dir", dirs["gt"],
                             "-output_dir", str(tmp_path), "-device", "cpu",

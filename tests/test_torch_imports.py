@@ -664,3 +664,76 @@ def test_the_host_builders_and_tools_run_without_jax_pandas_or_dill():
                           timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "SLICE9" in proc.stdout
+
+
+SLICE10_MODULES = ("parallel/dist.py", "parallel/launch.py", "parallel/train.py",
+                   "parallel/input_pipeline.py", "parallel/mesh.py", "parallel/halo.py",
+                   "parallel/ring_attention.py", "ops/cuda/halo_ring.py", "train/resident.py")
+
+BLOCKED_RANKS = r'''
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint",
+             "equidock_public_tpu"):
+    sys.modules[name] = None
+import torch
+from equidock_public_tpu_torch.parallel.launch import run_ranks
+got = run_ranks("tests.torch_dist_bodies:ring_attention", 2,
+                dict(gp=2, args=tuple(torch.ones(1, 4, d) for d in (2, 2, 2)) +
+                     (torch.ones(1, 4), torch.ones(1, 4))), device="cpu", timeout_s=120)
+assert len(got) == 2 and torch.equal(got[0], got[1])
+loaded = [m for m in sys.modules if sys.modules[m] is not None
+          and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "equidock_public_tpu")]
+assert not loaded, loaded
+print("RANKS")
+'''
+
+
+@pytest.mark.parametrize("module", SLICE10_MODULES)
+def test_slice10_modules_are_under_the_guard(module):
+    path = os.path.join(PKG, module)
+    assert path in _port_files()
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{module} imports {bad}"
+
+
+def test_ranks_start_from_a_module_of_the_port_without_jax():
+    """The launcher starts each rank from `parallel/launch.py` with an
+    explicit environment; a rank checks that neither JAX nor the JAX
+    package was imported (`launch.forbidden_modules`) and fails otherwise,
+    and the parent here runs with both unimportable."""
+    from equidock_public_tpu_torch.parallel import launch
+
+    code = f"REPO = {REPO!r}\n" + BLOCKED_RANKS
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "RANKS" in proc.stdout
+    assert "jax" in launch.FORBIDDEN and "equidock_public_tpu" in launch.FORBIDDEN
+    assert "jax" in [m.split(".")[0] for m in launch.forbidden_modules()]  # this process
+
+
+def test_the_entry_points_take_the_card_unless_asked_for_the_cpu():
+    """Every entry point of the port defaults to the card (`device.
+    resolve_device`): the CLIs' -device, `fit`, the mesh, the ranks and
+    their launcher; without a card each raises instead of running on the
+    CPU."""
+    import importlib
+    import inspect
+    import re
+
+    import torch
+
+    from equidock_public_tpu_torch.parallel import dist, launch, mesh
+    from equidock_public_tpu_torch.train import loop
+
+    for cli in ("train", "serve", "inference", "ensemble_inference", "hyper_search"):
+        mod = importlib.import_module(f"equidock_public_tpu_torch.cli.{cli}")
+        # None is resolve_device's default: the card
+        assert re.search(r'"-device", default=(None|"cuda")', inspect.getsource(mod)), cli
+    assert inspect.signature(launch.run_ranks).parameters["device"].default == "cuda"
+    for fn in (loop.fit, dist.init_from_env, mesh.ParallelMesh.__init__):
+        assert inspect.signature(fn).parameters["device"].default is None, fn
+    if not torch.cuda.is_available():
+        for call in (lambda: mesh.ParallelMesh(1, 2), lambda: dist.init_from_env(env={})):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()

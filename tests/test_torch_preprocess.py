@@ -116,7 +116,7 @@ def test_the_cache_flags_are_accepted_and_the_rest_refused(cli, tmp_path):
 
     mod = importlib.import_module(f"equidock_public_tpu_torch.cli.{cli}")
     assert not {"n_jobs", "raw_data_path", "split_files_path"} & set(REFUSED)
-    assert {"compile_cache", "dp", "gp", "pad_cache_gb"} <= set(REFUSED)
+    assert REFUSED == {}                    # the mesh and the JAX-only flags are ported
     assert "add_config_args" in vars(mod)
     p = argparse.ArgumentParser()
     add_config_args(p)
@@ -124,8 +124,14 @@ def test_the_cache_flags_are_accepted_and_the_rest_refused(cli, tmp_path):
     refuse_unported(a)
     d = config_from_args(a).data
     assert (d.n_jobs, d.raw_data_path, d.split_files_path) == (3, "R", "S")
-    with pytest.raises(NotImplementedError, match="-compile_cache"):
-        refuse_unported(p.parse_args(["-compile_cache", "x"]))
+    a = p.parse_args(["-dp", "2", "-gp", "2", "-pad_cache_gb", "0.5", "-debug",
+                      "-pallas_ring_halo"])
+    refuse_unported(a)
+    c = config_from_args(a)
+    assert (c.parallel.dp, c.parallel.gp, c.parallel.pallas_ring_halo) == (2, 2, True)
+    assert c.data.pad_cache_gb == 0.5 and c.debug
+    with pytest.raises(SystemExit):       # the training CLI's flag alone, as in the JAX package
+        p.parse_args(["-compile_cache", "x"])
 
 
 def test_reference_root_moves_the_defaults(monkeypatch, tmp_path):

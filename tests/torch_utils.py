@@ -102,6 +102,7 @@ def port_config(jcfg):
                      graph=section(tc.GraphConfig, jcfg.graph),
                      data=section(tc.DataConfig, jcfg.data),
                      train=section(tc.TrainConfig, jcfg.train),
+                     parallel=section(tc.ParallelConfig, jcfg.parallel), debug=jcfg.debug,
                      checkpoint_dir=jcfg.checkpoint_dir, log_dir=jcfg.log_dir)
 
 
