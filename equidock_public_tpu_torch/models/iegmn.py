@@ -13,8 +13,9 @@ coordinate norm, no dropout in training): the JAX computation with
 package's XLA path (`_edge_messages`, `_coord_update`) on the same device,
 and `kernel_path_report` says so. On CUDA tensors the wrappers launch the
 hand-written kernels; on CPU tensors they run their plain versions. The
-halo path (`parallel/halo.py`) runs the same layer body on node shards,
-with its own source rows and attention.
+halo path (`parallel/halo.py`) runs this forward with its trunk on node
+shards (`Shards`: each layer's exchange of source rows, the ring
+attention, GraphNorm's sums, the gather before the head).
 
 Training forwards take `train=True`, a `Dropout` (`models/layers.py`) for
 dropout above 0, and a `BNContext` through `bn_state` for the 'BN' norm
@@ -35,6 +36,7 @@ Parameters are nested dicts with the JAX package's keys (see `params.py`).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -48,8 +50,9 @@ from ..ops.cuda.cross_attention import cross_attention_fused
 from ..ops.cuda.edge_message import edge_message_aggregate, inverse_neighbors
 from ..ops.kabsch import apply_rigid, apply_rigid_packed, rigid_fit
 from ..ops.segment import gather_neighbors, masked_mean_over_k, masked_mean_over_nodes
-from .layers import (COMPUTE_DTYPES, BNContext, Params, ReplayLayer, dropout, embedding,
-                     graph_norm, init_bn_state as _init_bn_site, layer_norm, linear, nonlin)
+from .layers import (COMPUTE_DTYPES, LIG, REC, BNContext, Params, ReplayLayer, dropout,
+                     embedding, graph_norm, init_bn_state as _init_bn_site, layer_norm, linear,
+                     nonlin)
 
 RBF_SIGMAS = tuple(1.5 ** x for x in range(15))
 # Sides run through the plain layer body (`_edge_messages`), counted so that
@@ -137,12 +140,12 @@ def init_bn_state(cfg: ModelConfig, n_lays: Optional[int] = None, device="cpu") 
     return st
 
 
-def _mlp2_tail(p: Params, pre: torch.Tensor, cfg: ModelConfig, ln_kind: str, drop,
+def _mlp2_tail(p: Params, pre: torch.Tensor, cfg: ModelConfig, ln_kind: str, drop, side: int,
                bn=None, bn_name: str = "", bn_mask=None) -> torch.Tensor:
-    """Everything after lin1: dropout -> nonlin -> (LN | BN) -> lin2. `bn`
-    (a BNContext) is required for 'BN'; `bn_mask` keeps padded rows out of
-    its statistics."""
-    h = nonlin(dropout(pre, drop), cfg.nonlin, cfg.leakyrelu_neg_slope)
+    """Everything after lin1: dropout (the masks of `side`, `LIG` or `REC`)
+    -> nonlin -> (LN | BN) -> lin2. `bn` (a BNContext) is required for
+    'BN'; `bn_mask` keeps padded rows out of its statistics."""
+    h = nonlin(dropout(pre, drop, side), cfg.nonlin, cfg.leakyrelu_neg_slope)
     if ln_kind == "LN":
         h = layer_norm(p["ln"], h)
     elif ln_kind == "BN":
@@ -153,11 +156,11 @@ def _mlp2_tail(p: Params, pre: torch.Tensor, cfg: ModelConfig, ln_kind: str, dro
     return linear(p["lin2"], h, cfg.dtype)
 
 
-def _mlp2(p: Params, x: torch.Tensor, cfg: ModelConfig, ln_kind: str, drop=None, bn=None,
-          bn_name: str = "", bn_mask=None) -> torch.Tensor:
+def _mlp2(p: Params, x: torch.Tensor, cfg: ModelConfig, ln_kind: str, drop, side: int,
+          bn=None, bn_name: str = "", bn_mask=None) -> torch.Tensor:
     """Linear -> dropout -> nonlin -> (LN | BN) -> Linear, both linears at
     `cfg.dtype`."""
-    return _mlp2_tail(p, linear(p["lin1"], x, cfg.dtype), cfg, ln_kind, drop, bn, bn_name,
+    return _mlp2_tail(p, linear(p["lin1"], x, cfg.dtype), cfg, ln_kind, drop, side, bn, bn_name,
                       bn_mask)
 
 
@@ -208,10 +211,11 @@ def _rbf_of_sq_dist(x_rel: torch.Tensor, enabled: bool) -> torch.Tensor:
     return out if enabled else out * 0.0
 
 
-def _edge_messages(p: Params, cfg: ModelConfig, side: ProteinBatch, x, h, he, drop, bn,
-                   scope: str, src=None):
+def _edge_messages(p: Params, cfg: ModelConfig, side: ProteinBatch, which: int, x, h, he,
+                   drop, bn, scope: str, src=None):
     """The plain edge step (the JAX package's XLA path): (x_rel (B, N, K,
-    3), msg (B, N, K, D)) of one side, `src` as in `edge_kernel_inputs`."""
+    3), msg (B, N, K, D)) of one side (`which`: `LIG` or `REC`), `src` as in
+    `edge_kernel_inputs`."""
     global plain_body_calls
     plain_body_calls += 1
     x_s, h_s = src if src is not None else (x, h)
@@ -220,15 +224,15 @@ def _edge_messages(p: Params, cfg: ModelConfig, side: ProteinBatch, x, h, he, dr
     h_src = gather_neighbors(h_s, side.nbr)
     h_dst = h[:, :, None, :].expand(h_src.shape[:-1] + (h.shape[-1],))
     msg = _mlp2(p["edge_mlp"], torch.cat([h_src, h_dst, he, rbf], dim=-1), cfg,
-                cfg.layer_norm, drop, bn, scope + "edge_mlp", side.nbr_mask[..., None])
+                cfg.layer_norm, drop, which, bn, scope + "edge_mlp", side.nbr_mask[..., None])
     return x_rel, msg
 
 
-def _coord_update(p: Params, cfg: ModelConfig, side: ProteinBatch, x_rel, msg, drop, bn,
-                  scope: str) -> torch.Tensor:
+def _coord_update(p: Params, cfg: ModelConfig, side: ProteinBatch, which: int, x_rel, msg,
+                  drop, bn, scope: str) -> torch.Tensor:
     """The plain coordinate step: the masked mean over K of x_rel times the
     coordinate MLP of each message (with `layer_norm_coors`)."""
-    coef = _mlp2(p["coors_mlp"], msg, cfg, cfg.layer_norm_coors, drop, bn,
+    coef = _mlp2(p["coors_mlp"], msg, cfg, cfg.layer_norm_coors, drop, which, bn,
                  scope + "coors_mlp", side.nbr_mask[..., None])
     return masked_mean_over_k(x_rel * coef, side.nbr_mask)
 
@@ -249,8 +253,9 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
         remapped `side.nbr`. Default: (x, h) themselves.
       * `attend`: a cross-attention callable with the signature of
         `ops.attention.cross_attention` (the halo path passes the ring
-        attention over the shards' K/V chunks); it replaces the attention
-        kernel and the fine-tune stage's attention.
+        attention over the shards' K/V chunks; packed slots pass their
+        segment ids); it replaces the attention kernel and the fine-tune
+        stage's attention.
       * `gn_reduce`: sums GraphNorm's per-shard statistics over the shards
         (JAX's `gn_axis`).
     `inv_l` / `inv_r`: each side's inverse neighbour list
@@ -271,12 +276,14 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
         aggr_l, xupd_l = _edge_step(p, cfg, lig, x_l, h_l, he_l, src_l, inv_l)
         aggr_r, xupd_r = _edge_step(p, cfg, rec, x_r, h_r, he_r, src_r, inv_r)
     else:
-        x_rel_l, msg_l = _edge_messages(p, cfg, lig, x_l, h_l, he_l, drop, bn, bn_scope, src_l)
-        x_rel_r, msg_r = _edge_messages(p, cfg, rec, x_r, h_r, he_r, drop, bn, bn_scope, src_r)
+        x_rel_l, msg_l = _edge_messages(p, cfg, lig, LIG, x_l, h_l, he_l, drop, bn, bn_scope,
+                                        src_l)
+        x_rel_r, msg_r = _edge_messages(p, cfg, rec, REC, x_r, h_r, he_r, drop, bn, bn_scope,
+                                        src_r)
         aggr_l = masked_mean_over_k(msg_l, lig.nbr_mask)
         aggr_r = masked_mean_over_k(msg_r, rec.nbr_mask)
-        xupd_l = _coord_update(p, cfg, lig, x_rel_l, msg_l, drop, bn, bn_scope)
-        xupd_r = _coord_update(p, cfg, rec, x_rel_r, msg_r, drop, bn, bn_scope)
+        xupd_l = _coord_update(p, cfg, lig, LIG, x_rel_l, msg_l, drop, bn, bn_scope)
+        xupd_r = _coord_update(p, cfg, rec, REC, x_rel_r, msg_r, drop, bn, bn_scope)
         rec_stat("x_now", x_l, lig.node_mask[..., None])
         rec_stat("h_feat", h_l, lig.node_mask[..., None])
         rec_stat("x_rel", x_rel_l, lig.nbr_mask[..., None])
@@ -290,12 +297,10 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
 
     # q, k and v at cfg.dtype; the attention kernels take their f32 outputs
     if attend is not None:
-        if lig.seg_id is not None:
-            raise ValueError("the halo path does not take packed slots")
         cross_l = attend(qk(h_l, "att_q"), qk(h_r, "att_k"), v(h_r),
-                         lig.node_mask, rec.node_mask, cfg.cross_msgs)
+                         lig.node_mask, rec.node_mask, cfg.cross_msgs, lig.seg_id, rec.seg_id)
         cross_r = attend(qk(h_r, "att_q"), qk(h_l, "att_k"), v(h_l),
-                         rec.node_mask, lig.node_mask, cfg.cross_msgs)
+                         rec.node_mask, lig.node_mask, cfg.cross_msgs, rec.seg_id, lig.seg_id)
     elif cfg.cross_msgs:
         cross_l = cross_attention_fused(qk(h_l, "att_q"), qk(h_r, "att_k"), v(h_r),
                                         lig.node_mask, rec.node_mask,
@@ -324,7 +329,7 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
 
         def ft_attend(q, k, v, qm, km, q_seg, k_seg):
             if attend is not None:
-                return attend(q, k, v, qm, km, cfg.cross_msgs)
+                return attend(q, k, v, qm, km, cfg.cross_msgs, q_seg, k_seg)
             return cross_attention(q, k, v, qm, km, cfg.cross_msgs, q_seg=q_seg, k_seg=k_seg)
 
         # the fine-tune stage's own linears stay f32, as in the JAX package
@@ -335,9 +340,9 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
         x_final_l = x_final_l + ft_v(h_l) * (x_l - att_x_l)
         x_final_r = x_final_r + ft_v(h_r) * (x_r - att_x_r)
 
-    def node_update(side: ProteinBatch, h, aggr, cross, orig_h):
+    def node_update(side: ProteinBatch, which: int, h, aggr, cross, orig_h):
         upd = _mlp2(p["node_mlp"], torch.cat([h, aggr, cross, orig_h], dim=-1), cfg,
-                    cfg.layer_norm, drop, bn, bn_scope + "node_mlp",
+                    cfg.layer_norm, drop, which, bn, bn_scope + "node_mlp",
                     side.node_mask[..., None])
         if skip:
             upd = cfg.skip_weight_h * upd + (1.0 - cfg.skip_weight_h) * h
@@ -356,8 +361,8 @@ def iegmn_layer_forward(p: Params, cfg: ModelConfig, fine_tune: bool, skip: bool
             upd = bn(bn_scope + "final_h", p["final_h_norm"], upd, side.node_mask[..., None])
         return upd
 
-    h_final_l = node_update(lig, h_l, aggr_l, cross_l, orig_h_l)
-    h_final_r = node_update(rec, h_r, aggr_r, cross_r, orig_h_r)
+    h_final_l = node_update(lig, LIG, h_l, aggr_l, cross_l, orig_h_l)
+    h_final_r = node_update(rec, REC, h_r, aggr_r, cross_r, orig_h_r)
     rec_stat("h_final", h_final_l, lig.node_mask[..., None])
     return x_final_l, h_final_l, x_final_r, h_final_r
 
@@ -396,28 +401,58 @@ def trunk_inputs(p: Params, cfg: ModelConfig, lig: ProteinBatch, rec: ProteinBat
     return h_l, h_r, (lig.edge_feat * gate).contiguous(), (rec.edge_feat * gate).contiguous()
 
 
+@dataclasses.dataclass
+class Shards:
+    """The trunk on node shards (the halo path, `parallel/halo.py`): the
+    hooks that turn the whole-batch trunk of `iegmn_forward` into a shard's,
+    so that one layer loop (with remat) serves the dense and the sharded
+    forward.
+      * `lig`, `rec`: this shard's sides;
+      * `x_in(x_l_in)`: this shard's rows of a stage's input ligand
+        coordinates;
+      * `exchange(x_l, h_l, x_r, h_r)`: (xs_l, hs_l, xs_r, hs_r), the rows a
+        layer's neighbour gathers read (the local block followed by the
+        received halo rows);
+      * `attend`, `gn_reduce`: as in `iegmn_layer_forward`;
+      * `gather(a)`: a trunk output's shards -> the whole batch's rows;
+      * `dropout(drop)`: (trunk's, head's) masks of a training forward's
+        `drop`, each the shard's part of the whole batch's."""
+    lig: ProteinBatch
+    rec: ProteinBatch
+    x_in: Callable
+    exchange: Callable
+    attend: Callable
+    gn_reduce: Callable
+    gather: Callable
+    dropout: Callable
+
+
 def iegmn_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
                   x_l_in: torch.Tensor, n_lays: int, fine_tune: bool,
-                  train: bool = False, drop=None, bn=None, bn_scope: str = "",
-                  trace: Optional[list] = None):
+                  train: bool = False, drop=None, head_drop=None, bn=None, bn_scope: str = "",
+                  trace: Optional[list] = None, shards: Optional[Shards] = None):
     """IEGMN trunk + keypoint head. Returns (R, t, keypts_lig, keypts_rec):
     (B, 3, 3), (B, 1, 3), (B, H, 3) x 2, packed (B, C, 3, 3), (B, C, 1, 3),
     (B, C, H, 3) x 2. When the forward records gradients through the edge
     kernels, each side's inverse neighbour list (read only by the backward's
-    scatter) is built once here and shared by every layer; with
-    `remat_active(cfg)` layers 1..n-1 are recomputed in the backward.
-    `trace`, a list, gets one dict of activation maxima a layer (the debug
-    trace: the plain layer body, no remat)."""
+    scatter) is built once, at the first layer, and shared by every layer;
+    with `remat_active(cfg)` layers 1..n-1 (with `shards`, their exchanges
+    too) are recomputed in the backward. `drop` gives the trunk's dropout
+    masks, `head_drop` the keypoint head's. `trace`, a list, gets one dict
+    of activation maxima a layer (the debug trace: the plain layer body, no
+    remat). `shards` runs the trunk on node shards and gathers its outputs
+    before the head."""
     lig, rec = batch.lig, batch.rec
-    x_l, x_r = x_l_in, rec.x
-    h_l, h_r, he_l, he_r = trunk_inputs(p, cfg, lig, rec)
+    t_lig, t_rec, x_l = ((lig, rec, x_l_in) if shards is None
+                         else (shards.lig, shards.rec, shards.x_in(x_l_in)))
+    x_in, x_r = x_l, t_rec.x
+    h_l, h_r, he_l, he_r = trunk_inputs(p, cfg, t_lig, t_rec)
     orig_h_l, orig_h_r = h_l, h_r
-    inv_l = inv_r = None
     grad = torch.is_grad_enabled()
-    if grad and fused_edge_eligible(cfg, train, debug=trace is not None):
-        inv_l = inverse_neighbors(lig.nbr, lig.nbr.shape[1])
-        inv_r = inverse_neighbors(rec.nbr, rec.nbr.shape[1])
+    edge_kernel = grad and fused_edge_eligible(cfg, train, debug=trace is not None)
     remat = grad and remat_active(cfg) and trace is None
+    attend, gn_reduce = (None, None) if shards is None else (shards.attend, shards.gn_reduce)
+    inv: Dict[str, torch.Tensor] = {}
     for i in range(n_lays):
         layer = dict(p=layer_params(cfg, p, i), skip=i > 0, bn_scope=bn_scope + layer_scope(cfg, i))
         stats = {} if trace is not None else None
@@ -425,10 +460,19 @@ def iegmn_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
         def run(x_l, h_l, x_r, h_r, layer=layer, drop=drop, stats=stats):
             if isinstance(drop, ReplayLayer):
                 drop.rewind()
+            if shards is None:
+                src_l = src_r = None
+            else:
+                xs_l, hs_l, xs_r, hs_r = shards.exchange(x_l, h_l, x_r, h_r)
+                src_l, src_r = (xs_l, hs_l), (xs_r, hs_r)
+            if edge_kernel and not inv:          # each side's inverse lists, once
+                inv["l"] = inverse_neighbors(t_lig.nbr, (src_l or (x_l,))[0].shape[1])
+                inv["r"] = inverse_neighbors(t_rec.nbr, (src_r or (x_r,))[0].shape[1])
             return iegmn_layer_forward(
-                layer["p"], cfg, fine_tune, layer["skip"], lig, rec, x_l, h_l, x_r, h_r,
-                orig_h_l, orig_h_r, he_l, he_r, x_l_in, rec.x, inv_l=inv_l, inv_r=inv_r,
-                train=train, drop=drop, bn=bn, bn_scope=layer["bn_scope"], stats=stats)
+                layer["p"], cfg, fine_tune, layer["skip"], t_lig, t_rec, x_l, h_l, x_r, h_r,
+                orig_h_l, orig_h_r, he_l, he_r, x_in, t_rec.x, src_l=src_l, src_r=src_r,
+                attend=attend, inv_l=inv.get("l"), inv_r=inv.get("r"), train=train,
+                drop=drop, bn=bn, bn_scope=layer["bn_scope"], gn_reduce=gn_reduce, stats=stats)
 
         if remat and i > 0:
             layer_drop = ReplayLayer(drop) if drop is not None and drop.rate > 0 else drop
@@ -438,10 +482,12 @@ def iegmn_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
             x_l, h_l, x_r, h_r = run(x_l, h_l, x_r, h_r)
         if trace is not None:
             trace.append(stats)
+    if shards is not None:
+        x_l, h_l, x_r, h_r = (shards.gather(a) for a in (x_l, h_l, x_r, h_r))
     oh = ((lig.seg_onehot(batch.n_segs), rec.seg_onehot(batch.n_segs))
           if batch.n_segs > 1 else (None, None))
     return keypoint_head(p, cfg, h_l, x_l, h_r, x_r, lig.node_mask, rec.node_mask,
-                         drop=drop, lig_oh=oh[0], rec_oh=oh[1])
+                         drop=head_drop, lig_oh=oh[0], rec_oh=oh[1])
 
 
 def keypoint_head(p: Params, cfg: ModelConfig, h_l, x_l, h_r, x_r,
@@ -453,16 +499,16 @@ def keypoint_head(p: Params, cfg: ModelConfig, h_l, x_l, h_r, x_r,
     H = cfg.num_att_heads
     packed = lig_oh is not None
 
-    def h_mean(h, mask, oh):
-        z = dropout(linear(p["mlp_h_mean_rot"], h, cfg.dtype), drop)
+    def h_mean(h, mask, oh, which):
+        z = dropout(linear(p["mlp_h_mean_rot"], h, cfg.dtype), drop, which)
         z = nonlin(z, cfg.nonlin, cfg.leakyrelu_neg_slope)
         if not packed:
             return masked_mean_over_nodes(z, mask)                       # (B, d)
         total = torch.einsum("bnd,bnc->bcd", z, oh)                      # (B, C, d)
         return total / torch.clamp(oh.sum(dim=1)[..., None], min=1.0)
 
-    mean_l = h_mean(h_l, lig_mask, lig_oh)
-    mean_r = h_mean(h_r, rec_mask, rec_oh)
+    mean_l = h_mean(h_l, lig_mask, lig_oh, LIG)
+    mean_r = h_mean(h_r, rec_mask, rec_oh, REC)
 
     def keypoints(h_side, x_side, mask_side, oh_side, mean_other):
         keys = linear(p["att_key_rot"], h_side, cfg.dtype).reshape(h_side.shape[0], -1, H, d)
@@ -493,7 +539,8 @@ def keypoint_head(p: Params, cfg: ModelConfig, h_l, x_l, h_r, x_r,
 
 def docking_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
                     n_lays: Optional[int] = None, train: bool = False, drop=None,
-                    bn_state: Optional[dict] = None, debug: bool = False):
+                    bn_state: Optional[dict] = None, debug: bool = False,
+                    bn_reduce: Optional[Callable] = None, shards: Optional[Shards] = None):
     """Rigid docking forward. Returns ligand_coords (B, N_l, 3) = R x + t of
     the input ligand (packed: each node by its complex's transform),
     keypts_lig / keypts_rec, R and t; with a fine-tune stage, (R, t) is the
@@ -505,8 +552,14 @@ def docking_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
     training forward's outputs. `debug` adds "trace", one dict of the
     ligand's activation maxima a layer (both stages' layers in turn) under
     the JAX package's labels, and runs the plain layer body (as the JAX
-    package's debug mode runs its XLA path)."""
+    package's debug mode runs its XLA path). `bn_reduce` sums BatchNorm's
+    partial sums over the ranks that hold the batch's rows (a mesh step,
+    `parallel/train.py`), so its statistics are the whole batch's.
+    `shards` runs each stage's trunk on node shards (`Shards`; the halo
+    path), the keypoint head and the fit on the gathered outputs."""
     check_supported(cfg)
+    if debug and shards is not None:
+        raise ValueError("the debug trace reads the whole batch's activations: run it unsharded")
     if uses_batch_norm(cfg) and bn_state is None:
         raise ValueError("config uses 'BN' normalization: pass bn_state=init_bn_state(cfg) "
                          "(TrainState.bn_state carries it)")
@@ -514,7 +567,8 @@ def docking_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
         raise ValueError(f"dropout={cfg.dropout} in a training forward needs `drop` "
                          "(layers.Dropout: a generator or a mask source)")
     drop = drop if train else None
-    bn = BNContext(bn_state, train) if bn_state else None
+    trunk_drop, head_drop = (drop, drop) if shards is None else shards.dropout(drop)
+    bn = BNContext(bn_state, train, reduce=bn_reduce) if bn_state else None
     n_lays = n_lays if n_lays is not None else cfg.iegmn_n_lays
     x_l = batch.lig.x
     C = batch.n_segs
@@ -524,7 +578,8 @@ def docking_forward(p: Params, cfg: ModelConfig, batch: PairBatch,
                                                                        batch.lig.seg_id, C)
 
     trace: Optional[list] = [] if debug else None
-    kw = dict(train=train, drop=drop, bn=bn, trace=trace)
+    kw = dict(train=train, drop=trunk_drop, head_drop=head_drop, bn=bn, trace=trace,
+              shards=shards)
     if cfg.fine_tune and "finetune" in p:
         R0, t0, _, _ = iegmn_forward(p["original"], cfg, batch, x_l, n_lays, False,
                                      bn_scope="original/", **kw)

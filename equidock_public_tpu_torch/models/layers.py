@@ -8,7 +8,9 @@ output and the new running statistics, and `BNContext` chains them across
 the sites of a forward; no buffer is updated in place, so a recomputed
 forward cannot apply the momentum twice. Dropout draws its masks from an
 explicit `torch.Generator`, or replays recorded masks in call order
-(`Dropout`).
+(`Dropout`); a shard of a mesh step takes its part of the whole batch's
+masks (`DropoutCut`). Every mask is asked for with its side (`LIG` or
+`REC`), which a cut needs to place it in the whole batch.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ Params = Dict[str, object]
 # The compute dtypes a config may name (`ModelConfig.dtype`): the operands
 # of `linear` are rounded to the dtype, the product and its sum are f32.
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+# the side of a dropout mask (`dropout`)
+LIG, REC = 0, 1
 
 
 def linear(p: Params, x: torch.Tensor, compute_dtype: Optional[str] = None) -> torch.Tensor:
@@ -61,25 +65,41 @@ def init_bn_state(dim: int, device="cpu") -> Params:
 
 
 def batch_norm(p: Params, st: Params, x: torch.Tensor, mask: Optional[torch.Tensor],
-               train: bool, momentum: float = 0.1, eps: float = 1e-5):
+               train: bool, momentum: float = 0.1, eps: float = 1e-5,
+               reduce: Optional[Callable] = None):
     """BatchNorm1d over every valid row of x (..., D): (out, new statistics).
     `mask` (broadcastable to x[..., :1]) keeps padded rows out of the
     statistics. Training normalises by the biased batch variance and folds
     the unbiased one into the running variance with `momentum`; evaluation
-    normalises by the running statistics, which it returns unchanged."""
+    normalises by the running statistics, which it returns unchanged.
+
+    With the rows spread over ranks (a mesh step), `reduce` sums a rank's
+    partial sums over the group, so the statistics are the whole batch's,
+    in the JAX package's two passes: the masked rows and their count, then
+    the mean; the masked squared deviations from that mean, then the biased
+    variance (a one-pass sum of squares parts from it at N mean^2 >> var).
+    The unbiased running variance uses the group's count, and every rank
+    ends with the same statistics, bit for bit."""
     affine = lambda y: y * p["g"] + p["b"]
     if not train:
         return affine((x - st["mean"]) * torch.rsqrt(st["var"] + eps)), st
     axes = tuple(range(x.ndim - 1))
-    if mask is None:
+    if mask is None and reduce is None:
         mean = x.mean(dim=axes)
         var = ((x - mean) ** 2).mean(dim=axes)
         n = torch.tensor(float(x.numel() // x.shape[-1]), dtype=x.dtype, device=x.device)
     else:
-        w = mask.expand(x.shape[:-1] + (1,))
-        n = torch.clamp(w.sum(), min=1.0)
-        mean = (x * w).sum(dim=axes) / n
-        var = (((x - mean) ** 2) * w).sum(dim=axes) / n
+        w = (mask.expand(x.shape[:-1] + (1,)) if mask is not None
+             else torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device))
+        if reduce is None:
+            n = torch.clamp(w.sum(), min=1.0)
+            mean = (x * w).sum(dim=axes) / n
+            var = (((x - mean) ** 2) * w).sum(dim=axes) / n
+        else:
+            first = reduce(torch.cat([(x * w).sum(dim=axes), w.sum().reshape(1)]))
+            n = torch.clamp(first[-1], min=1.0)
+            mean = first[:-1] / n
+            var = reduce((((x - mean) ** 2) * w).sum(dim=axes)) / n
     out = affine((x - mean) * torch.rsqrt(var + eps))
     unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
     new = {"mean": ((1.0 - momentum) * st["mean"] + momentum * mean).detach(),
@@ -92,16 +112,20 @@ class BNContext:
     its current statistics (the update of an earlier application of the
     same site where there was one: a shared layer applies its sites several
     times a forward) and, in training, records its update in `updates`,
-    which the train step returns as the new state."""
+    which the train step returns as the new state. `reduce` sums each
+    site's partial sums over the ranks that hold the batch's rows
+    (`batch_norm`); None for a batch held whole."""
 
-    def __init__(self, state: Dict[str, Params], train: bool):
+    def __init__(self, state: Dict[str, Params], train: bool,
+                 reduce: Optional[Callable] = None):
         self.state = state
         self.train = train
+        self.reduce = reduce
         self.updates: Dict[str, Params] = {}
 
     def __call__(self, name: str, p: Params, x: torch.Tensor, mask) -> torch.Tensor:
         out, new = batch_norm(p, self.updates.get(name, self.state[name]), x, mask,
-                              self.train)
+                              self.train, reduce=self.reduce)
         if self.train:
             self.updates[name] = new
         return out
@@ -121,7 +145,7 @@ class Dropout:
         self.masks = None if masks is None else list(masks)
         self.drawn = 0
 
-    def mask(self, shape, device) -> torch.Tensor:
+    def mask(self, shape, device, side: int) -> torch.Tensor:
         if self.masks is not None:
             if self.drawn >= len(self.masks):
                 raise RuntimeError(f"mask source exhausted after {self.drawn} masks")
@@ -134,6 +158,23 @@ class Dropout:
         else:
             m = torch.rand(shape, generator=self.generator, device=device) < 1.0 - self.rate
         self.drawn += 1
+        return m
+
+
+class DropoutCut:
+    """The masks of one shard of a mesh step, or of a batch whose parts draw
+    alike: each mask is drawn from `drop` (its generator, whose state every
+    rank shares, or its recorded masks) at `whole(shape, side)` and cut to
+    the shard's part by `cut(mask, side)`. A shard that takes its part of
+    the whole batch's masks computes the masks of the one-process step."""
+
+    def __init__(self, drop, whole: Callable, cut: Callable):
+        self.rate, self.drop, self.whole, self.cut = drop.rate, drop, whole, cut
+
+    def mask(self, shape, device, side: int) -> torch.Tensor:
+        m = self.cut(self.drop.mask(tuple(self.whole(tuple(shape), side)), device, side), side)
+        if tuple(m.shape) != tuple(shape):
+            raise ValueError(f"mask cut to {tuple(m.shape)}, the shard asks for {tuple(shape)}")
         return m
 
 
@@ -151,24 +192,25 @@ class ReplayLayer:
     def rewind(self) -> None:
         self.pos = 0
 
-    def mask(self, shape, device) -> torch.Tensor:
+    def mask(self, shape, device, side: int) -> torch.Tensor:
         if self.pos < len(self.kept):
             m = self.kept[self.pos]
         else:
-            m = self.drop.mask(shape, device)
+            m = self.drop.mask(shape, device, side)
             self.kept.append(m)
         self.pos += 1
         return m
 
 
-def dropout(x: torch.Tensor, drop) -> torch.Tensor:
-    """x with a `Dropout`'s (or `ReplayLayer`'s) next mask applied: kept
-    entries scaled by 1 / (1 - rate). Identity for `drop` None (evaluation)
-    or rate 0."""
+def dropout(x: torch.Tensor, drop, side: int) -> torch.Tensor:
+    """x with a `Dropout`'s (or `ReplayLayer`'s, or `DropoutCut`'s) next mask
+    applied: kept entries scaled by 1 / (1 - rate). `side` is the protein x
+    belongs to (`LIG` or `REC`). Identity for `drop` None (evaluation) or
+    rate 0."""
     if drop is None or drop.rate == 0.0:
         return x
     keep = 1.0 - drop.rate
-    return torch.where(drop.mask(x.shape, x.device), x / keep, torch.zeros_like(x))
+    return torch.where(drop.mask(x.shape, x.device, side), x / keep, torch.zeros_like(x))
 
 
 def embedding(p: Params, idx: torch.Tensor) -> torch.Tensor:

@@ -29,8 +29,9 @@ def _is_degenerate(S: torch.Tensor, tol_small: float,
 
 def kabsch_from_covariance(A: torch.Tensor, tol_small: float = 1e-3,
                            tol_gap: float = 1e-2) -> torch.Tensor:
-    """A (B, 3, 3) covariance -> R (B, 3, 3) = U diag(1, 1, sign det A) Vt."""
-    A = A.to(torch.float32)
+    """A (B, 3, 3) covariance -> R (B, 3, 3) = U diag(1, 1, sign det A) Vt,
+    at f32 (or f64 for f64 input)."""
+    A = A.to(torch.promote_types(A.dtype, torch.float32))
     S_probe = torch.linalg.svdvals(A.detach())
     bad = _is_degenerate(S_probe, tol_small, tol_gap)
     jitter = torch.diag(torch.tensor(_JITTER, dtype=A.dtype, device=A.device))

@@ -47,6 +47,17 @@ parameter's gradient on a rank is its shard's part, summed over the graph
 group, while the head's is whole on each rank (`head_leaf`):
 `parallel/train.py` sums the trunk's over every rank and the head's from
 graph rank 0 of each data group alone.
+
+Every option of the dense forward runs on the shards, as the JAX package's
+mesh step runs them (its SPMD step over the node-sharded batch; its own
+halo trunk asserts dropout and BatchNorm out): the plain layer body where
+the edge kernels do not cover the config; BatchNorm over the owned rows
+of every shard (edge rows those of owned destinations; halo rows and
+padding never count), its sums over the ranks; dropout as each shard's
+part of the masks drawn for the whole dense batch, through the batch's
+node permutations (`halo_dropout`); remat over layers 1..n-1, their
+exchanges included; packed slots planned as one graph each, the ring
+attention on their segment ids.
 """
 
 from __future__ import annotations
@@ -57,15 +68,13 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import Config, ModelConfig
+from ..config import Config
 from ..graph import PairBatch, ProteinBatch
-from ..models.iegmn import (check_supported, fused_edge_eligible, iegmn_layer_forward,
-                            keypoint_head, layer_params, trunk_inputs, uses_batch_norm)
-from ..ops.cuda.edge_message import inverse_neighbors
+from ..models.iegmn import Shards, check_supported, docking_forward
+from ..models.layers import DropoutCut
 from ..ops.cuda.halo_ring import (ExchangeTable, PeerTable, halo_exchange_pair,
                                    halo_exchange_sides, peer_exchange_sides, peer_table,
                                    ring_exchange, ring_ship, take_rows)
-from ..ops.kabsch import apply_rigid
 from ..params import flatten
 from .mesh import ParallelMesh
 from .dist import all_reduce_sum, gather_slots, scatter_own
@@ -127,6 +136,11 @@ class HaloBatch:
     # built at the batch's first forward on a rank (`rank_tables`)
     peer_tables: Dict[tuple, Tuple[PeerTable, PeerTable]] = dataclasses.field(
         default_factory=dict)
+    # the node permutations of `build_halo_batch` (B, N) int64 on the pair's
+    # device: new position -> original index; a dropout mask drawn at the
+    # dense batch's shape is cut through them
+    perm_lig: Optional[torch.Tensor] = None
+    perm_rec: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -212,8 +226,9 @@ def _np(t) -> np.ndarray:
 
 
 def permute_protein(side: ProteinBatch, perms: np.ndarray) -> ProteinBatch:
-    """Apply a per-complex node permutation (B, N) to every per-node array;
-    nbr rows move with their destination and nbr values are renumbered."""
+    """Apply a per-complex node permutation (B, N) to every per-node array
+    (a packed slot's segment ids too); nbr rows move with their destination
+    (their K slots in order) and nbr values are renumbered."""
     B, N = perms.shape
     dev = side.x.device
     inv = np.zeros_like(perms)
@@ -229,7 +244,8 @@ def permute_protein(side: ProteinBatch, perms: np.ndarray) -> ProteinBatch:
                         mu_r_norm=pnode(side.mu_r_norm),
                         nbr=torch.from_numpy(nbr.astype(np.int32)).to(dev),
                         nbr_mask=pnode(side.nbr_mask), edge_feat=pnode(side.edge_feat),
-                        node_mask=pnode(side.node_mask))
+                        node_mask=pnode(side.node_mask),
+                        seg_id=None if side.seg_id is None else pnode(side.seg_id))
 
 
 def _bucketed(required: int, cap: int) -> int:
@@ -422,10 +438,13 @@ def exchange_table(plan: dict, N: int, device="cpu") -> ExchangeTable:
 def build_halo_batch(pair: PairBatch, gp: int, spatial: bool = True,
                      hmax: Optional[int] = None, ragged: bool = False, dp: int = 1
                      ) -> Tuple[HaloBatch, HaloStats, np.ndarray, np.ndarray]:
-    """Host side: reorder, plan, remap. Returns (HaloBatch: pair and
-    exchange tables on the pair's device, plans on the host; HaloStats,
-    perm_lig, perm_rec); a perm maps new position ->
-    original index, so `halo_out[b] == dense_out[b][perm[b]]`."""
+    """Host side: reorder, plan, remap. Returns (HaloBatch: pair, exchange
+    tables and permutations on the pair's device, plans on the host;
+    HaloStats, perm_lig, perm_rec); a perm maps new position -> original
+    index, so `halo_out[b] == dense_out[b][perm[b]]`. A packed slot
+    (`collate_packed`) is planned as one graph: its segments are disjoint
+    subgraphs of one kNN table, and its segment ids move with their
+    nodes."""
     lig, rec = pair.lig, pair.rec
     B = lig.x.shape[0]
     dev = lig.x.device
@@ -458,10 +477,12 @@ def build_halo_batch(pair: PairBatch, gp: int, spatial: bool = True,
         lig=dataclasses.replace(lig_p, nbr=T(nbr_l)),
         rec=dataclasses.replace(rec_p, nbr=T(nbr_r)),
         gt_lig=T(gt_p), pocket_lig=pair.pocket_lig, pocket_rec=pair.pocket_rec,
-        pocket_mask=pair.pocket_mask, pair_mask=pair.pair_mask)
+        pocket_mask=pair.pocket_mask, pair_mask=pair.pair_mask, seg_mask=pair.seg_mask,
+        n_segs=pair.n_segs)
     hb = HaloBatch(pair=pair_p, plan_lig=host(plan_l), plan_rec=host(plan_r),
                    table_lig=exchange_table(plan_l, lig_p.x.shape[1], dev),
-                   table_rec=exchange_table(plan_r, rec_p.x.shape[1], dev))
+                   table_rec=exchange_table(plan_r, rec_p.x.shape[1], dev),
+                   perm_lig=T(perm_l.astype(np.int64)), perm_rec=T(perm_r.astype(np.int64)))
     stats = HaloStats(sizes_lig=sz_l, sizes_rec=sz_r, hring_lig=hr_l, hring_rec=hr_r,
                       hres_lig=hres_l, hres_rec=hres_r, ring_flat_lig=rf_l,
                       ring_flat_rec=rf_r, dp=dp if ragged else 1)
@@ -489,7 +510,7 @@ def halo_exchange(x, h, table: ExchangeTable, mesh: ParallelMesh):
     Returns (x_src, h_src) (B', S + 2 Hr + gp Hres, .) laid out as [local |
     from prev | from next | residual], through the side's exchange table:
     row 8 on CUDA tensors (backward row 9), the plain versions on the CPU.
-    `_trunk` exchanges both sides of a layer in one call
+    The trunk (`halo_shards`) exchanges both sides of a layer in one call
     (`halo_exchange_pair`)."""
     return halo_exchange_sides((mesh_table(table, mesh),), (x, h))
 
@@ -535,11 +556,12 @@ def ring_composition(x, h, plan: HaloPlan, mesh: ParallelMesh):
 
 def _ring_attend(mesh: ParallelMesh) -> Callable:
     """Cross-attention for the sharded layer body: queries stay local,
-    K/V chunks rotate over the ring."""
-    def attend(q, k, v, q_mask, k_mask, cross_msgs: bool = True):
+    K/V chunks (and a packed slot's segment ids) rotate over the ring."""
+    def attend(q, k, v, q_mask, k_mask, cross_msgs: bool = True, q_seg=None, k_seg=None):
         if not cross_msgs:
             return torch.zeros(q.shape[:-1] + (v.shape[-1],), dtype=q.dtype, device=q.device)
-        out = ring_cross_attention_local(*(mesh.unfold(a) for a in (q, k, v, q_mask, k_mask)))
+        out = ring_cross_attention_local(*(None if a is None else mesh.unfold(a)
+                                           for a in (q, k, v, q_mask, k_mask, q_seg, k_seg)))
         return out.reshape(q.shape[:-1] + (v.shape[-1],))
     return attend
 
@@ -566,10 +588,11 @@ def _local_protein(side: ProteinBatch, mesh: ParallelMesh) -> ProteinBatch:
 
 
 def _ranked_attend(mesh: ParallelMesh) -> Callable:
-    def attend(q, k, v, q_mask, k_mask, cross_msgs: bool = True):
+    def attend(q, k, v, q_mask, k_mask, cross_msgs: bool = True, q_seg=None, k_seg=None):
         if not cross_msgs:
             return torch.zeros(q.shape[:-1] + (v.shape[-1],), dtype=q.dtype, device=q.device)
-        return ring_cross_attention_ranks(q, k, v, q_mask, k_mask, mesh.graph, mesh.p, mesh.gp)
+        return ring_cross_attention_ranks(q, k, v, q_mask, k_mask, mesh.graph, mesh.p, mesh.gp,
+                                          q_seg, k_seg)
     return attend
 
 
@@ -581,32 +604,6 @@ def _gather_nodes(a: torch.Tensor, mesh: ParallelMesh) -> torch.Tensor:
     return full.transpose(0, 1).reshape(a.shape[0], -1, *a.shape[2:])
 
 
-def _trunk_ranked(p, cfg: ModelConfig, mesh: ParallelMesh, n_lays: int, fine_tune: bool,
-                  lig: ProteinBatch, rec: ProteinBatch, x_l_in, tab_l: PeerTable,
-                  tab_r: PeerTable):
-    """The trunk on this rank's shard of the data group's complexes: per
-    layer the peer exchange of both sides in one call, the unchanged layer
-    body with the ring attention over the graph group and GraphNorm's sums
-    over it. Returns x and h of both sides gathered to (Bl, N, .)."""
-    x_l, x_r = x_l_in, rec.x
-    h_l, h_r, he_l, he_r = trunk_inputs(p, cfg, lig, rec)
-    orig_h_l, orig_h_r = h_l, h_r
-    attend = _ranked_attend(mesh)
-    gn = lambda s: all_reduce_sum(s, mesh.graph)
-    inv_l = inv_r = None
-    for i in range(n_lays):
-        xs_l, hs_l, xs_r, hs_r = peer_exchange_sides(mesh.peers, (tab_l, tab_r),
-                                                     (x_l, h_l, x_r, h_r))
-        if i == 0 and torch.is_grad_enabled():
-            inv_l = inverse_neighbors(lig.nbr, xs_l.shape[1])
-            inv_r = inverse_neighbors(rec.nbr, xs_r.shape[1])
-        x_l, h_l, x_r, h_r = iegmn_layer_forward(
-            layer_params(cfg, p, i), cfg, fine_tune, i > 0, lig, rec, x_l, h_l, x_r, h_r,
-            orig_h_l, orig_h_r, he_l, he_r, x_l_in, rec.x, src_l=(xs_l, hs_l),
-            src_r=(xs_r, hs_r), attend=attend, inv_l=inv_l, inv_r=inv_r, gn_reduce=gn)
-    return tuple(_gather_nodes(a, mesh) for a in (x_l, h_l, x_r, h_r))
-
-
 def _stacked_gn(mesh: ParallelMesh) -> Callable:
     """GraphNorm's per-shard sums of folded blocks, summed over the stacked
     shard axis and handed back to every shard."""
@@ -616,142 +613,137 @@ def _stacked_gn(mesh: ParallelMesh) -> Callable:
     return reduce
 
 
-def _trunk(p, cfg: ModelConfig, mesh: ParallelMesh, n_lays: int, fine_tune: bool,
-           lig: ProteinBatch, rec: ProteinBatch, x_l_in, tab_l: ExchangeTable,
-           tab_r: ExchangeTable):
-    """The IEGMN trunk on folded node shards. Per layer: the halo exchange
-    of both sides in one call, then the unchanged layer body on the local
-    blocks. Returns the final x and h of both sides gathered to (B, N, .)."""
-    x_l, x_r = x_l_in, rec.x
-    h_l, h_r, he_l, he_r = trunk_inputs(p, cfg, lig, rec)
-    orig_h_l, orig_h_r = h_l, h_r
-    attend, gn = _ring_attend(mesh), _stacked_gn(mesh)
-    inv_l = inv_r = None
-    for i in range(n_lays):
-        xs_l, hs_l, xs_r, hs_r = halo_exchange_pair(x_l, h_l, x_r, h_r, tab_l, tab_r)
-        src_l, src_r = (xs_l, hs_l), (xs_r, hs_r)
-        if i == 0 and torch.is_grad_enabled():   # the remapped nbr's inverse lists
-            inv_l = inverse_neighbors(lig.nbr, src_l[0].shape[1])
-            inv_r = inverse_neighbors(rec.nbr, src_r[0].shape[1])
-        x_l, h_l, x_r, h_r = iegmn_layer_forward(
-            layer_params(cfg, p, i), cfg, fine_tune, i > 0, lig, rec, x_l, h_l, x_r, h_r,
-            orig_h_l, orig_h_r, he_l, he_r, x_l_in, rec.x, src_l=src_l, src_r=src_r,
-            attend=attend, inv_l=inv_l, inv_r=inv_r, gn_reduce=gn)
-    return tuple(mesh.gather(a) for a in (x_l, h_l, x_r, h_r))
+def _permuted(m: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """A mask of the dense batch (B, N, ...) in the halo batch's node order
+    (B, N, ...): rows follow their node, an edge row its K slots in order."""
+    return m[torch.arange(perm.shape[0], device=perm.device)[:, None], perm]
 
 
-def check_halo_supported(cfg: ModelConfig) -> None:
-    """Raise for what the halo path does not compute (beyond the kernels'
-    own limits, `check_supported`)."""
-    check_supported(cfg)
-    if cfg.dropout != 0.0:
-        raise NotImplementedError(f"dropout={cfg.dropout}: the halo path runs dropout 0 only")
-    if not fused_edge_eligible(cfg, train=True) or uses_batch_norm(cfg):
-        raise NotImplementedError(
-            f"the halo path runs the edge kernels without BatchNorm only: nonlin={cfg.nonlin!r}, "
-            f"layer_norm={cfg.layer_norm!r}, layer_norm_coors={cfg.layer_norm_coors!r}, "
-            f"final_h_layer_norm={cfg.final_h_layer_norm!r}")
+def halo_dropout(drop, hb: HaloBatch, mesh: ParallelMesh):
+    """(trunk's, head's) `DropoutCut`s of a halo forward: each mask is drawn
+    at the whole batch's dense shape (dp data groups of the group's rows,
+    N nodes) and taken through the batch's permutations to the rows of this
+    rank's data group, and for the trunk to its node shard (the stacked
+    blocks, folded, in one process); None for no dropout."""
+    if drop is None or drop.rate == 0.0:
+        return None, None
+    if hb.perm_lig is None or hb.perm_rec is None:
+        raise ValueError("dropout in the halo path cuts the dense masks through the batch's "
+                         "node permutations: build it with build_halo_batch")
+    perms = (hb.perm_lig, hb.perm_rec)
+    Bg = perms[0].shape[0]                   # the halo batch's complexes (a data group's)
+    rows = (slice(mesh.g * Bg, (mesh.g + 1) * Bg) if mesh.ranked else slice(None))
+    dense = lambda m, side: _permuted(m[rows], perms[side])
+    whole = lambda shape, side: ((Bg * (mesh.dp if mesh.ranked else 1),
+                                  perms[side].shape[1]) + shape[2:])
+    if mesh.ranked:
+        trunk = DropoutCut(drop, whole, lambda m, side: mesh.local_nodes(dense(m, side)))
+    else:
+        trunk = DropoutCut(drop, whole, lambda m, side: mesh.fold(dense(m, side)))
+    return trunk, DropoutCut(drop, whole, dense)
+
+
+def halo_shards(hb: HaloBatch, mesh: ParallelMesh) -> Shards:
+    """The trunk's hooks (`models/iegmn.py::Shards`) for one halo batch:
+    across ranks this rank's shard (its peer tables' exchange, the ring
+    attention and GraphNorm's sums over the graph group, the all-gather
+    over it; a fine-tune stage's input ligand, which needs a gradient,
+    comes in through `scatter_own`), in one process the stacked shards
+    (row 8 on the stacked tables, the folded blocks)."""
+    lig, rec = hb.pair.lig, hb.pair.rec
+    if mesh.ranked:
+        tables = rank_tables(hb, mesh)
+
+        def x_in(x_l_in):
+            if not x_l_in.requires_grad:
+                return mesh.local_nodes(x_l_in)
+            return scatter_own(x_l_in.reshape(x_l_in.shape[0], mesh.gp, -1, 3).transpose(0, 1),
+                               mesh.graph, mesh.p)
+
+        return Shards(_local_protein(lig, mesh), _local_protein(rec, mesh), x_in,
+                      lambda *xh: peer_exchange_sides(mesh.peers, tables, xh),
+                      _ranked_attend(mesh), lambda v: all_reduce_sum(v, mesh.graph),
+                      lambda a: _gather_nodes(a, mesh), lambda d: halo_dropout(d, hb, mesh))
+    lig_s, rec_s = mesh.shard_protein(lig), mesh.shard_protein(rec)
+    tab_l, tab_r = mesh_table(hb.table_lig, mesh), mesh_table(hb.table_rec, mesh)
+    return Shards(lig_s, rec_s, mesh.fold,
+                  lambda x_l, h_l, x_r, h_r: halo_exchange_pair(x_l, h_l, x_r, h_r, tab_l, tab_r),
+                  _ring_attend(mesh), _stacked_gn(mesh), mesh.gather,
+                  lambda d: halo_dropout(d, hb, mesh))
 
 
 def make_halo_forward(cfg: Config, mesh: ParallelMesh):
-    """Returns forward(params, hb, n_lays=None): `docking_forward` over a
-    HaloBatch, the sharded trunk(s) plus the dense keypoint head and rigid
-    fit, with the same output dict (coordinates in the HaloBatch's node
-    order; with a fine-tune stage, (R, t) composed from the original input
-    ligand, as the dense forward does). Across ranks `hb` is the rank's
-    data group's batch (every rank of the group passes the same one) and
-    every rank of the group returns the group's whole outputs."""
+    """Returns forward(params, hb, n_lays=None, train=False, drop=None,
+    bn_state=None): `docking_forward` over a HaloBatch with its trunks on
+    the mesh's node shards (`halo_shards`), the keypoint head and the rigid
+    fit on the gathered rows, with the same output dict (coordinates in the
+    HaloBatch's node order). `train`, `drop` (a `Dropout` of the whole
+    batch: each shard takes its part of every mask, `halo_dropout`) and
+    `bn_state` (whose training forward adds "bn_updates", the statistics of
+    the whole batch's owned rows, summed over every rank) as in
+    `docking_forward`. Across ranks `hb` is the rank's data group's batch
+    (every rank of the group passes the same one) and every rank of the
+    group returns the group's whole outputs."""
     mc = cfg.model
-    check_halo_supported(mc)
+    check_supported(mc)
+    reduce = (lambda v: all_reduce_sum(v, mesh.world.group)) if mesh.ranked else None
 
-    def stage(params_stage, hb: HaloBatch, x_l_in, n_lays: int, fine_tune: bool):
-        lig, rec = hb.pair.lig, hb.pair.rec
-        for t in (lig.x, rec.x, x_l_in):
+    def forward(params, hb: HaloBatch, n_lays: Optional[int] = None, train: bool = False,
+                drop=None, bn_state: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+        for t in (hb.pair.lig.x, hb.pair.rec.x):
             if t.device != mesh.device:
                 raise ValueError(f"halo batch on {t.device}, mesh on {mesh.device}")
-        if mesh.ranked:
-            tab_l, tab_r = rank_tables(hb, mesh)
-            x_local = (mesh.local_nodes(x_l_in) if not x_l_in.requires_grad else
-                       scatter_own(x_l_in.reshape(x_l_in.shape[0], mesh.gp, -1, 3)
-                                   .transpose(0, 1), mesh.graph, mesh.p))
-            x_l_f, h_l_f, x_r_f, h_r_f = _trunk_ranked(
-                params_stage, mc, mesh, n_lays, fine_tune, _local_protein(lig, mesh),
-                _local_protein(rec, mesh), x_local, tab_l, tab_r)
-            return keypoint_head(params_stage, mc, h_l_f, x_l_f, h_r_f, x_r_f,
-                                 lig.node_mask, rec.node_mask)
-        x_l_f, h_l_f, x_r_f, h_r_f = _trunk(
-            params_stage, mc, mesh, n_lays, fine_tune, mesh.shard_protein(lig),
-            mesh.shard_protein(rec), mesh.fold(x_l_in), mesh_table(hb.table_lig, mesh),
-            mesh_table(hb.table_rec, mesh))
-        return keypoint_head(params_stage, mc, h_l_f, x_l_f, h_r_f, x_r_f,
-                             lig.node_mask, rec.node_mask)
-
-    def forward(params, hb: HaloBatch, n_lays: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        n_lays = n_lays if n_lays is not None else mc.iegmn_n_lays
-        x_l = hb.pair.lig.x
-        if mc.fine_tune and "finetune" in params:
-            R0, t0, _, _ = stage(params["original"], hb, x_l, n_lays, False)
-            x_l = apply_rigid(x_l, R0, t0)
-            R2, t2, kl, kr = stage(params["finetune"], hb, x_l, 2, True)
-            lig_pred = apply_rigid(x_l, R2, t2)
-            R = torch.einsum("bij,bjk->bik", R2, R0)
-            t = torch.einsum("bij,bnj->bni", R2, t0) + t2
-        else:
-            R, t, kl, kr = stage(params["original"], hb, x_l, n_lays, False)
-            lig_pred = apply_rigid(x_l, R, t)
-        return {"ligand_coords": lig_pred, "keypts_lig": kl, "keypts_rec": kr, "R": R, "t": t}
+        return docking_forward(params, mc, hb.pair, n_lays, train, drop, bn_state,
+                               bn_reduce=reduce, shards=halo_shards(hb, mesh))
 
     return forward
 
 
-def make_halo_loss(cfg: Config, mesh: ParallelMesh):
-    """The `loss_fn_` of `train/step.py` for a HaloBatch: the halo forward,
-    then `total_loss` on the permuted pair (the JAX `halo_loss_fn`)."""
+def make_halo_loss(cfg: Config, mesh: ParallelMesh, drop=None,
+                   bn_state: Optional[dict] = None, denom: Optional[torch.Tensor] = None):
+    """The `loss_fn_` of `train/step.py` for a HaloBatch: the halo training
+    forward (with `drop` and `bn_state`), then `total_loss` on the permuted
+    pair (the JAX `halo_loss_fn`); `denom` as in `total_loss` (a rank's
+    share of the whole batch's mean)."""
     from ..train.losses import total_loss
 
     fwd = make_halo_forward(cfg, mesh)
 
     def halo_loss_fn(params, cfg_: Config, hb: HaloBatch):
-        out = fwd(params, hb)
-        loss, metrics = total_loss(out, hb.pair, cfg_.train)
+        out = fwd(params, hb, train=True, drop=drop, bn_state=bn_state)
+        loss, metrics = total_loss(out, hb.pair, cfg_.train, denom=denom)
         return loss, (metrics, out)
 
     return halo_loss_fn
 
 
 def make_halo_train_step(cfg: Config, mesh: ParallelMesh):
-    """Returns step(state, hb, lr_scale=1.0) -> (state, metrics): the port's
-    `train_step` with the halo loss swapped in, so the optimizer, the clip
-    telemetry and the "no gradient reached" check are the dense step's. As
-    in the JAX package, the metrics leave out ligand_coords. Across ranks
+    """Returns step(state, hb, lr_scale=1.0, drop=None) -> (state, metrics):
+    the port's `train_step` with the halo loss swapped in, so the optimizer,
+    the clip telemetry, the BatchNorm statistics and the "no gradient
+    reached" check are the dense step's. As in the JAX package, the metrics
+    leave out ligand_coords. `drop` is the whole batch's `Dropout` (its
+    generator state shared by every rank, or recorded masks): each shard
+    takes its part of the masks the one-process step draws. Across ranks
     `hb` is the rank's data group's batch, its loss terms a share of the
     whole batch's mean, and the gradients are summed over the ranks before
     the optimizer (`parallel/train.py::ranked_step`)."""
     from ..train.step import train_step
-    from .train import check_ranked_supported, global_count, ranked_step
+    from .train import global_count, ranked_step
 
-    if mesh.ranked:
-        check_ranked_supported(cfg)
-    fwd = make_halo_forward(cfg, mesh)
-    halo_loss_fn = make_halo_loss(cfg, mesh)
+    check_supported(cfg.model)
 
-    def step(state, hb: HaloBatch, lr_scale: float = 1.0):
+    def step(state, hb: HaloBatch, lr_scale: float = 1.0, drop=None):
         dev = next(iter(flatten(state.params).values())).device
         if dev != mesh.device:
             raise ValueError(f"train state on {dev}, mesh on {mesh.device}")
         if not mesh.ranked:
-            state, metrics = train_step(state, hb, cfg, lr_scale, loss_fn_=halo_loss_fn)
+            state, metrics = train_step(state, hb, cfg, lr_scale, loss_fn_=make_halo_loss(
+                cfg, mesh, drop, state.bn_state or None))
             metrics.pop("ligand_coords", None)
             return state, metrics
-        from ..train.losses import total_loss
-
         denom = global_count(hb.pair.complex_mask, mesh)
-
-        def loss_fn_(params, cfg_: Config, hb_: HaloBatch):
-            out = fwd(params, hb_)
-            loss, metrics = total_loss(out, hb_.pair, cfg_.train, denom=denom)
-            return loss, (metrics, out)
-
-        return ranked_step(state, hb, cfg, lr_scale, mesh, loss_fn_, halo=True)
+        return ranked_step(state, hb, cfg, lr_scale, mesh, make_halo_loss(
+            cfg, mesh, drop, state.bn_state or None, denom), halo=True)
 
     return step

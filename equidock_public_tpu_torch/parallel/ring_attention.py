@@ -21,17 +21,21 @@ from typing import Iterable, Tuple
 import torch
 
 
-def _fold(q, q_mask, chunks: Iterable[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]):
-    """The online softmax over K/V chunks, in the order given."""
+def _fold(q, q_mask, chunks: Iterable[Tuple], q_seg=None):
+    """The online softmax over K/V chunks (k, v, k_mask, k_seg), in the
+    order given. With segment ids (packed slots) only same-segment pairs
+    count, as in the dense packed attention (`ops/attention.py`)."""
     lead = q.shape[:-1]
     m = l = acc = None
-    for k, v, k_mask in chunks:
+    for k, v, k_mask, k_seg in chunks:
         if m is None:
             m = torch.full(lead, float("-inf"), dtype=q.dtype, device=q.device)
             l = torch.zeros(lead, dtype=q.dtype, device=q.device)
             acc = torch.zeros(lead + (v.shape[-1],), dtype=q.dtype, device=q.device)
         scores = torch.matmul(q, k.transpose(-1, -2))
         mask = q_mask[..., :, None] * k_mask[..., None, :]
+        if q_seg is not None:
+            mask = mask * (q_seg[..., :, None] == k_seg[..., None, :]).to(mask.dtype)
         a = mask * scores - 1000.0 * (1.0 - mask)
         m_new = torch.maximum(m, a.amax(dim=-1))
         corr = torch.exp(m - m_new)
@@ -42,26 +46,32 @@ def _fold(q, q_mask, chunks: Iterable[Tuple[torch.Tensor, torch.Tensor, torch.Te
     return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
-def ring_cross_attention_local(q, k, v, q_mask, k_mask) -> torch.Tensor:
+def ring_cross_attention_local(q, k, v, q_mask, k_mask, q_seg=None, k_seg=None) -> torch.Tensor:
     """Stacked shards: q (G, P, Bl, Nq, D) the local queries of each shard;
     k, v (G, P, Bl, Nk, D / Dv) each shard's K/V chunk; masks (G, P, Bl,
-    Nq) and (G, P, Bl, Nk). Returns (G, P, Bl, Nq, Dv)."""
+    Nq) and (G, P, Bl, Nk); packed slots' segment ids shaped as the masks.
+    Returns (G, P, Bl, Nq, Dv)."""
     gp = q.shape[1]
-    return _fold(q, q_mask, ((torch.roll(k, s, dims=1), torch.roll(v, s, dims=1),
-                              torch.roll(k_mask, s, dims=1)) for s in range(gp)))
+    roll = lambda a, s: None if a is None else torch.roll(a, s, dims=1)
+    return _fold(q, q_mask, ((roll(k, s), roll(v, s), roll(k_mask, s), roll(k_seg, s))
+                             for s in range(gp)), q_seg)
 
 
-def ring_cross_attention_ranks(q, k, v, q_mask, k_mask, group, rank: int, gp: int):
+def ring_cross_attention_ranks(q, k, v, q_mask, k_mask, group, rank: int, gp: int,
+                               q_seg=None, k_seg=None):
     """Shards that are ranks of `group` (this one `rank` of `gp`): q (Bl,
-    Nq, D), k, v (Bl, Nk, .) this rank's chunk, masks alike. The chunks are
-    gathered and folded own first, then rank - 1, rank - 2, ...; a rank's
-    use of its peers' chunks sends their cotangents back in the backward."""
+    Nq, D), k, v (Bl, Nk, .) this rank's chunk, masks (and packed slots'
+    segment ids) alike. The chunks are gathered and folded own first, then
+    rank - 1, rank - 2, ...; a rank's use of its peers' chunks sends their
+    cotangents back in the backward."""
     from .dist import gather_slots
 
     ks, vs = gather_slots(k, group, rank, gp), gather_slots(v, group, rank, gp)
     kms = gather_slots(k_mask, group, rank, gp)
-    return _fold(q, q_mask, ((ks[(rank - s) % gp], vs[(rank - s) % gp], kms[(rank - s) % gp])
-                             for s in range(gp)))
+    kss = None if k_seg is None else gather_slots(k_seg, group, rank, gp)
+    at = lambda s: (rank - s) % gp
+    return _fold(q, q_mask, ((ks[at(s)], vs[at(s)], kms[at(s)],
+                              None if kss is None else kss[at(s)]) for s in range(gp)), q_seg)
 
 
 def make_ring_cross_attention(mesh):

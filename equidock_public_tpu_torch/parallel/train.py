@@ -19,7 +19,10 @@ With gp > 1 every rank of a graph group computes the same dense head and
 loss on the gathered trunk output: the trunk's gradients are a rank's
 shard's part and are summed, while the head's (`head_leaf`) and the loss
 terms are whole on each rank and are taken from graph rank 0 alone. As in
-the JAX package the step's metrics leave out ligand_coords.
+the JAX package the step's metrics leave out ligand_coords. BatchNorm's
+statistics are the whole batch's (its sums go over the ranks that hold
+rows, so every rank ends with the same statistics), and each rank takes its
+part of the whole batch's dropout masks.
 
 A world of one (the stacked form) runs the one-process step.
 """
@@ -33,10 +36,11 @@ import torch
 import torch.distributed as dist
 
 from ..config import Config
-from ..models.iegmn import docking_forward, uses_batch_norm
+from ..models.iegmn import docking_forward
+from ..models.layers import DropoutCut
 from ..train.losses import total_loss
 from ..train.step import apply_gradients, loss_and_grads, train_step
-from .dist import all_reduce_
+from .dist import all_reduce_, all_reduce_sum
 from .mesh import ParallelMesh
 
 # The keypoint head's modules of a stage (`models/iegmn.py::keypoint_head`):
@@ -50,16 +54,6 @@ def head_leaf(key: str) -> bool:
     """Whether a flat parameter key ("original/att_key_rot/w") is the head's."""
     parts = key.split("/")
     return len(parts) > 1 and parts[1] in HEAD_MODULES
-
-
-def check_ranked_supported(cfg: Config) -> None:
-    """Raise for what a step across ranks does not compute."""
-    if uses_batch_norm(cfg.model):
-        raise NotImplementedError("BatchNorm across ranks: a rank's batch statistics are not "
-                                  "the whole batch's; train 'BN' models on one rank")
-    if cfg.model.dropout != 0.0:
-        raise NotImplementedError(f"dropout={cfg.model.dropout} across ranks: the masks of a "
-                                  "rank's rows are not drawn; train it on one rank")
 
 
 def global_count(mask: torch.Tensor, mesh: ParallelMesh) -> torch.Tensor:
@@ -91,11 +85,12 @@ def reduce_over_ranks(grads: Dict[str, torch.Tensor], metrics: Dict[str, torch.T
 def ranked_step(state, batch, cfg: Config, lr_scale: float, mesh: ParallelMesh,
                 loss_fn_: Callable, halo: bool, keep_coords: bool = False):
     """One step of this rank: its loss and gradients, the sums over the
-    ranks, the optimizer. Returns (state, metrics; with `keep_coords` the
-    ligand_coords of this rank's rows)."""
+    ranks, the optimizer, and the BatchNorm statistics of the forward (the
+    whole batch's, the same bits on every rank). Returns (state, metrics;
+    with `keep_coords` the ligand_coords of this rank's rows)."""
     grads, metrics, out = loss_and_grads(state.params, cfg, batch, loss_fn_)
     grads, metrics = reduce_over_ranks(grads, metrics, mesh, halo)
-    state, gnorm = apply_gradients(state, grads, cfg, lr_scale)
+    state, gnorm = apply_gradients(state, grads, cfg, lr_scale, out.get("bn_updates"))
     metrics["grad_norm"] = gnorm
     metrics["clipped"] = (gnorm > cfg.train.clip).to(torch.float32)
     if keep_coords:
@@ -103,29 +98,50 @@ def ranked_step(state, batch, cfg: Config, lr_scale: float, mesh: ParallelMesh,
     return state, metrics
 
 
+def rank_dropout(drop, mesh: ParallelMesh):
+    """This rank's part of the whole batch's dropout masks in a dp step: each
+    mask drawn at the whole batch's shape (dp times the rank's rows) from
+    the generator state every rank shares, or replayed, and cut to the
+    rank's rows (`models/layers.py::DropoutCut`). `drop` itself in one
+    process (the whole batch) and for no dropout."""
+    if drop is None or drop.rate == 0.0 or not mesh.ranked:
+        return drop
+    return DropoutCut(drop, lambda shape, side: (mesh.dp * shape[0],) + shape[1:],
+                      lambda m, side: m[mesh.local_slice(m.shape[0])])
+
+
 def make_parallel_train_step(cfg: Config, mesh: ParallelMesh, keep_coords: bool = False):
-    """Returns step(state, batch, lr_scale=1.0) -> (state, metrics). Across
-    ranks `batch` is this rank's B/dp rows of the global batch
-    (`mesh.local_slice`, or `parallel/input_pipeline.py`); in one process
-    (the stacked form) the whole batch and the one-process step. Node
-    sharding (gp > 1) is the halo step, `parallel/halo.py::
+    """Returns step(state, batch, lr_scale=1.0, drop=None) -> (state,
+    metrics). Across ranks `batch` is this rank's B/dp rows of the global
+    batch (`mesh.local_slice`, or `parallel/input_pipeline.py`); in one
+    process (the stacked form) the whole batch and the one-process step.
+    Node sharding (gp > 1) is the halo step, `parallel/halo.py::
     make_halo_train_step`. `keep_coords` keeps the rows' ligand_coords in
-    the metrics (the dp-resident epoch meters them)."""
+    the metrics (the dp-resident epoch meters them).
+
+    BatchNorm's statistics are the whole batch's: a rank's partial sums go
+    over the data group (`models/layers.py::batch_norm(reduce=)`). `drop`
+    gives the masks of the step's rows: the caller's choice. `fit`'s mesh
+    step passes `rank_dropout` of the epoch's `Dropout` (each rank takes its
+    rows of the whole batch's masks, as the JAX package's mesh step draws
+    them for the whole batch); the dp-resident epoch passes the `Dropout`
+    itself, so every rank draws its own rows' shape from the same state
+    (the JAX package's dp-resident scan)."""
     if mesh.gp != 1:
         raise ValueError(f"{mesh}: graph shards train through make_halo_train_step")
-    if mesh.ranked:
-        check_ranked_supported(cfg)
 
-    def step(state, batch, lr_scale: float = 1.0):
+    def step(state, batch, lr_scale: float = 1.0, drop=None):
         if not mesh.ranked:
-            state, metrics = train_step(state, batch, cfg, lr_scale)
+            state, metrics = train_step(state, batch, cfg, lr_scale, drop=drop)
             if not keep_coords:
                 metrics.pop("ligand_coords", None)
             return state, metrics
         denom = global_count(batch.complex_mask, mesh)
+        reduce = lambda v: all_reduce_sum(v, mesh.data)
 
         def loss_fn_(params, cfg_: Config, b):
-            out = docking_forward(params, cfg_.model, b, train=True)
+            out = docking_forward(params, cfg_.model, b, train=True, drop=drop,
+                                  bn_state=state.bn_state or None, bn_reduce=reduce)
             loss, metrics = total_loss(out, b, cfg_.train, denom=denom)
             return loss, (metrics, out)
 
@@ -136,13 +152,15 @@ def make_parallel_train_step(cfg: Config, mesh: ParallelMesh, keep_coords: bool 
 
 
 def params_digest(state, mesh: ParallelMesh) -> List[str]:
-    """Every rank's sha256 of its parameters' bytes (keys in sorted order),
-    gathered over the host group in rank order: all equal when every rank
-    holds the same bits."""
+    """Every rank's sha256 of its parameters' and BatchNorm statistics'
+    bytes (keys in sorted order), gathered over the host group in rank
+    order: all equal when every rank holds the same bits."""
     from ..params import flatten
 
     h = hashlib.sha256()
-    for k, v in sorted(flatten(state.params).items()):
+    bn = {f"bn_state/{site}/{k}": v for site, st in state.bn_state.items()
+          for k, v in st.items()}
+    for k, v in sorted({**flatten(state.params), **bn}.items()):
         h.update(k.encode())
         h.update(v.detach().cpu().contiguous().numpy().tobytes())
     if not mesh.ranked:

@@ -37,12 +37,12 @@ from ..config import Config, auto_node_buckets
 from ..data.dataset import DockingDataset
 from ..device import resolve_device
 from ..graph import PairBatch, batch_to
-from ..models.iegmn import check_supported
+from ..models.iegmn import check_supported, uses_batch_norm
 from ..params import flatten, init_params
 from .checkpoint import load_checkpoint, save_checkpoint
 from .meter import RmsdMeter
 from .optim import ReduceOnPlateau, epoch_lr_factor
-from .resident import (ResidentSplitDP, StreamedResidentSplit, build_resident_split,
+from .resident import (BN_DP_RESIDENT, PACK_RESIDENT, ResidentSplitDP, StreamedResidentSplit, build_resident_split,
                        build_resident_split_dp, draws_factory, run_eval_epoch_resident,
                        run_train_epoch_resident, run_train_epoch_resident_dp,
                        run_train_epoch_resident_streamed)
@@ -128,9 +128,9 @@ def run_train_epoch(state: TrainState, ds: DockingDataset, cfg: Config,
     (the first, and each further one with probability
     `train_rmsd_fraction`), num_clips and num_batches. Dropout above 0
     draws from `drop`, by default a generator of the epoch
-    (`step.make_dropout`). `step_fn(state, batch, lr_scale)` swaps the
-    step (the mesh path of `fit`); its metrics carry no ligand_coords, so
-    the train RMSD reads nan, as in the JAX package's mesh path."""
+    (`step.make_dropout`). `step_fn(state, batch, lr_scale, drop)` swaps
+    the step (the mesh path of `fit`); its metrics carry no ligand_coords,
+    so the train RMSD reads nan, as in the JAX package's mesh path."""
     dev = next(iter(flatten(state.params).values())).device
     drop = drop if drop is not None else make_dropout(cfg, dev, epoch)
     meter_rng = np.random.default_rng((cfg.train.random_seed, 7919, epoch))
@@ -140,7 +140,7 @@ def run_train_epoch(state: TrainState, ds: DockingDataset, cfg: Config,
     num_batches = 0
     for batch in _batches(ds, rng, dev, shuffle=True):
         if step_fn is not None:
-            state, metrics = step_fn(state, batch, lr_scale)
+            state, metrics = step_fn(state, batch, lr_scale, drop)
         else:
             state, metrics = train_step(state, batch, cfg, lr_scale, drop=drop)
         num_batches += 1
@@ -208,9 +208,9 @@ def selection_value(va: Dict[str, float], metric: str) -> float:
 
 
 def check_fit_supported(cfg: Config) -> None:
-    """Raise NotImplementedError naming every loop option outside the port
-    (and, through `models.iegmn.check_supported`, every model option), and
-    ValueError for the JAX package's own refusals."""
+    """Raise NotImplementedError naming every model option outside the port
+    (`models.iegmn.check_supported`), and ValueError for the JAX package's
+    own refusals, in its words."""
     check_supported(cfg.model)
     dc, par = cfg.data, cfg.parallel
     if dc.device_resident and par.gp > 1:
@@ -221,15 +221,13 @@ def check_fit_supported(cfg: Config) -> None:
                          "streamed-resident or -stream_dips for dp")
     if par.dp * par.gp > 1 and cfg.train.bs % par.dp:
         raise ValueError(f"-bs {cfg.train.bs} does not split into dp={par.dp} ranks")
-    if dc.pack and par.gp > 1:
-        raise NotImplementedError("-pack with -gp: the halo path takes one complex a slot")
-
     if dc.pack and cfg.model.final_h_layer_norm == "GN":
         raise ValueError("-pack with final_h_layer_norm='GN': GraphNorm normalizes per graph "
                          "and is not segment-aware; train packed batches with 'LN'/'0'")
     if dc.pack and dc.device_resident:
-        raise NotImplementedError("training option not ported: -pack with -device_resident "
-                                  "(the resident store is unpacked)")
+        raise ValueError(PACK_RESIDENT)
+    if dc.device_resident and par.dp > 1 and uses_batch_norm(cfg.model):
+        raise ValueError(BN_DP_RESIDENT)
 
 
 def resolve_auto_buckets(cfg: Config, datasets, log) -> Config:
@@ -264,29 +262,26 @@ def _json_scalars(d: dict) -> dict:
 
 
 def mesh_step(cfg: Config, mesh, log) -> Callable:
-    """The step of `fit`'s mesh path, step(state, batch, lr_scale) on a
-    whole batch as the dataset yields it: across ranks this rank's rows
-    (dp; `parallel/train.py`), with gp > 1 through the halo step on the
-    rank's data group's halo batch (built on the host once a batch); in one
-    process the stacked form."""
+    """The step of `fit`'s mesh path, step(state, batch, lr_scale, drop) on a
+    whole batch as the dataset yields it (packed or not): across ranks this
+    rank's rows (dp; `parallel/train.py`), with gp > 1 through the halo
+    step on the rank's data group's halo batch (built on the host once a
+    batch); in one process the stacked form. `drop` is the epoch's
+    `Dropout`, whose generator state every rank shares: each rank takes its
+    part of the whole batch's masks (`rank_dropout`; the halo step cuts
+    them itself)."""
     from ..parallel.halo import build_halo_batch, make_halo_train_step
     from ..parallel.input_pipeline import local_rows
-    from ..parallel.train import make_parallel_train_step
+    from ..parallel.train import make_parallel_train_step, rank_dropout
 
+    rows = (lambda batch: local_rows(batch, mesh)) if mesh.ranked else (lambda batch: batch)
     if mesh.gp == 1:
         pstep = make_parallel_train_step(cfg, mesh)
-        return lambda state, batch, scale: pstep(
-            state, local_rows(batch, mesh) if mesh.ranked else batch, scale)
+        return lambda state, batch, scale, drop=None: pstep(state, rows(batch), scale,
+                                                            rank_dropout(drop, mesh))
     hstep = make_halo_train_step(cfg, mesh)
-
-    def step(state, batch, scale):
-        if mesh.ranked:
-            hb = build_halo_batch(local_rows(batch, mesh), mesh.gp)[0]
-        else:
-            hb = build_halo_batch(batch, mesh.gp)[0]
-        return hstep(state, hb, scale)
-
-    return step
+    return lambda state, batch, scale, drop=None: hstep(
+        state, build_halo_batch(rows(batch), mesh.gp)[0], scale, drop)
 
 
 def fit(cfg: Config, state: Optional[TrainState] = None, max_epochs: Optional[int] = None,

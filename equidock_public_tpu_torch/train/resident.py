@@ -29,8 +29,8 @@ in pinned host memory and copies it on a side CUDA stream while the
 current group trains; a group's tensors are dropped once its results are on
 the host. The data-parallel twin (`build_resident_split_dp`,
 `run_train_epoch_resident_dp`) shards the train store's pair axis over the
-data ranks of a mesh (the val and test stores are not sharded). A packed
-store is not ported (the store is unpacked, as in the JAX package).
+data ranks of a mesh (the val and test stores are not sharded). The store
+is unpacked: -pack with -device_resident raises, as in the JAX package.
 
 The train state's BatchNorm statistics go through every step and evaluation
 as in the JAX package's scans; dropout above 0 draws its masks from a
@@ -51,6 +51,12 @@ from ..config import Config, bucket_for
 from ..graph import PairBatch, ProteinBatch, pad_protein
 from .meter import RmsdMeter, complex_rmsd
 from .step import TrainState, eval_step, make_dropout, train_step
+
+# the JAX package's own refusals (`train/loop.py::fit`, `train/resident.py::
+# _dp_train_epoch_fn`), in its words
+PACK_RESIDENT = ("-device_resident already removes the padding-collate cost; it does not "
+                 "compose with -pack")
+BN_DP_RESIDENT = "dp-resident path does not track per-device BN statistics; use LN/GN"
 
 _SCALARS = ("loss", "ligand_coors_loss", "ot_loss", "intersection_loss")
 # the stores are unpacked: every side field but the packed segment ids
@@ -156,7 +162,7 @@ def build_resident_split(ds, cfg: Config, device) -> ResidentSplit:
     """Group a materialized dataset by bucket, pad, stack and put each group
     on `device` once."""
     if cfg.data.pack:
-        raise NotImplementedError("-pack with -device_resident: the resident store is unpacked")
+        raise ValueError(PACK_RESIDENT)
     groups: Dict[int, ResidentGroup] = {}
     metas: Dict[int, HostMeta] = {}
     for b, idxs in sorted(_group_by_bucket(ds, cfg).items()):
@@ -699,8 +705,8 @@ def _schedule_dp(n_locs: List[int], bs_loc: int, rng: Optional[np.random.Generat
 
 def run_train_epoch_resident_dp(state: TrainState, rs: ResidentSplitDP, cfg: Config, mesh,
                                 rng: np.random.Generator, draws, epoch: int, log=print,
-                                lr_scale: float = 1.0, do_swap: Optional[bool] = None
-                                ) -> Tuple[TrainState, Dict[str, float]]:
+                                lr_scale: float = 1.0, do_swap: Optional[bool] = None,
+                                drop=None) -> Tuple[TrainState, Dict[str, float]]:
     """The dp twin of `run_train_epoch_resident` (the JAX package's
     `run_train_epoch_resident_dp`): the groups in an order shuffled by `rng`,
     each group's per-shard schedule (`_schedule_dp`) permuted by the meter's
@@ -711,9 +717,21 @@ def run_train_epoch_resident_dp(state: TrainState, rs: ResidentSplitDP, cfg: Con
     optimizer); the metered steps' coordinates are gathered over the data
     group. In one process the whole batch assembles from the stacked store
     (global rows d P_loc + i) and takes the one-process step: the same
-    update. `trim_remainder` is not read (as in the JAX package)."""
+    update. `trim_remainder` is not read (as in the JAX package).
+
+    Dropout as in the JAX package's dp scan: every rank draws masks of its
+    own rows' shape from the same generator state (`drop`, by default the
+    epoch's generator, `step.make_dropout`; or recorded masks), so each
+    data rank applies the same pattern; in one process each mask is drawn
+    at one rank's shape and repeated over the dp row blocks. BatchNorm
+    raises, the JAX package's own refusal."""
+    from ..models.iegmn import uses_batch_norm
+    from ..models.layers import DropoutCut
     from ..parallel.dist import gather_slots
     from ..parallel.train import make_parallel_train_step
+
+    if uses_batch_norm(cfg.model):
+        raise ValueError(BN_DP_RESIDENT)
 
     meter_rng = np.random.default_rng((cfg.train.random_seed, 7919, epoch))
     meter, sums = RmsdMeter(), {}
@@ -722,6 +740,10 @@ def run_train_epoch_resident_dp(state: TrainState, rs: ResidentSplitDP, cfg: Con
     swap = cfg.data.swap_train if do_swap is None else do_swap
     bs_loc = rs.bs // rs.dp
     step = make_parallel_train_step(cfg, mesh, keep_coords=True) if mesh.ranked else None
+    drop = drop if drop is not None else make_dropout(cfg, dev, epoch)
+    if drop is not None and not mesh.ranked:
+        drop = DropoutCut(drop, lambda shape, side: (shape[0] // rs.dp,) + shape[1:],
+                          lambda m, side: torch.cat([m] * rs.dp))
     cols = slice(mesh.g * bs_loc, (mesh.g + 1) * bs_loc)
     T = lambda a, dtype: torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(dev)
     num_batches = num_clips = 0
@@ -741,14 +763,14 @@ def run_train_epoch_resident_dp(state: TrainState, rs: ResidentSplitDP, cfg: Con
                 batch = assemble_batch(rs.groups[b], T(idx[s, cols], np.int64),
                                        T(valid[s, cols], np.float32), flag[cols],
                                        (rot[cols], tr[cols]))
-                state, m = step(state, batch, scale)
+                state, m = step(state, batch, scale, drop)
                 if s < k_c:
                     coords = gather_slots(m["ligand_coords"], mesh.data, mesh.g, mesh.dp)
                     coords = coords.reshape((-1,) + tuple(coords.shape[2:]))
             else:
                 batch = assemble_batch(rs.groups[b], T(gid[s], np.int64),
                                        T(valid[s], np.float32), flag, (rot, tr))
-                state, m = train_step(state, batch, cfg, scale)
+                state, m = train_step(state, batch, cfg, scale, drop=drop)
                 coords = m["ligand_coords"]
             for k in _SCALARS:
                 sums[k] = sums.get(k, 0.0) + float(m[k])

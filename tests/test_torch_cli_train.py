@@ -157,17 +157,22 @@ def test_dp_and_pack_with_device_resident_raise_by_name(flag):
 def test_pack_with_dp_raises_by_name(tmp_path, monkeypatch):
     """Packed batches train on a dp mesh (here stacked in one process: the
     slot-count buckets rounded up to multiples of dp, as the JAX package's
-    mesh path does); with graph shards (-gp) they are refused by name, since
-    the halo path takes one complex a slot."""
+    mesh path does) and with graph shards (-gp: the halo path plans a
+    packed slot as one graph; tests/test_torch_dist_options.py holds its
+    step to JAX's). What still raises by name is packing with 'GN', the
+    JAX package's own refusal."""
     monkeypatch.chdir(tmp_path)
     args = _args(tmp_path) + ["-toy", "-max_epochs", "1", "-pack"]
-    with pytest.raises(NotImplementedError, match="-pack with -gp"):
-        cli.main(args + ["-gp", "2"])
-    assert cli.main(args + ["-dp", "2"]) == 0
-    cfg = cli.config_from_args(cli._parser().parse_args(args + ["-dp", "2"]))
-    log = open(os.path.join("stdouterr", cfg.banner() + ".txt")).read()
-    assert "packed mesh training: slot-count buckets -> (2, 4, 6, 8, 10)" in log
-    assert "mesh training: dp=2 x gp=1 stacked in one process" in log
+    with pytest.raises(ValueError, match="-pack with final_h_layer_norm='GN'"):
+        cli.main(args + ["-gp", "2", "-final_h_layer_norm", "GN"])
+    for mesh, want in ((["-dp", "2"], "mesh training: dp=2 x gp=1 stacked in one process"),
+                       (["-gp", "2"], "mesh training: dp=1 x gp=2 stacked in one process")):
+        assert cli.main(args + mesh) == 0
+        cfg = cli.config_from_args(cli._parser().parse_args(args + mesh))
+        log = open(os.path.join("stdouterr", cfg.banner() + ".txt")).read()
+        assert want in log
+        if mesh[0] == "-dp":
+            assert "packed mesh training: slot-count buckets -> (2, 4, 6, 8, 10)" in log
 
 
 def test_a_resident_run_writes_a_checkpoint(tmp_path, monkeypatch):

@@ -84,10 +84,11 @@ def test_batches_match_the_jax_dataset(bs, seed):
 
 def test_packed_batches_are_refused():
     """Packed batches are ported (`tests/test_torch_packing.py`); what still
-    refuses them is the device-resident store, which is unpacked (as the
-    JAX package's)."""
+    refuses them is the device-resident store, which is unpacked: the JAX
+    package's own refusal, in its words."""
     from equidock_public_tpu_torch.train.resident import build_resident_split
 
     ds = tds.DockingDataset(tc.Config(data=tc.DataConfig(pack=True)), [])
-    with pytest.raises(NotImplementedError, match="-pack with -device_resident"):
+    with pytest.raises(ValueError, match="-device_resident already removes the "
+                                         "padding-collate cost; it does not compose with -pack"):
         build_resident_split(ds, ds.cfg, "cpu")

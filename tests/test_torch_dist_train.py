@@ -2,11 +2,13 @@
 against the JAX package's mesh steps and the port's one-process step.
 
 * A dp 2 step (`parallel/train.py::make_parallel_train_step`, each rank
-  B/dp rows) against JAX's `make_parallel_train_step` on `make_mesh(2, 1)`.
-* A dp 2 x gp 2 halo step (`make_halo_train_step` across 4 ranks, each
-  data group's own halo batch) against JAX's `make_halo_train_step` on the
-  whole batch (its ppermute ring; `tests/test_torch_halo_jax_step.py`
-  holds the port to its Pallas ring).
+  B/dp rows) and a dp 2 x gp 2 halo step (`make_halo_train_step` across 4
+  ranks, each data group's own halo batch) against one JAX mesh step,
+  `make_parallel_train_step(shard_nodes=True)` on `make_mesh(2, 2)`: the
+  step `fit` takes at dp 2 x gp 2, which equals its dp 2 step and its
+  one-device step (the JAX package's `tests/test_parallel.py`);
+  `tests/test_torch_halo_jax_step.py` holds the halo step to JAX's own
+  halo step.
   Both: the loss terms and the gradient norm within 1e-5 relative, and
   every leaf's move (new minus old parameters) within 1e-5 of its norm
   (`tests/test_torch_halo_jax_step.py`'s gates). With gp 2 the head's
@@ -31,7 +33,6 @@ import pytest
 import torch
 
 from equidock_public_tpu.models import iegmn as jm
-from equidock_public_tpu.parallel import halo as jh
 from equidock_public_tpu.parallel.mesh import make_mesh, replicate, shard_batch
 from equidock_public_tpu.parallel.train import make_parallel_train_step
 from equidock_public_tpu.train import step as js
@@ -72,28 +73,32 @@ def _held_to_jax(rank, jmetrics, j0, j1, p0):
         assert np.linalg.norm(move - want) <= 1e-5 * np.linalg.norm(want), key
 
 
+def jax_mesh_step(jcfg, jp, batch, key):
+    """JAX's mesh step of `fit` at dp 2 x gp 2 (`make_parallel_train_step`
+    with the node axis sharded; packed batches with their slots over
+    'data') from a fresh state: (state, metrics)."""
+    packed = getattr(batch, "seg_mask", None) is not None
+    with jax.default_matmul_precision("highest"):
+        mesh = make_mesh(2, 2, devices=jax.devices()[:4])
+        with mesh:
+            state = js.create_train_state(jax.tree.map(jnp.asarray, jp), jcfg)
+            state = jax.tree.map(lambda x: replicate(x, mesh), state)
+            step = make_parallel_train_step(jcfg, mesh, shard_nodes=True, packed=packed,
+                                            n_segs=batch.n_segs if packed else 1)
+            return step(state, shard_batch(batch, mesh, shard_nodes=True), key,
+                        jnp.asarray(1.0))
+
+
 @pytest.fixture(scope="module")
 def tiny_runs():
     """One 4-rank launch: a dp 2 step on ranks 0-1, then a dp 2 x gp 2 halo
-    step on all 4; with JAX's steps on the same state and batch."""
+    step on all 4; with JAX's mesh step on the same state and batch."""
     rng = np.random.default_rng(5)
-    jcfg = tiny_config(iegmn_n_lays=3)        # the halo ring as ppermutes (no interpret mode)
+    jcfg = tiny_config(iegmn_n_lays=3)
     pcfg = port_config(jcfg)
     jp = jax.tree.map(np.asarray, jm.init_docking_model(jax.random.PRNGKey(0), jcfg.model))
     batch = synth_batch(rng, B=4, N_l=16, N_r=16, n_l=14, n_r=13, coord_scale=50.0)
-    key = jax.random.PRNGKey(1)
-    with jax.default_matmul_precision("highest"):
-        mesh = make_mesh(2, 1, devices=jax.devices()[:2])
-        with mesh:
-            state = jax.tree.map(lambda x: replicate(x, mesh), js.create_train_state(jp, jcfg))
-            dp_state, dp_metrics = make_parallel_train_step(jcfg, mesh)(
-                state, shard_batch(batch, mesh), key, jnp.asarray(1.0))
-        jhb, _, _, _ = jh.build_halo_batch(batch, gp=2)
-        mesh = make_mesh(2, 2, devices=jax.devices()[:4])
-        with mesh:
-            state = jax.tree.map(lambda x: replicate(x, mesh), js.create_train_state(jp, jcfg))
-            halo_state, halo_metrics = jh.make_halo_train_step(jcfg, mesh)(
-                state, jh.shard_halo_batch(jhb, mesh), key, jnp.asarray(1.0))
+    jstate, jmetrics = jax_mesh_step(jcfg, jp, batch, jax.random.PRNGKey(1))
     params = params_from_numpy(jp, pcfg.model)
     pb = port_batch(batch)
     hbs = [build_halo_batch(slice_rows(pb, slice(g * 2, g * 2 + 2)), gp=2)[0] for g in range(2)]
@@ -104,8 +109,8 @@ def tiny_runs():
     got = run_ranks("tests.torch_dist_bodies:several", 4, dict(runs=runs), **RANKS)
     flat = lambda t: flatten(jax.tree.map(np.asarray, t))
     return dict(params=params, j0=flat(jp),
-                dp=([g[0] for g in got[:2]], dp_metrics, flat(dp_state.params)),
-                halo=([g[1] for g in got], halo_metrics, flat(halo_state.params)))
+                dp=([g[0] for g in got[:2]], jmetrics, flat(jstate.params)),
+                halo=([g[1] for g in got], jmetrics, flat(jstate.params)))
 
 
 @pytest.mark.parametrize("path", ["dp", "halo"])
@@ -152,17 +157,26 @@ def test_a_full_width_dp_step_matches_the_one_process_step(one_thread):
 
 
 def test_what_a_step_across_ranks_does_not_take_raises():
+    """Graph shards train through the halo step, not the dp one. 'BN' and
+    dropout models train across ranks (tests/test_torch_dist_options.py):
+    here their stacked dp 2 steps run. The head's leaves are named."""
+    from equidock_public_tpu_torch.models.layers import Dropout
     from equidock_public_tpu_torch.parallel.mesh import ParallelMesh
-    from equidock_public_tpu_torch.parallel.train import (check_ranked_supported, head_leaf,
-                                                          make_parallel_train_step)
+    from equidock_public_tpu_torch.parallel.train import head_leaf, make_parallel_train_step
 
     cfg = port_config(tiny_config())
     with pytest.raises(ValueError, match="make_halo_train_step"):
         make_parallel_train_step(cfg, ParallelMesh(1, 2, "cpu"))
-    for model_kw, match in ((dict(layer_norm="BN"), "BatchNorm"), (dict(dropout=0.1),
-                                                                  "dropout")):
-        with pytest.raises(NotImplementedError, match=match):
-            check_ranked_supported(port_config(tiny_config(**model_kw)))
+    batch = port_batch(synth_batch(np.random.default_rng(0), B=2))
+    for model_kw in (dict(layer_norm="BN"), dict(dropout=0.1)):
+        c = port_config(tiny_config(**model_kw))
+        p = params_from_numpy(jax.tree.map(np.asarray, jm.init_docking_model(
+            jax.random.PRNGKey(0), tiny_config(**model_kw).model)), c.model)
+        drop = Dropout(0.1, torch.Generator().manual_seed(0)) if c.model.dropout else None
+        state, m = make_parallel_train_step(c, ParallelMesh(2, 1, "cpu"))(
+            create_train_state(p, c, "cpu"), batch, 1.0, drop)
+        assert state.step == 1 and np.isfinite(float(m["loss"]))
+        assert bool(state.bn_state) == ("layer_norm" in model_kw)
     heads = {k for k in flatten(params_from_numpy(jax.tree.map(
         np.asarray, jm.init_docking_model(jax.random.PRNGKey(0), tiny_config().model)),
         cfg.model)) if head_leaf(k)}

@@ -148,10 +148,19 @@ def test_what_the_halo_path_does_not_take_raises(rng):
     # tests/test_torch_dist_halo.py)
     gn = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, final_h_layer_norm="GN"))
     make_halo_forward(gn, ParallelMesh(1, 2, "cpu"))
+    # dropout trains on the shards (each takes its part of the whole batch's
+    # masks, tests/test_torch_dist_options.py); a training forward without
+    # masks raises, as the dense one does, and so does a batch without the
+    # node permutations that cut them
     drop = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dropout=0.1))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        make_halo_forward(drop, ParallelMesh(1, 2, "cpu"))
     hb, _, _, _ = build_halo_batch(batch, gp=2)
+    with pytest.raises(ValueError, match="needs `drop`"):
+        make_halo_forward(drop, ParallelMesh(1, 2, "cpu"))(params, hb, train=True)
+    from equidock_public_tpu_torch.models.layers import Dropout
+    with pytest.raises(ValueError, match="node permutations"):
+        make_halo_forward(drop, ParallelMesh(1, 2, "cpu"))(
+            params, dataclasses.replace(hb, perm_lig=None), train=True,
+            drop=Dropout(0.1, torch.Generator().manual_seed(0)))
     with pytest.raises(ValueError, match="split"):
         make_halo_forward(cfg, ParallelMesh(3, 2, "cpu"))(params, hb)
     hbr, _, _, _ = build_halo_batch(batch, gp=2, ragged=True, dp=2)

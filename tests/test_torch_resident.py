@@ -333,18 +333,23 @@ def test_streamed_epoch_bounds_residency(tmp_path, monkeypatch):
 
 
 def test_dp_resident_raises_by_name():
-    """The dp twin is ported (its runs: tests/test_torch_dist_resident.py);
-    what it does not take raises by name: a batch that does not split into
-    the data ranks, and (across ranks) BatchNorm and dropout."""
-    from equidock_public_tpu_torch.config import Config, ModelConfig, TrainConfig
+    """The dp twin is ported (its runs: tests/test_torch_dist_resident.py,
+    dropout: tests/test_torch_dist_options.py); what it does not take
+    raises by name: a batch that does not split into the data ranks, and
+    BatchNorm, the JAX package's own refusal, in its words."""
+    from equidock_public_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
     from equidock_public_tpu_torch.parallel.mesh import ParallelMesh
-    from equidock_public_tpu_torch.parallel.train import check_ranked_supported
+    from equidock_public_tpu_torch.train.loop import check_fit_supported
 
     with pytest.raises(ValueError, match="bs 5 does not split into dp=2"):
         tr.build_resident_split_dp(None, Config(train=TrainConfig(bs=5)),
                                    ParallelMesh(2, 1, "cpu"))
-    with pytest.raises(NotImplementedError, match="BatchNorm across ranks"):
-        check_ranked_supported(Config(model=ModelConfig(layer_norm="BN")))
+    bn = Config(model=ModelConfig(layer_norm="BN"))
+    with pytest.raises(ValueError, match="dp-resident path does not track per-device BN"):
+        tr.run_train_epoch_resident_dp(None, None, bn, ParallelMesh(2, 1, "cpu"), None, None, 0)
+    with pytest.raises(ValueError, match="dp-resident path does not track per-device BN"):
+        check_fit_supported(dataclasses.replace(bn, data=DataConfig(device_resident=True),
+                                                parallel=dataclasses.replace(bn.parallel, dp=2)))
 
 
 def test_full_width_resident_fit_matches_the_golden_file(tmp_path):

@@ -80,7 +80,23 @@ def ring_attention(world, payload):
     return make_ring_cross_attention(_mesh(world, payload))(*payload["args"])
 
 
-def _steps(world, payload, make_step, batch_of):
+def _drop(payload, i):
+    """The dropout masks of step i: recorded ones replayed (`payload["masks"]`,
+    one list a step), or one generator for every step from
+    `payload["drop_seed"]`; None without either."""
+    from equidock_public_tpu_torch.models.layers import Dropout
+
+    rate = payload["cfg"].model.dropout
+    if "masks" in payload:
+        return Dropout(rate, masks=payload["masks"][i])
+    if "drop_seed" in payload:
+        if "_gen" not in payload:
+            payload["_gen"] = Dropout(rate, torch.Generator().manual_seed(payload["drop_seed"]))
+        return payload["_gen"]
+    return None
+
+
+def _steps(world, payload, make_step, batch_of, masks_of=lambda drop, mesh: drop):
     from equidock_public_tpu_torch.params import flatten
     from equidock_public_tpu_torch.parallel.train import params_digest
     from equidock_public_tpu_torch.train.step import create_train_state
@@ -90,21 +106,24 @@ def _steps(world, payload, make_step, batch_of):
     step = make_step(payload["cfg"], mesh)
     metrics = []
     for i in range(payload.get("steps", 1)):
-        state, m = step(state, batch_of(mesh, i), payload.get("lr_scale", 1.0))
+        state, m = step(state, batch_of(mesh, i), payload.get("lr_scale", 1.0),
+                        masks_of(_drop(payload, i), mesh))
         metrics.append({k: float(v) for k, v in m.items()})
     digests = params_digest(state, mesh)
     mesh.close()
     return {"metrics": metrics, "digests": digests, "step": state.step,
-            "params": {k: v.detach().cpu() for k, v in flatten(state.params).items()}}
+            "params": {k: v.detach().cpu() for k, v in flatten(state.params).items()},
+            "bn_state": {s: {k: v.detach().cpu() for k, v in st.items()}
+                         for s, st in state.bn_state.items()}}
 
 
 def dp_steps(world, payload):
     """`make_parallel_train_step` steps on this rank's rows of each batch."""
-    from equidock_public_tpu_torch.parallel.train import make_parallel_train_step
+    from equidock_public_tpu_torch.parallel.train import make_parallel_train_step, rank_dropout
 
     batches = payload["batches"]
     return _steps(world, payload, make_parallel_train_step,
-                  lambda mesh, i: local_rows(batches[i % len(batches)], mesh))
+                  lambda mesh, i: local_rows(batches[i % len(batches)], mesh), rank_dropout)
 
 
 def halo_steps(world, payload):
@@ -153,7 +172,9 @@ def fit_run(world, payload):
 def resident_dp_epochs(world, payload):
     """`run_train_epoch_resident_dp` epochs on the cache at `payload["cache"]`
     (ranks: each its shard of the store; a world of one: the stacked
-    store). Returns each epoch's averages and the final parameters."""
+    store), with the generator draws of `fit`, or `payload["triples"]` and
+    `payload["masks"]` replayed. Returns each epoch's averages and the final
+    parameters."""
     import numpy as np
 
     from equidock_public_tpu_torch.data.dataset import DockingDataset
@@ -163,6 +184,9 @@ def resident_dp_epochs(world, payload):
                                                           run_train_epoch_resident_dp)
     from equidock_public_tpu_torch.train.step import create_train_state
 
+    from equidock_public_tpu_torch.models.layers import Dropout
+    from equidock_public_tpu_torch.train.resident import ReplayDraws
+
     cfg = payload["cfg"]
     mesh = ParallelMesh(payload["dp"], 1, "cpu", world=world)
     ds = DockingDataset.from_cache(cfg, "train", swap=True, cache_path=payload["cache"])
@@ -171,8 +195,12 @@ def resident_dp_epochs(world, payload):
     rng, draws = np.random.default_rng(0), draws_factory(cfg, "cpu")
     averages = []
     for epoch in range(payload["epochs"]):
-        state, tr = run_train_epoch_resident_dp(state, rs, cfg, mesh, rng,
-                                                draws("train", epoch), epoch, do_swap=True)
+        # recorded draws and dropout masks (one list for the epoch), if given
+        src = (ReplayDraws(payload["triples"], "cpu") if "triples" in payload
+               else draws("train", epoch))
+        drop = Dropout(cfg.model.dropout, masks=payload["masks"]) if "masks" in payload else None
+        state, tr = run_train_epoch_resident_dp(state, rs, cfg, mesh, rng, src, epoch,
+                                                do_swap=True, drop=drop)
         averages.append(tr)
     return {"averages": averages, "rows": {b: g.lig.x.shape[0] for b, g in rs.groups.items()},
             "params": {k: v.detach().cpu() for k, v in flatten(state.params).items()}}
